@@ -1,0 +1,233 @@
+"""The port's flash attention (ompi_tpu_torch.ops.attention) against the JAX
+package's, on the CPU.
+
+The port runs its plain PyTorch version here (the tensors lie on the CPU);
+the JAX side runs the Pallas kernels in interpret mode, as tests/test_ops.py
+does.  Inputs are made with numpy from a seed and handed to both.
+
+Tolerances: f32 2e-5 and bf16 2e-2 on the normalised partials o/l (bf16:
+p is rounded to bf16 before the PV product on both sides, and the two
+accumulate in different orders), and the flash_mha forward to 2e-5 (f32) and
+0.06 (bf16), the figures of tests/test_ops.py.  Partials are compared only
+on rows that see at least one key: a fully masked row's o and l depend on
+the tiling, and a merge weights them by zero.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ompi_tpu.ops import attention as jax_attn
+from ompi_tpu.parallel import ring as jax_ring
+from ompi_tpu_torch.ops import attention as attn
+from ompi_tpu_torch.parallel import ring
+
+DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _arrays(shape, n=3, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
+
+
+def _both(arrays, dtype):
+    jd, td, _ = DTYPES[dtype]
+    return ([jnp.asarray(a, jd) for a in arrays],
+            [torch.from_numpy(a).to(td) for a in arrays])
+
+
+def _np(x):
+    return np.asarray(x.float() if torch.is_tensor(x) else
+                      jnp.asarray(x, jnp.float32))
+
+
+def _assert_partials_close(got, want, seen, tol):
+    """(o, m, l) triples agree on the rows in ``seen`` (bh, s_q); rows that
+    see no key have m ≤ -1e29 on both sides."""
+    (o1, m1, l1), (o2, m2, l2) = [[_np(x) for x in t] for t in (got, want)]
+    np.testing.assert_allclose(o1[seen] / l1[seen][:, None],
+                               o2[seen] / l2[seen][:, None], rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(m1[seen], m2[seen], rtol=tol, atol=tol)
+    np.testing.assert_allclose(l1[seen], l2[seen], rtol=tol, atol=tol)
+    assert (m1[~seen] <= -1e29).all() and (m2[~seen] <= -1e29).all()
+
+
+def _seen(bh, s_q, causal, q_offset, kv_offset, s_k):
+    rows = q_offset + np.arange(s_q)
+    seen = (rows >= kv_offset) if causal else np.ones(s_q, bool)
+    return np.broadcast_to(seen & (s_k > 0), (bh, s_q))
+
+
+# (causal, q_offset, kv_offset, s_q, s_k): the offset cases of
+# tests/test_ops.py plus a hop that sees nothing and partly masked hops
+CASES = {
+    "dense": (False, 0, 0, 128, 128),
+    "causal": (True, 0, 0, 128, 128),
+    "hop_fully_visible": (True, 128, 0, 128, 128),
+    "hop_invisible": (True, 0, 128, 128, 128),
+    "hop_partly_masked": (True, 0, 32, 128, 128),
+    "hop_q_later": (True, 32, 0, 128, 128),
+    "cross_sq_lt_sk": (False, 0, 0, 64, 128),
+    "cross_causal": (True, 64, 0, 64, 128),
+}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_partials_match_jax(case, dtype):
+    causal, q_off, kv_off, s_q, s_k = CASES[case]
+    bh, d = 2, 16
+    q, k, v = (_arrays((bh, s_q, d), 1, seed=1)
+               + _arrays((bh, s_k, d), 2, seed=2))
+    (jq, jk, jv), (tq, tk, tv) = _both([q, k, v], dtype)
+    want = jax_attn.flash_attention_partials(
+        jq, jk, jv, causal=causal, q_offset=q_off, kv_offset=kv_off,
+        block_q=64, block_k=64, interpret=True)
+    got = attn.flash_attention_partials(
+        tq, tk, tv, causal=causal, q_offset=q_off, kv_offset=kv_off,
+        block_q=64, block_k=64)
+    assert all(x.dtype == torch.float32 for x in got)
+    assert got[0].shape == (bh, s_q, d) and got[1].shape == (bh, s_q)
+    _assert_partials_close(got, want,
+                           _seen(bh, s_q, causal, q_off, kv_off, s_k),
+                           DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_partials_bf16_same_tiling_rounds_p_alike(causal):
+    """With the Pallas kernel's own tiling the running maxima match, so p
+    rounds to the same bf16 values before the PV product on both sides and
+    the results agree far inside the bf16 tolerance (1e-4; without the
+    cast of p they differ by ~1e-3)."""
+    bh, s, d = 2, 128, 16
+    (jq, jk, jv), (tq, tk, tv) = _both(_arrays((bh, s, d)), "bf16")
+    want = jax_attn.flash_attention_partials(
+        jq, jk, jv, causal=causal, block_q=64, block_k=64, interpret=True)
+    got = attn.flash_attention_partials(tq, tk, tv, causal=causal,
+                                        block_q=64, block_k=64)
+    _assert_partials_close(got, want, _seen(bh, s, causal, 0, 0, s), 1e-4)
+
+
+@pytest.mark.parametrize("blocks", [(32, 32), (128, 64), (None, None)])
+def test_partials_tiling_does_not_change_seen_rows(blocks):
+    """Any legal tiling of the plain version gives the JAX result on rows
+    that see a key, the default (None) included."""
+    bh, s, d = 2, 128, 16
+    q, k, v = _arrays((bh, s, d))
+    (jq, jk, jv), (tq, tk, tv) = _both([q, k, v], "f32")
+    want = jax_attn.flash_attention_partials(
+        jq, jk, jv, causal=True, kv_offset=16, block_q=64, block_k=64,
+        interpret=True)
+    got = attn.flash_attention_partials(tq, tk, tv, causal=True,
+                                        kv_offset=16, block_q=blocks[0],
+                                        block_k=blocks[1])
+    _assert_partials_close(got, want, _seen(bh, s, True, 0, 16, s), 2e-5)
+
+
+def test_partials_default_block_ragged_sequence():
+    """A sequence that 128 does not divide is one block of the plain
+    version; the JAX package's auto-pick takes it whole too."""
+    bh, s, d = 2, 200, 16
+    q, k, v = _arrays((bh, s, d))
+    (jq, jk, jv), (tq, tk, tv) = _both([q, k, v], "f32")
+    want = jax_attn.flash_attention_partials(jq, jk, jv, causal=True,
+                                             interpret=True)
+    got = attn.flash_attention_partials(tq, tk, tv, causal=True)
+    _assert_partials_close(got, want, _seen(bh, s, True, 0, 0, s), 2e-5)
+
+
+def test_partials_cast_kv_to_q_dtype():
+    bh, s, d = 1, 64, 16
+    q, k, v = _arrays((bh, s, d))
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    got = attn.flash_attention_partials(tq, tk, tv)
+    want = attn.flash_attention_partials(tq, tk.to(torch.bfloat16),
+                                         tv.to(torch.bfloat16))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_merge_across_shards_equals_dense(causal):
+    """Two K/V halves merged with ring._merge equal attention over the whole
+    kv: the contract ring attention relies on (tests/test_ops.py)."""
+    b, s, h, d = 1, 128, 2, 16
+    q, k, v = _arrays((b, s, h, d))
+    fold = lambda x: torch.from_numpy(x).transpose(1, 2).reshape(b * h, s, d)
+    qf, kf, vf = fold(q), fold(k), fold(v)
+    half = s // 2
+    p1 = attn.flash_attention_partials(qf, kf[:, :half], vf[:, :half],
+                                       causal=causal, block_q=64, block_k=64)
+    p2 = attn.flash_attention_partials(qf, kf[:, half:], vf[:, half:],
+                                       causal=causal, kv_offset=half,
+                                       block_q=64, block_k=64)
+    o, m, l = ring._merge(*p1, *p2)
+    out = (o / l[..., None]).reshape(b, h, s, d).transpose(1, 2)
+    want = jax_ring.attention_reference(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_reference_matches_jax(causal):
+    q, k, v = _arrays((2, 64, 2, 16))
+    got = ring.attention_reference(*map(torch.from_numpy, (q, k, v)),
+                                   causal=causal)
+    want = jax_ring.attention_reference(*map(jnp.asarray, (q, k, v)),
+                                        causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+FLASH_MHA_TOL = {"f32": 2e-5, "bf16": 0.06}
+
+
+@pytest.mark.parametrize("dtype", sorted(FLASH_MHA_TOL))
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_mha_forward_matches_jax(dtype, causal):
+    q, k, v = _arrays((2, 128, 2, 16))
+    (jq, jk, jv), (tq, tk, tv) = _both([q, k, v], dtype)
+    want, res = jax_attn._flash_mha_fwd(jq, jk, jv, causal, None, 64, 64,
+                                        True)
+    got = attn.flash_mha(tq, tk, tv, causal, None, 64, 64)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    tol = FLASH_MHA_TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    _, lse = attn._flash_mha_fwd(tq, tk, tv, causal, None, 64, 64)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(res[4]), rtol=tol,
+                               atol=tol)
+
+
+def test_flash_mha_requires_uniform_dtype():
+    q, k, v = (torch.from_numpy(a) for a in _arrays((1, 64, 2, 16)))
+    with pytest.raises(TypeError, match="uniform q/k/v dtype"):
+        attn.flash_mha(q, k.to(torch.bfloat16), v)
+
+
+def test_flash_mha_refuses_gradients():
+    q, k, v = (torch.from_numpy(a) for a in _arrays((1, 64, 2, 16)))
+    with pytest.raises(NotImplementedError, match="training slice"):
+        attn.flash_mha(q.requires_grad_(), k, v)
+
+
+@pytest.mark.parametrize("blocks", [(48, 64), (64, 96)])
+def test_blocks_must_divide_sequence(blocks):
+    q, k, v = (torch.from_numpy(a) for a in _arrays((2, 128, 16)))
+    with pytest.raises(ValueError, match="must divide into"):
+        attn.flash_attention_partials(q, k, v, block_q=blocks[0],
+                                      block_k=blocks[1])
+    with pytest.raises(ValueError, match="must divide into"):
+        attn.flash_mha(q[:, :, None], k[:, :, None], v[:, :, None], True,
+                       None, *blocks)
+
+
+def test_unsupported_device_raises():
+    q = torch.empty((1, 64, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        attn.flash_attention_partials(q, q, q)
