@@ -6,16 +6,30 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi) and properties;
   2. build   — nvcc builds every kernel under ompi_tpu_torch/csrc/;
-  3. kernels — each kernel against its plain PyTorch version on the card,
-               over the cases listed in K1_CASES, and the merge contract;
-  4. main path — the flagship forward at full flagship_config() width,
+  3. kernels — each kernel against its plain PyTorch version on the card:
+               K1 over K1_CASES and the merge contract, K2 and K3 over
+               BWD_CASES row by row (each case also shows that the check
+               rejects a planted fault), and flash_mha's gradients through
+               autograd against
+               autograd through the dense attention_reference;
+  4. forward path — the flagship forward at full flagship_config() width,
                batch 4 x 2048, weights from torch.Generator().manual_seed(0):
                logits checked, K1 launches counted (exactly n_layers per
                forward), 4 requests answered greedily by full-context
                recompute, and the flash logits held against attn="dense";
-  5. numbers — CUDA-event medians of K1, its plain version, the SDPA
-               yardstick and one forward, as JSON lines, and a
-               torch.profiler breakdown of one forward's device time.
+  5. forward numbers — CUDA-event medians of K1, its plain version, the
+               SDPA yardstick and one forward, as JSON lines, and a
+               torch.profiler breakdown of one forward's device time;
+  6. train path — make_train_step at full width, batch 4 x (2048 + 1),
+               remat "dots", AdamW: K1/K2/K3 launches per step counted
+               exactly, a finite loss that falls over six steps on one
+               batch, and attn="dense" from the same weights (losses and
+               first-step gradients held to stated bounds, no K1/K2/K3
+               launch);
+  7. train numbers — CUDA-event medians of K2, K3, their plain versions,
+               flash_mha's backward and SDPA's backward; the train step's
+               ms, tokens/s, MFU and peak memory for remat none/dots/full
+               and attn="dense"; a torch.profiler breakdown of one step.
 The last lines are the kernels JSON object, the nvidia-smi line and
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
 result.
@@ -62,6 +76,70 @@ K1_CASES = [
     ("bf16 flagship shape", "bfloat16", True, 64, 2048, 2048, 128, 0, 0),
 ]
 PATH_CASE = "bf16 flagship shape"
+
+# K2/K3 against their plain versions, row by row (q rows of dq, kv rows of
+# dk and dv): |kernel - plain| <= BWD_TOL * max |plain| over the row
+# + BWD_ATOL * max |plain| over the tensor.  Per row, because under causal
+# masking the rows' gradients shrink down the sequence (the first rows hold
+# the tensor's max, the last are ~100x smaller), so a bound on the global
+# max would not see a wrong tile near the end.  f32 runs the same FMA
+# arithmetic in another order (~1e-6 of a row); bf16 rounds p and ds to
+# bf16 from scores summed in another order and rounds the results to bf16
+# (one bf16 step is 2^-8 = 3.9e-3 of an element).  BWD_ATOL covers rows
+# that are zero up to rounding: dq's first row under causal masking, where
+# p = 1 and dp = delta (~1e-7 of the max).
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+BWD_ATOL = 1e-5
+# Every case also plants a fault in the kernel's result, PLANTED_ERR off on
+# the last quarter of the rows and on the last 64-row tile, and requires
+# the check to reject both.
+PLANTED_ERR = 0.1
+# (name, dtype, causal, bh, s_q, s_k, d)
+BWD_CASES = [
+    ("f32 dense d64", "float32", False, 4, 256, 256, 64),
+    ("f32 causal d128", "float32", True, 4, 256, 256, 128),
+    ("f32 ragged causal d64", "float32", True, 3, 77, 77, 64),
+    ("f32 d256 sq!=sk", "float32", False, 2, 96, 160, 256),
+    ("bf16 dense d64", "bfloat16", False, 4, 256, 256, 64),
+    ("bf16 causal d128", "bfloat16", True, 4, 256, 256, 128),
+    ("bf16 sq!=sk d128", "bfloat16", False, 4, 128, 320, 128),
+    ("bf16 ragged s=200", "bfloat16", True, 4, 200, 200, 128),
+    ("bf16 ragged d80", "bfloat16", False, 2, 131, 97, 80),
+    ("bf16 d256 causal", "bfloat16", True, 2, 192, 192, 256),
+    ("bf16 flagship shape", "bfloat16", True, 64, 2048, 2048, 128),
+]
+# flash_mha's gradients against autograd through the dense reference: f32
+# elementwise to 2e-4 (rtol = atol, the figure of tests/test_ops.py); bf16
+# at the path's shape against the dense f32 gradients of the same inputs,
+# as a relative RMS: the flash path rounds o, p and ds to bf16 (2^-8 each)
+# and 1e-2 leaves room for a few such roundings.
+GRAD_TOL_F32 = 2e-4
+GRAD_RMS_BF16 = 1e-2
+# (dtype, (b, s, h, d), causal cases): a moderate f32 size, and the path's
+GRAD_CASES = [("float32", (2, 512, 4, 64), (False, True)),
+              ("bfloat16", (4, 2048, 16, 128), (True,))]
+# The train path, flash against attn="dense" from the same weights and
+# batch, bf16: the first three losses to 1e-2 relative, and the first
+# step's gradients, all leaves together, to a relative RMS of 0.1.  The
+# dense path rounds the scores and the softmax itself to bf16, so its
+# forward's logits sit ~1.9e-2 (RMS) from f32 (phase 4 measures it);
+# a gradient through six such layers takes a few times that.
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_RMS = 0.1
+TRAIN_STEPS = 6          # on one repeated batch: the loss must fall
+TIMED_STEPS, WARMUP_STEPS = 10, 2
+BATCH = 4
+
+# How the profile groups kernels by name (first match wins).
+KERNEL_CLASSES = [
+    ("K1 partials_kernel", ("partials_kernel",)),
+    ("K2 dkdv_kernel", ("dkdv_kernel",)),
+    ("K3 dq_kernel", ("dq_kernel",)),
+    ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("copies and casts", ("copy_kernel", "bfloat16_copy")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise_kernel",)),
+]
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W).
 PEAK_BF16_FLOPS = 989e12
@@ -164,16 +242,117 @@ def check_merge(torch, attention, ring, dtype):
              "max_abs_err": err, "tol": tol, "ok": True})
 
 
-def profile_forward(torch, fn, fwd_ms: float, card: str) -> None:
-    """Where one warm forward's device time goes: kernel time by name from
-    torch.profiler, and the device's idle share of the unprofiled forward
-    time ``fwd_ms`` (the profiler's own overhead lengthens the profiled
-    wall time, so that is reported but not used)."""
+def bwd_args(torch, attention, dtype, causal, bh, s_q, s_k, d):
+    """(q, k, v, dO, lse, delta) for K2/K3: random q, k, v, dO, with lse
+    and delta from one K1 forward of the same inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(s_q * 1000 + d + 1)
+    mk = lambda s: torch.randn((bh, s, d), generator=gen, device="cuda",
+                               dtype=getattr(torch, dtype))
+    q, k, v, do = mk(s_q), mk(s_k), mk(s_k), mk(s_q)
+    o, m, l = attention.flash_attention_partials(q, k, v, causal=causal)
+    l = l.clamp_min(1e-20)
+    of = (o / l[..., None]).to(q.dtype)
+    return (q, k, v, do, m + torch.log(l),
+            (do.float() * of.float()).sum(dim=-1))
+
+
+def bound_use(got, want, tol: float) -> float:
+    """The largest |got - want| over its row's bound (see BWD_TOL); the
+    check passes at <= 1."""
+    top = want.abs()
+    lim = (tol * top.amax(dim=-1, keepdim=True)
+           + BWD_ATOL * top.amax(dim=(-2, -1), keepdim=True))
+    return float(((got - want).abs() / lim).max())
+
+
+def check_bwd(torch, attention, case):
+    """One K2/K3-vs-plain comparison; returns, for each of dq, dk and dv,
+    the max abs error, the bound used (bound_use) and what the two planted
+    faults read."""
+    name, dtype, causal, bh, s_q, s_k, d = case
+    args = bwd_args(torch, attention, dtype, causal, bh, s_q, s_k, d)
+    dk, dv = attention.flash_mha_bwd_dkdv(*args, causal=causal)
+    dq = attention.flash_mha_bwd_dq(*args, causal=causal)
+    want_dk, want_dv = attention.flash_mha_bwd_dkdv_reference(*args,
+                                                              causal=causal)
+    want_dq = attention.flash_mha_bwd_dq_reference(*args, causal=causal)
+    torch.cuda.synchronize()
+    tol = BWD_TOL[dtype]
+    errs, used, planted = {}, {}, {}
+    for what, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
+        got, want = got.float(), want.float()
+        errs[what] = float((got - want).abs().max())
+        used[what] = bound_use(got, want, tol)
+        if not (bool(torch.isfinite(got).all()) and used[what] <= 1):
+            raise AssertionError(
+                f"K2/K3 {name}: {what} max err {errs[what]:.3g}, "
+                f"{used[what]:.3g} of its row's bound, finite="
+                f"{bool(torch.isfinite(got).all())}")
+        s = got.shape[1]
+        planted[what] = {}
+        for fault, rows in (("last_quarter", slice(s - s // 4, s)),
+                            ("last_tile", slice(max(s - 64, 0), s))):
+            bad = got.clone()
+            bad[:, rows] *= 1 + PLANTED_ERR
+            planted[what][fault] = bound_use(bad, want, tol)
+            if not planted[what][fault] > 1:
+                raise AssertionError(
+                    f"K2/K3 {name}: {what} with the {fault} rows "
+                    f"{PLANTED_ERR:.0%} off reads {planted[what][fault]:.3g}"
+                    f" of the bound; the check would pass it")
+    return errs, used, planted
+
+
+def mha_grads(torch, fn, q, k, v, g):
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    return torch.autograd.grad(fn(q, k, v), (q, k, v), g)
+
+
+def check_grad(torch, attention, ring) -> None:
+    """flash_mha through autograd (K1, then delta, K2, K3) against autograd
+    through the dense attention_reference."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for dtype, shape, causals in GRAD_CASES:
+        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda",
+                                  dtype=getattr(torch, dtype))
+                      for _ in range(4))
+        for causal in causals:
+            got = mha_grads(torch, lambda q, k, v: attention.flash_mha(
+                q, k, v, causal), q, k, v, g)
+            # the dense reference runs in f32 on the same (bf16) values
+            want = mha_grads(torch, lambda q, k, v: ring.attention_reference(
+                q, k, v, causal=causal), *(x.float() for x in (q, k, v, g)))
+            torch.cuda.synchronize()
+            for what, a, b in zip(("dq", "dk", "dv"), got, want):
+                if dtype == "float32":
+                    err = float((a - b).abs().max())
+                    ok = bool(((a - b).abs() <= GRAD_TOL_F32
+                               + GRAD_TOL_F32 * b.abs()).all())
+                    tol = GRAD_TOL_F32
+                else:
+                    err = rel_rms(a.float(), b)
+                    ok, tol = err < GRAD_RMS_BF16, GRAD_RMS_BF16
+                log({"phase": "grad_check", "dtype": dtype, "causal": causal,
+                     "shape": list(shape), "grad": what,
+                     "max_abs_err" if dtype == "float32" else "rel_rms": err,
+                     "tol": tol, "ok": ok})
+                if not ok:
+                    raise AssertionError(f"flash_mha {dtype} causal={causal}"
+                                         f" {what}: {err:.3g} (tol {tol})")
+            del got, want
+
+
+def profile_run(torch, fn, ref_ms: float, card: str, what: str) -> None:
+    """Where one warm run of ``fn`` spends device time: kernel time by name
+    from torch.profiler, and the device's idle share of the unprofiled time
+    ``ref_ms`` (the profiler's own overhead lengthens the profiled wall
+    time, so that is reported but not used)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
-        for step in range(2):            # a warm-up step, then the record
+        for step in range(2):            # a warm-up run, then the record
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -185,20 +364,160 @@ def profile_forward(torch, fn, fwd_ms: float, card: str) -> None:
     events = [e for e in prof.key_averages() if e.device_type == kernels
               and not e.key.startswith("ProfilerStep")]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    log({"phase": "profile", "profiled_wall_ms": wall_ms,
-         "device_busy_ms": busy_ms, "forward_ms": fwd_ms,
-         # no device time seen means the profiler could not trace the
-         # card: the share is then not measured, not 100% idle
-         "idle_share": 1 - busy_ms / fwd_ms if busy_ms else None,
-         "card": card,
-         "top": [{"name": e.key[:90], "count": e.count,
-                  "device_ms": e.self_device_time_total / 1e3}
-                 for e in top]})
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    by_class = {}
+    for e in events:
+        cls = next((c for c, marks in KERNEL_CLASSES
+                    if any(m in e.key for m in marks)), "other")
+        ms, count = by_class.get(cls, (0.0, 0))
+        by_class[cls] = (ms + e.self_device_time_total / 1e3,
+                         count + e.count)
+    out = {"phase": "profile", "what": what, "profiled_wall_ms": wall_ms,
+           "device_busy_ms": busy_ms, "unprofiled_ms": ref_ms,
+           # no device time seen means the profiler could not trace the
+           # card: the share is then not measured, not 100% idle
+           "idle_share": 1 - busy_ms / ref_ms if busy_ms else None,
+           "card": card,
+           "by_class": {c: {"device_ms": ms, "launches": n}
+                        for c, (ms, n) in sorted(by_class.items())},
+           "top": [{"name": e.key[:90], "count": e.count,
+                    "device_ms": e.self_device_time_total / 1e3}
+                   for e in top]}
+    log(out)
 
 
 def rel_rms(a, b) -> float:
     return float(((a - b).square().mean() / b.square().mean()).sqrt())
+
+
+def bound(flops: float, n_bytes: float):
+    """The least time the card could take: (bound ms, what bounds it)."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def launch_counts(attention):
+    return (attention.launches, attention.dkdv_launches,
+            attention.dq_launches)
+
+
+def clone_tree(optim, tree):
+    return optim.tree_map(lambda t: t.clone(), tree)
+
+
+def grads_rel_rms(got, want) -> float:
+    """Relative RMS over all leaves together."""
+    num = sum(float((a.float() - b.float()).square().sum())
+              for a, b in zip(got, want))
+    return math.sqrt(num / sum(float(b.float().square().sum())
+                               for b in want))
+
+
+def run_steps(tfm, cfg, params, tokens, n: int):
+    init_opt, step = tfm.make_train_step(cfg, learning_rate=1e-3)
+    state, losses = init_opt(params), []
+    for _ in range(n):
+        params, state, loss = step(params, state, tokens)
+        losses.append(float(loss))
+    return losses
+
+
+def train_path(torch, tfm, optim, attention, cfg, pristine, tokens):
+    """The slice's main path: make_train_step at full width.  Returns the
+    K1/K2/K3 launches of its first step."""
+    n = cfg.n_layers
+    init_opt, step = tfm.make_train_step(cfg, learning_rate=1e-3)
+    params = clone_tree(optim, pristine)
+    state = init_opt(params)
+    attention.launches = attention.dkdv_launches = attention.dq_launches = 0
+    params, state, loss = step(params, state, tokens)
+    torch.cuda.synchronize()
+    per_step = launch_counts(attention)
+    # K1 runs in the forward and again in the remat recompute; K2 and K3
+    # once per layer in the backward
+    want = (2 * n if cfg.remat != "none" else n, n, n)
+    if per_step != want:
+        raise AssertionError(f"K1/K2/K3 launches in one train step: "
+                             f"{per_step}, want {want}")
+    losses = [float(loss)]
+    for _ in range(TRAIN_STEPS - 1):
+        params, state, loss = step(params, state, tokens)
+        losses.append(float(loss))
+    log({"phase": "train_path", "config": dataclasses.asdict(cfg)
+         | {"dtype": str(cfg.dtype)}, "batch": BATCH,
+         "tokens_shape": list(tokens.shape), "learning_rate": 1e-3,
+         "k1_k2_k3_launches_per_step": list(per_step), "losses": losses})
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses on one repeated batch: {losses}")
+    del params, state
+
+    # attn="dense" from the same weights and batch: no K1/K2/K3 launch
+    dense = dataclasses.replace(cfg, attn="dense")
+    before = launch_counts(attention)
+    dense_losses = run_steps(tfm, dense, clone_tree(optim, pristine), tokens,
+                             3)
+    # the train step's own value-and-grad, from the pristine weights
+    grads = lambda c: tfm.value_and_grad(clone_tree(optim, pristine),
+                                         tokens, c)[1]
+    g_dense = grads(dense)
+    torch.cuda.synchronize()
+    if launch_counts(attention) != before:
+        raise AssertionError("the dense train path launched K1, K2 or K3")
+    g_flash = grads(cfg)
+    rel = grads_rel_rms(g_flash, g_dense)
+    g_truth = grads(dataclasses.replace(dense, dtype=torch.float32))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, dense_losses))
+    log({"phase": "train_flash_vs_dense", "flash_losses": losses[:3],
+         "dense_losses": dense_losses, "loss_max_rel_diff": loss_rel,
+         "loss_bound": TRAIN_LOSS_REL, "grad_rel_rms": rel,
+         "grad_bound": TRAIN_GRAD_RMS,
+         "flash_vs_f32_grad_rel_rms": grads_rel_rms(g_flash, g_truth),
+         "dense_vs_f32_grad_rel_rms": grads_rel_rms(g_dense, g_truth)})
+    if not (loss_rel < TRAIN_LOSS_REL and rel < TRAIN_GRAD_RMS):
+        raise AssertionError(f"flash vs dense train: loss rel diff "
+                             f"{loss_rel:.3g} (bound {TRAIN_LOSS_REL}), grad "
+                             f"rel RMS {rel:.3g} (bound {TRAIN_GRAD_RMS})")
+    return per_step
+
+
+def time_train(torch, tfm, optim, cfg, pristine, tokens, card,
+               profile=False) -> None:
+    """Log the median ms of TIMED_STEPS chained train steps after
+    WARMUP_STEPS, by CUDA events, with the peak memory of the run."""
+    init_opt, step = tfm.make_train_step(cfg, learning_rate=1e-3)
+    params = clone_tree(optim, pristine)
+    state = init_opt(params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(WARMUP_STEPS):
+        params, state, _ = step(params, state, tokens)
+    times = []
+    for _ in range(TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, loss = step(params, state, tokens)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    n_tokens = tokens.shape[0] * (tokens.shape[1] - 1)
+    tokens_per_s = n_tokens / ms * 1e3
+    log({"phase": "train_numbers", "attn": cfg.attn, "remat": cfg.remat,
+         "step_ms": ms, "step_ms_all": times, "tokens_per_step": n_tokens,
+         "tokens_per_s": tokens_per_s,
+         "mfu": tokens_per_s * tfm.train_flops_per_token(cfg)
+         / PEAK_BF16_FLOPS,
+         "peak_bytes": torch.cuda.max_memory_allocated(),
+         "bytes_before_run": base, "final_loss": float(loss), "card": card})
+    if profile:
+        def one_step():
+            nonlocal params, state
+            params, state, _ = step(params, state, tokens)
+        profile_run(torch, one_step, ms, card, "train_step")
 
 
 def main() -> int:
@@ -209,7 +528,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs only on a CUDA device", file=sys.stderr)
         return 1
-    from ompi_tpu_torch import _build
+    from ompi_tpu_torch import _build, optim
     from ompi_tpu_torch.models import transformer as tfm
     from ompi_tpu_torch.ops import attention
     from ompi_tpu_torch.parallel import ring
@@ -247,6 +566,18 @@ def main() -> int:
             path_err = err
     for dtype in ("float32", "bfloat16"):
         check_merge(torch, attention, ring, dtype)
+    bwd_err = None
+    for case in BWD_CASES:
+        errs, used, planted = check_bwd(torch, attention, case)
+        log({"phase": "k2_k3_check", "case": case[0], "dtype": case[1],
+             "causal": case[2], "shape": list(case[3:]), "max_abs_err": errs,
+             "row_tol": BWD_TOL[case[1]], "atol_of_max": BWD_ATOL,
+             "bound_use": used, "planted_fault_bound_use": planted,
+             "ok": True})
+        if case[0] == PATH_CASE:
+            bwd_err = errs
+    check_grad(torch, attention, ring)
+    torch.cuda.empty_cache()
 
     # 4. the main path at full width
     cfg = tfm.flagship_config()
@@ -321,14 +652,16 @@ def main() -> int:
         mha_ms = median_ms(lambda: attention.flash_mha(qm, km, vm, True))
         fwd_ms = median_ms(lambda: tfm.forward(params, tokens, cfg), n=10)
         dense_ms = median_ms(lambda: tfm.forward(params, tokens, dense), n=10)
-        profile_forward(torch, lambda: tfm.forward(params, tokens, cfg),
-                        fwd_ms, card)
+        profile_run(torch, lambda: tfm.forward(params, tokens, cfg), fwd_ms,
+                    card, "forward")
 
     pairs = bh * s * (s + 1) // 2                # causal, offsets 0
-    flops = 4 * d * pairs                        # QK^T and PV
-    n_bytes = 3 * bh * s * d * 2 + bh * s * d * 4 + 2 * bh * s * 4
+    tile = bh * s * d * 2                        # one bf16 (bh, s, d) tensor
+    vec = bh * s * 4                             # one f32 (bh, s) vector
+    # K1: q, k, v in; o (f32), m, l out; QK^T and PV
+    flops, n_bytes = 4 * d * pairs, 3 * tile + 2 * tile + 2 * vec
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
+    k1_bound, k1_by = bound(flops, n_bytes)
     for metric, value in (("k1_ms", k1_ms), ("k1_plain_ms", plain_ms),
                           ("sdpa_ms", sdpa_ms), ("flash_mha_ms", mha_ms),
                           ("forward_ms", fwd_ms),
@@ -339,20 +672,101 @@ def main() -> int:
     log({"phase": "numbers", "metric": "k1_bound", "flop": flops,
          "bytes": n_bytes, "ops_ms": t_ops, "bytes_ms": t_bytes,
          "k1_tflops": flops / k1_ms / 1e9, "roofline_share":
-         bound_ms / k1_ms, "card": card})
+         k1_bound / k1_ms, "card": card})
 
-    log({"kernels": [{
-        "name": "flash_partials", "route": "cuda",
-        "source": "ompi_tpu_torch/csrc/flash_partials.cu",
-        "replaces": "ompi_tpu/ops/attention.py:248",
-        "launches": launches, "max_abs_err": path_err, "ms": k1_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": sdpa_ms}]})
+    del params
+    torch.cuda.empty_cache()
+
+    # 6. the train path at full width
+    pristine = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    train_tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (BATCH, cfg.seq + 1))).cuda()
+    per_step = train_path(torch, tfm, optim, attention, cfg, pristine,
+                          train_tokens)
+    torch.cuda.empty_cache()
+
+    # 7. train numbers, CUDA-event medians
+    args = bwd_args(torch, attention, "bfloat16", True, bh, s, s, d)
+    k2_ms = median_ms(lambda: attention.flash_mha_bwd_dkdv(*args,
+                                                           causal=True))
+    k3_ms = median_ms(lambda: attention.flash_mha_bwd_dq(*args, causal=True))
+    k2_plain_ms = median_ms(lambda: attention.flash_mha_bwd_dkdv_reference(
+        *args, causal=True), n=5, warmup=1)
+    k3_plain_ms = median_ms(lambda: attention.flash_mha_bwd_dq_reference(
+        *args, causal=True), n=5, warmup=1)
+    q, k, v, do = args[:4]
+    b4 = lambda x: x.reshape(BATCH, cfg.n_heads, s, d)   # (b, h, s, d)
+    qs, ks, vs = (b4(x).detach().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs,
+                                                           is_causal=True)
+    sdpa_bwd_ms = median_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), b4(do), retain_graph=True))
+    qm, km, vm = (b4(x).transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = attention.flash_mha(qm, km, vm, True)
+    g = b4(do).transpose(1, 2)
+    mha_bwd_ms = median_ms(lambda: torch.autograd.grad(
+        out, (qm, km, vm), g, retain_graph=True))
+    del out, qs, ks, vs, qm, km, vm, args
+    # the step's two halves at the path: value-and-grad, then AdamW
+    params = clone_tree(optim, pristine)
+    grads_ms = median_ms(lambda: tfm.value_and_grad(params, train_tokens,
+                                                    cfg), n=5)
+    grads = list(tfm.value_and_grad(params, train_tokens, cfg)[1])
+    state = optim.adamw_init(params, cfg.opt_moment_dtype)
+    adamw_ms = median_ms(lambda: optim.adamw_update(params, grads, state,
+                                                    1e-3), n=10)
+    del params, grads, state
+    torch.cuda.empty_cache()
+    for remat in ("dots", "none", "full"):
+        time_train(
+            torch, tfm, optim, dataclasses.replace(cfg, remat=remat),
+            pristine, train_tokens, card, profile=remat == "dots")
+        torch.cuda.empty_cache()
+    time_train(torch, tfm, optim, dataclasses.replace(cfg, attn="dense"),
+               pristine, train_tokens, card)
+
+    # K2: q, k, v, dO, lse, delta in; dk, dv out; 4 causal products
+    k2_bound, k2_by = bound(8 * d * pairs, 6 * tile + 2 * vec)
+    # K3: q, k, v, dO, lse, delta in; dq out; 3 causal products
+    k3_bound, k3_by = bound(6 * d * pairs, 5 * tile + 2 * vec)
+    for metric, value in (("k2_ms", k2_ms), ("k2_plain_ms", k2_plain_ms),
+                          ("k3_ms", k3_ms), ("k3_plain_ms", k3_plain_ms),
+                          ("flash_mha_bwd_ms", mha_bwd_ms),
+                          ("train_value_and_grad_ms", grads_ms),
+                          ("train_adamw_ms", adamw_ms),
+                          ("sdpa_bwd_ms", sdpa_bwd_ms),
+                          ("k2_bound_ms", k2_bound), ("k3_bound_ms", k3_bound),
+                          ("k2_tflops", 8 * d * pairs / k2_ms / 1e9),
+                          ("k3_tflops", 6 * d * pairs / k3_ms / 1e9)):
+        log({"phase": "numbers", "metric": metric, "value": value,
+             "card": card})
+
+    log({"kernels": [
+        {"name": "flash_partials", "route": "cuda",
+         "source": "ompi_tpu_torch/csrc/flash_partials.cu",
+         "replaces": "ompi_tpu/ops/attention.py:248",
+         "launches": per_step[0], "max_abs_err": path_err, "ms": k1_ms,
+         "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
+         "library_ms": sdpa_ms},
+        {"name": "flash_bwd_dkdv", "route": "cuda",
+         "source": "ompi_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "ompi_tpu/ops/attention.py:381",
+         "launches": per_step[1],
+         "max_abs_err": max(bwd_err["dk"], bwd_err["dv"]), "ms": k2_ms,
+         "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
+         "library_ms": sdpa_bwd_ms},
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": "ompi_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "ompi_tpu/ops/attention.py:436",
+         "launches": per_step[2], "max_abs_err": bwd_err["dq"],
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": sdpa_bwd_ms}]})
     log(card)
+    # count: the cards this run used
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
-                                "count": torch.cuda.device_count()}})
+                                "count": 1}})
     return 0
 
 

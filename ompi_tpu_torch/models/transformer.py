@@ -1,4 +1,4 @@
-"""Flagship workload: the GPT-style decoder of the JAX package, forward only.
+"""Flagship workload: the GPT-style decoder of the JAX package, on one device.
 
 Counterpart of ``ompi_tpu/models/transformer.py`` on one device: the same
 ``Config``, the same parameter tree and layouts (``wqkv (d, 3h)`` as
@@ -10,21 +10,32 @@ f32 logits.  ``attn="flash"`` runs ``flash_mha`` (kernel K1 on the card);
 ``attn="dense"`` runs ``attention_reference``.  The large products are
 ``torch.matmul``, as the JAX package left them to XLA.
 
+Training: ``make_train_step``'s step takes ``value_and_grad`` of
+``loss_fn`` over the f32 master leaves (``flash_mha``'s backward is K2 and
+K3 on the card) and applies AdamW in place (``ompi_tpu_torch.optim``).  ``remat`` wraps each
+layer in ``torch.utils.checkpoint``: ``"full"`` recomputes the layer,
+``"dots"`` saves the weight products' outputs and recomputes the rest, K1
+included.  ``loss_chunk`` runs the chunked cross-entropy.
+
 Not yet ported, each refused with the ROADMAP slice that brings it:
-training (``make_train_step``, remat, AdamW: P2), ``attn="ring"`` (P5),
-``mlp="moe"`` (P12), ``tp_overlap="fused"`` (P9) and the chunked
-cross-entropy ``loss_chunk`` (P2).
+``attn="ring"`` (P5), ``mlp="moe"`` (P12), ``tp_overlap="fused"`` (P9)
+and training on a mesh (P6).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
+from .. import optim
 from ..device import DeviceLike, check_on, resolve_device
 from ..ops.attention import flash_mha
 from ..parallel.ring import attention_reference
@@ -35,7 +46,10 @@ _NOT_YET = {
     ("tp_overlap", "fused"): "fused tp overlap comes with ROADMAP slice P9",
 }
 _CHOICES = {"attn": ("dense", "flash", "ring"), "mlp": ("dense", "moe"),
-            "tp_overlap": ("none", "fused")}
+            "tp_overlap": ("none", "fused"),
+            "remat": ("none", "dots", "full"),
+            "opt_moment_dtype": ("float32", "bfloat16")}
+_GRAD_SYNC = ("native", "quant", "perleaf", "bucketed", "unsynced")
 
 
 @dataclass(frozen=True)
@@ -52,7 +66,14 @@ class Config:
     rope_base: float = 10000.0
     mlp: str = "dense"
     tp_overlap: str = "none"
-    loss_chunk: Optional[int] = None
+    remat: str = "none"                   # "none" | "dots" | "full"
+    # flash fwd/bwd block overrides: they tile the plain versions (CPU);
+    # the CUDA kernels keep their own tiles
+    attn_block: Optional[int] = None
+    attn_bwd_block: Optional[int] = None
+    loss_chunk: Optional[int] = None      # chunked cross-entropy slice
+    opt_moment_dtype: str = "float32"     # AdamW first moment: or bfloat16
+    grad_sync: str = "native"             # others need a mesh (P6)
 
     def __post_init__(self):
         for name, allowed in _CHOICES.items():
@@ -63,18 +84,29 @@ class Config:
             if (name, val) in _NOT_YET:
                 raise NotImplementedError(
                     f"Config.{name}={val!r}: {_NOT_YET[(name, val)]}")
-        if self.loss_chunk:
-            raise NotImplementedError(
-                "Config.loss_chunk: the chunked cross-entropy comes with "
-                "the training slice, ROADMAP slice P2")
 
 
 def flagship_config(seq: int = 2048) -> Config:
     """The single-chip flagship of the JAX package: vocab 32768, d_model
-    2048, 6 layers, 16 heads of 128, d_ff 8192, bf16, flash attention
-    (~440 M parameters)."""
+    2048, 6 layers, 16 heads of 128, d_ff 8192, bf16, flash attention,
+    remat "dots" (~440 M parameters)."""
     return Config(vocab=32768, d_model=2048, n_layers=6, n_heads=16,
-                  head_dim=128, d_ff=8192, seq=seq, attn="flash")
+                  head_dim=128, d_ff=8192, seq=seq, attn="flash",
+                  remat="dots")
+
+
+def train_flops_per_token(cfg: Config) -> float:
+    """Counted model FLOPs per trained token (the MFU numerator), as the
+    JAX package counts them: 6 × matmul-weight params (fwd 2N + bwd 4N)
+    plus causal attention 6·s·h per layer, h = n_heads·head_dim.  Remat
+    recompute is hardware work but is not counted."""
+    h = cfg.n_heads * cfg.head_dim
+    per_layer = (cfg.d_model * 3 * h          # wqkv
+                 + h * cfg.d_model            # wo
+                 + 3 * cfg.d_model * cfg.d_ff)  # gate/up/down
+    n_mm = cfg.n_layers * per_layer + cfg.d_model * cfg.vocab  # + logits
+    attn = 6 * cfg.seq * h * cfg.n_layers                      # causal
+    return 6.0 * n_mm + attn
 
 
 # -- parameters ---------------------------------------------------------------
@@ -134,13 +166,6 @@ def params_from_numpy(tree: Dict[str, Any],
             "layers": layers}
 
 
-def _leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
-    out = [params["embed"], params["final_norm"]]
-    for layer in params["layers"]:
-        out.extend(layer.values())
-    return out
-
-
 # -- model --------------------------------------------------------------------
 
 def _rms_norm(x, w):
@@ -173,7 +198,8 @@ def _attn_apply(x, layer, cfg: Config):
     q = _rope(q, positions, cfg.rope_base)
     k = _rope(k, positions, cfg.rope_base)
     if cfg.attn == "flash":
-        att = flash_mha(q, k, v, causal=True)
+        att = flash_mha(q, k, v, True, None, cfg.attn_block, cfg.attn_block,
+                        cfg.attn_bwd_block, cfg.attn_bwd_block)
     else:
         att = attention_reference(q, k, v, causal=True)
     att = att.reshape(b, s, cfg.n_heads * cfg.head_dim)
@@ -189,17 +215,50 @@ def _layer_apply(x, layer, cfg: Config):
     return x + (gate * up) @ layer["w_down"].to(cfg.dtype)
 
 
+def _checkpointed(fn: Callable, context_fn=noop_context_fn) -> Callable:
+    """``fn`` under non-reentrant activation checkpointing while autograd
+    records; without a graph to record there is nothing to save."""
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn)
+    return run
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's counterpart of JAX's
+    ``dots_with_no_batch_dims_saveable``: save the outputs of products with
+    no batch dimension (``x @ w`` folds to ``aten.mm``), recompute the rest:
+    norms, RoPE, SiLU, the weight casts, the batched attention products of
+    ``attn="dense"`` and ``flash_mha``'s forward (K1), as ``jax.checkpoint``
+    re-runs a ``custom_vjp``'s forward."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn: Callable, mode: str) -> Callable:
+    if mode == "full":
+        return _checkpointed(fn)
+    if mode == "dots":
+        return _checkpointed(fn, functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    return fn
+
+
 def _backbone(params, tokens, cfg: Config, embed):
     """tokens (b, s) → hidden (b, s, d) after the final norm."""
     x = embed[tokens]                                 # (b, s, d)
+    layer_fn = _remat_wrap(lambda x, layer: _layer_apply(x, layer, cfg),
+                           cfg.remat)
     for layer in params["layers"]:
-        x = _layer_apply(x, layer, cfg)
+        x = layer_fn(x, layer)
     return _rms_norm(x, params["final_norm"])
 
 
 def _prepare(params, tokens, device: DeviceLike) -> torch.Tensor:
     dev = resolve_device(device)
-    check_on(_leaves(params), dev, "params")
+    check_on(optim.tree_leaves(params), dev, "params")
     return torch.as_tensor(tokens, dtype=torch.long, device=dev)
 
 
@@ -213,12 +272,42 @@ def forward(params: Dict[str, Any], tokens, cfg: Config,
     return (x @ embed.T).float()                      # tied embedding
 
 
+def _chunked_ce(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
+                chunk: int) -> torch.Tensor:
+    """Mean cross-entropy without the whole (b, s, vocab) f32 logits: the
+    sequence goes in slices of ``chunk`` positions (the last one ragged),
+    each checkpointed so that the backward recomputes its logits from the
+    (b, chunk, d) hidden slice instead of saving them."""
+    b, s, _ = x.shape
+
+    def one(x_c, t_c):                         # (b, chunk, d), (b, chunk)
+        logits = (x_c @ embed.T).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, t_c[..., None])[..., 0]
+        return (lse - gold).sum()
+
+    one = _checkpointed(one)
+    total = sum(one(x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk])
+                for c0 in range(0, s, chunk))
+    return total / (b * s)
+
+
 def loss_fn(params: Dict[str, Any], tokens, cfg: Config,
             device: DeviceLike = None) -> torch.Tensor:
-    """Mean next-token cross-entropy in logsumexp form (evaluation)."""
+    """Mean next-token cross-entropy in logsumexp form; with
+    ``cfg.loss_chunk`` the chunked form, which never holds the whole
+    logits."""
     tokens = _prepare(params, tokens, device)
-    logits = forward(params, tokens[:, :-1], cfg, tokens.device)
     targets = tokens[:, 1:]
+    if cfg.loss_chunk:
+        # the reference's refusal; Config refuses mlp="moe" before it here
+        if cfg.mlp == "moe":
+            raise ValueError("loss_chunk is only supported with "
+                             "mlp='dense'; unset loss_chunk for this path")
+        embed = params["embed"].to(cfg.dtype)
+        x = _backbone(params, tokens[:, :-1], cfg, embed)
+        return _chunked_ce(x, embed, targets, int(cfg.loss_chunk))
+    logits = forward(params, tokens[:, :-1], cfg, tokens.device)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     return (lse - gold).mean()
@@ -243,3 +332,56 @@ def greedy(params: Dict[str, Any], prompts: Sequence[Sequence[int]],
         out.append(nxt)
         toks = torch.cat([toks, nxt[:, None]], dim=1)
     return torch.stack(out, dim=1).tolist() if out else [[] for _ in prompts]
+
+
+# -- training -----------------------------------------------------------------
+
+def value_and_grad(params: Dict[str, Any], tokens: torch.Tensor, cfg: Config,
+                   device: DeviceLike = None,
+                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """``(loss, grads)`` of ``loss_fn`` over the f32 master leaves, the
+    grads in the order of ``optim.tree_leaves(params)``; the leaves leave
+    with ``requires_grad`` off, as they came."""
+    dev = resolve_device(device)
+    leaves = optim.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            loss = loss_fn(params, tokens, cfg, dev)
+            grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def make_train_step(cfg: Config, mesh: Any = None,
+                    learning_rate: float = 1e-3, device: DeviceLike = None,
+                    ) -> Tuple[Callable, Callable]:
+    """Returns ``(init_opt, step)``, the single-device counterpart of the
+    JAX package's ``make_train_step`` (``optax.adamw(learning_rate,
+    mu_dtype=cfg.opt_moment_dtype)``).  ``step(params, opt_state, tokens)``
+    takes value-and-grad of ``loss_fn`` over the f32 master leaves on
+    ``device`` (``None`` = cuda, where ``params`` must lie) and applies
+    AdamW in place; it returns ``(params, opt_state, loss)``."""
+    if cfg.grad_sync not in _GRAD_SYNC:
+        raise ValueError(f"unknown grad_sync {cfg.grad_sync!r} "
+                         f"(expected one of {_GRAD_SYNC})")
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_train_step on a mesh comes with ROADMAP slice P6")
+    if cfg.grad_sync != "native":
+        raise ValueError(f"grad_sync={cfg.grad_sync!r} requires a mesh "
+                         "(single-controller has no dp axis to sync)")
+    dev = resolve_device(device)
+
+    def init_opt(params):
+        return optim.adamw_init(params, cfg.opt_moment_dtype)
+
+    def step(params, opt_state, tokens):
+        loss, grads = value_and_grad(params, tokens, cfg, dev)
+        optim.adamw_update(params, list(grads), opt_state, learning_rate)
+        return params, opt_state, loss
+
+    return init_opt, step

@@ -1,6 +1,7 @@
-"""Flash attention forward for the port: the K1 kernel and its plain version.
+"""Flash attention for the port: the K1, K2 and K3 kernels and their plain
+versions.
 
-Counterpart of ``ompi_tpu/ops/attention.py``.  Two entry points so far:
+Counterpart of ``ompi_tpu/ops/attention.py``.  Entry points:
 
   * ``flash_attention_partials`` — the *un-normalised* (o, m, l) triple of a
     Q shard against one visiting K/V shard, with global position offsets
@@ -8,19 +9,24 @@ Counterpart of ``ompi_tpu/ops/attention.py``.  Two entry points so far:
     the core of ``flash_mha``.  On a CUDA tensor it launches the
     hand-written Hopper kernel ``csrc/flash_partials.cu`` (K1); on a CPU
     tensor it runs ``flash_attention_partials_reference``.
-  * ``flash_mha`` — flash attention over (batch, seq, heads, head_dim),
-    forward only: the normalising epilogue over the partials.  Its
-    backward (K2, K3) comes with the training slice.
+  * ``flash_mha_bwd_dkdv`` and ``flash_mha_bwd_dq`` — the FlashAttention-2
+    backward, split in two as the JAX package splits it: dK/dV (K2) and dQ
+    (K3), both in ``csrc/flash_bwd.cu``, recomputing p from the saved row
+    logsumexp.  On a CPU tensor they run their ``*_reference`` versions.
+  * ``flash_mha`` — differentiable flash attention over (batch, seq, heads,
+    head_dim): a ``torch.autograd.Function`` whose forward is K1 plus the
+    normalising epilogue and whose backward is δ = Σ dO·O, then K2, then K3
+    (the counterpart of the JAX ``custom_vjp``).
 
-``flash_attention_partials_reference`` runs the same blocked algorithm as
-the TPU kernel: the block_q × block_k tile loop with the causal block skip,
-the finite ``NEG_INF`` mask, the online-softmax (m, l, acc) state in f32,
-and p cast to the storage dtype before the PV product.  Its products take
-the storage-dtype operands exactly into f32 (an f32 product of two bf16
-values is exact), which is what the TPU's MXU and the Hopper tensor cores
-do with f32 accumulation.
+The plain versions run the same blocked algorithms as the TPU kernels: the
+block_q × block_k tile loop with the causal block skip, the finite
+``NEG_INF`` mask, f32 softmax state and accumulators, and p (and ds in the
+backward) cast to the storage dtype before their products.  Their products
+take the storage-dtype operands exactly into f32 (an f32 product of two
+bf16 values is exact), which is what the TPU's MXU and the Hopper tensor
+cores do with f32 accumulation.
 
-Two devices of the TPU kernel are not carried over: ``_auto_block`` (a
+Two devices of the TPU kernels are not carried over: ``_auto_block`` (a
 block-size sweep measured on a TPU v5e) and ``check_tpu_block`` (the Mosaic
 (8, 128) tiling rule).  Neither says anything about this card.
 """
@@ -37,19 +43,25 @@ from .. import _build
 
 NEG_INF = -1e30
 
-# K1 launches since the count was last set to 0: one per kernel launch,
-# counted only where the wrapper launches it.
+# Launches since a count was last set to 0: one per kernel launch, counted
+# only where the wrapper launches it.  K1, K2 and K3 respectively.
 launches = 0
+dkdv_launches = 0
+dq_launches = 0
 
-_KERNEL_DTYPES = {torch.bfloat16: "flash_partials_bf16",
-                  torch.float32: "flash_partials_f32"}
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_DTYPE_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_PARTIALS_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                      + [ctypes.c_float] + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p])
+_DKDV_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_DQ_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _default_block(s: int) -> int:
     """The sequence clamped to 128; a sequence that 128 does not divide is
-    one block (the plain version only: the kernel has its own tile)."""
+    one block (the plain versions only: the kernels have their own tile)."""
     b = min(s, 128)
     return b if b and s % b == 0 else s
 
@@ -65,6 +77,49 @@ def _block_sizes(s_q: int, s_k: int, block_q: Optional[int],
                          f"blocks ({bq},{bk})")
     return bq, bk
 
+
+def _check_kernel_shape(what: str, dtype: torch.dtype, bh: int, d: int,
+                        positions=()) -> str:
+    """Raise on what the CUDA kernels do not take; return the dtype suffix
+    of the kernel's C entry point."""
+    suffix = _DTYPE_SUFFIX.get(dtype)
+    if suffix is None:
+        raise TypeError(f"{what} on CUDA takes bfloat16 or float32, got "
+                        f"{dtype}")
+    if d % 16 or not 16 <= d <= 256:
+        raise ValueError(f"{what} on CUDA needs head_dim a multiple of 16 in "
+                         f"[16, 256], got {d}")
+    if bh > 65535:
+        raise ValueError(f"batch*heads {bh} exceeds the kernel grid's 65535")
+    for x in positions:
+        if not -2**31 <= x < 2**31:
+            raise ValueError(f"positions must fit int32, got {x}")
+    return suffix
+
+
+def _ready(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned, as the kernels' vector loads need."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(lib_name: str, fn_name: str, argtypes, device, *args) -> None:
+    """Call a kernel's C entry point on the current stream of ``device``
+    and raise if the launch was refused."""
+    lib = _build.library(lib_name)
+    fn = getattr(lib, fn_name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err:
+        describe = getattr(lib, f"{lib_name}_error_string")
+        describe.restype, describe.argtypes = ctypes.c_char_p, [ctypes.c_int]
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err} "
+                           f"({describe(err).decode()})")
+
+
+# -- K1: forward partials -----------------------------------------------------
 
 def flash_attention_partials_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -118,46 +173,32 @@ def _partials_cuda(q, k, v, causal, scale, q_offset, kv_offset):
     global launches
     bh, s_q, d = q.shape
     s_k = k.shape[1]
-    fn_name = _KERNEL_DTYPES.get(q.dtype)
-    if fn_name is None:
-        raise TypeError(f"flash_attention_partials on CUDA takes bfloat16 or "
-                        f"float32, got {q.dtype}")
-    if d % 16 or not 16 <= d <= 256:
-        raise ValueError(f"flash_attention_partials on CUDA needs head_dim a "
-                         f"multiple of 16 in [16, 256], got {d}")
-    if bh > 65535:
-        raise ValueError(f"batch*heads {bh} exceeds the kernel grid's 65535")
-    for x in (q_offset, kv_offset, s_q + q_offset, s_k + kv_offset):
-        if not -2**31 <= x < 2**31:
-            raise ValueError(f"positions must fit int32, got {x}")
-
-    def ready(t):
-        t = t.contiguous()
-        return t if t.data_ptr() % 16 == 0 else t.clone()
-
-    q, k, v = ready(q), ready(k), ready(v)
+    suffix = _check_kernel_shape(
+        "flash_attention_partials", q.dtype, bh, d,
+        (q_offset, kv_offset, s_q + q_offset, s_k + kv_offset))
+    q, k, v = _ready(q), _ready(k), _ready(v)
     f32 = dict(dtype=torch.float32, device=q.device)
     o = torch.empty((bh, s_q, d), **f32)
     m = torch.empty((bh, s_q), **f32)
     l = torch.empty((bh, s_q), **f32)
     if o.numel() == 0:
         return o, m, l
-    lib = _build.library("flash_partials")
-    fn = getattr(lib, fn_name)
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 m.data_ptr(), l.data_ptr(), bh, s_q, s_k, d, float(scale),
-                 int(bool(causal)), int(q_offset), int(kv_offset), stream)
-    if err:
-        lib.flash_partials_error_string.restype = ctypes.c_char_p
-        lib.flash_partials_error_string.argtypes = [ctypes.c_int]
-        msg = lib.flash_partials_error_string(err).decode()
-        raise RuntimeError(f"flash_partials launch failed: CUDA error {err} "
-                           f"({msg})")
+    _launch("flash_partials", f"flash_partials_{suffix}", _PARTIALS_ARGTYPES,
+            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), bh, s_q, s_k, d, float(scale),
+            int(bool(causal)), int(q_offset), int(kv_offset))
     launches += 1
     return o, m, l
+
+
+def _check_devices(*tensors) -> torch.device:
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"inputs on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 def flash_attention_partials(
@@ -180,9 +221,7 @@ def flash_attention_partials(
     device.  A row that sees no key has m ≤ -1e29; its o and l are
     tiling-dependent garbage that a merge weights by zero.
     """
-    if not (k.device == q.device == v.device):
-        raise ValueError(f"q, k, v on different devices: {q.device}, "
-                         f"{k.device}, {v.device}")
+    dev = _check_devices(q, k, v)
     bh, s_q, d = q.shape
     s_k = k.shape[1]
     if scale is None:
@@ -190,19 +229,187 @@ def flash_attention_partials(
     _block_sizes(s_q, s_k, block_q, block_k)
     k = k.to(q.dtype)
     v = v.to(q.dtype)
-    if q.device.type == "cuda":
+    if dev.type == "cuda":
         return _partials_cuda(q, k, v, causal, scale, q_offset, kv_offset)
-    if q.device.type == "cpu":
-        return flash_attention_partials_reference(
-            q, k, v, causal, scale, q_offset, kv_offset, block_q, block_k)
-    raise ValueError(f"flash_attention_partials: unsupported device "
-                     f"{q.device}")
+    return flash_attention_partials_reference(
+        q, k, v, causal, scale, q_offset, kv_offset, block_q, block_k)
 
+
+# -- K2, K3: the backward -----------------------------------------------------
+
+def _bwd_tiles(q, k, causal, block_q, block_k):
+    """Shared set-up of the two plain backward versions: shapes, blocks and
+    the causal mask of one tile pair."""
+    bh, s_q, d = q.shape
+    s_k = k.shape[1]
+    bq, bk = _block_sizes(s_q, s_k, block_q, block_k)
+
+    def mask(s, q0, k0):
+        if not causal:
+            return s
+        rows = q0 + torch.arange(bq, device=q.device)
+        cols = k0 + torch.arange(bk, device=q.device)
+        return torch.where(rows[:, None] >= cols[None, :], s, NEG_INF)
+
+    return bh, s_q, s_k, d, bq, bk, mask
+
+
+def flash_mha_bwd_dkdv_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+        lse: torch.Tensor, delta: torch.Tensor, causal: bool = False,
+        scale: Optional[float] = None, block_q: Optional[int] = None,
+        block_k: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2 on any device: q/do (bh, s_q, d), k/v
+    (bh, s_k, d), lse/delta (bh, s_q) f32 → dk, dv (bh, s_k, d) in q's
+    dtype.  One kv tile at a time, looping over the q tiles."""
+    bh, s_q, s_k, d, bq, bk, mask = _bwd_tiles(q, k, causal, block_q,
+                                               block_k)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    dt = q.dtype
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dk = torch.zeros((bh, s_k, d), **f32)
+    dv = torch.zeros((bh, s_k, d), **f32)
+    for k0 in range(0, s_k, bk or 1):
+        kb, vb = kf[:, k0:k0 + bk], vf[:, k0:k0 + bk]
+        dk_acc = torch.zeros((bh, bk, d), **f32)
+        dv_acc = torch.zeros((bh, bk, d), **f32)
+        for q0 in range(0, s_q, bq or 1):
+            # causal block skip: this q block's last row is before the kv
+            # block's first column
+            if causal and q0 + bq - 1 < k0:
+                continue
+            qb, dob = qf[:, q0:q0 + bq], dof[:, q0:q0 + bq]
+            s = mask(qb @ kb.transpose(1, 2) * scale, q0, k0)
+            p = torch.exp(s - lse[:, q0:q0 + bq, None])
+            dv_acc += p.to(dt).float().transpose(1, 2) @ dob
+            dp = dob @ vb.transpose(1, 2)
+            ds = p * (dp - delta[:, q0:q0 + bq, None]) * scale
+            dk_acc += ds.to(dt).float().transpose(1, 2) @ qb
+        dk[:, k0:k0 + bk] = dk_acc
+        dv[:, k0:k0 + bk] = dv_acc
+    return dk.to(dt), dv.to(dt)
+
+
+def flash_mha_bwd_dq_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+        lse: torch.Tensor, delta: torch.Tensor, causal: bool = False,
+        scale: Optional[float] = None, block_q: Optional[int] = None,
+        block_k: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of K3 on any device → dq (bh, s_q, d) in q's
+    dtype.  One q tile at a time, looping over the kv tiles."""
+    bh, s_q, s_k, d, bq, bk, mask = _bwd_tiles(q, k, causal, block_q,
+                                               block_k)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    dt = q.dtype
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    dq = torch.zeros((bh, s_q, d), dtype=torch.float32, device=q.device)
+    for q0 in range(0, s_q, bq or 1):
+        qb, dob = qf[:, q0:q0 + bq], dof[:, q0:q0 + bq]
+        acc = torch.zeros((bh, bq, d), dtype=torch.float32, device=q.device)
+        for k0 in range(0, s_k, bk or 1):
+            if causal and q0 + bq - 1 < k0:
+                break
+            kb = kf[:, k0:k0 + bk]
+            s = mask(qb @ kb.transpose(1, 2) * scale, q0, k0)
+            p = torch.exp(s - lse[:, q0:q0 + bq, None])
+            dp = dob @ vf[:, k0:k0 + bk].transpose(1, 2)
+            ds = p * (dp - delta[:, q0:q0 + bq, None]) * scale
+            acc += ds.to(dt).float() @ kb
+        dq[:, q0:q0 + bq] = acc
+    return dq.to(dt)
+
+
+def _bwd_inputs(q, k, v, do, lse, delta, block_q, block_k):
+    """Check the backward's inputs on any device; return the device."""
+    dev = _check_devices(q, k, v, do, lse, delta)
+    if not (k.dtype == v.dtype == do.dtype == q.dtype):
+        raise TypeError(f"flash_mha backward needs uniform q/k/v/do dtype, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}, {do.dtype}")
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise TypeError(f"lse and delta must be float32, got {lse.dtype}, "
+                        f"{delta.dtype}")
+    bh, s_q, _ = q.shape
+    if lse.shape != (bh, s_q) or delta.shape != (bh, s_q) or \
+            do.shape != q.shape or v.shape != k.shape:
+        raise ValueError(f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)}, delta {tuple(delta.shape)}")
+    _block_sizes(s_q, k.shape[1], block_q, block_k)
+    return dev
+
+
+def flash_mha_bwd_dkdv(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+        lse: torch.Tensor, delta: torch.Tensor, causal: bool = False,
+        scale: Optional[float] = None, block_q: Optional[int] = None,
+        block_k: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK, dV of flash attention (bh-folded inputs, zero offsets): K2 on a
+    CUDA tensor, ``flash_mha_bwd_dkdv_reference`` on a CPU tensor.  The
+    blocks tile the plain version; the kernel has its own tile."""
+    global dkdv_launches
+    dev = _bwd_inputs(q, k, v, do, lse, delta, block_q, block_k)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if dev.type == "cpu":
+        return flash_mha_bwd_dkdv_reference(q, k, v, do, lse, delta, causal,
+                                            scale, block_q, block_k)
+    bh, s_q, d = q.shape
+    s_k = k.shape[1]
+    suffix = _check_kernel_shape("flash_mha_bwd_dkdv", q.dtype, bh, d,
+                                 (s_q, s_k))
+    q, k, v, do, lse, delta = map(_ready, (q, k, v, do, lse, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    _launch("flash_bwd", f"flash_bwd_dkdv_{suffix}", _DKDV_ARGTYPES, dev,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, s_q, s_k, d, float(scale), int(bool(causal)))
+    dkdv_launches += 1
+    return dk, dv
+
+
+def flash_mha_bwd_dq(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+        lse: torch.Tensor, delta: torch.Tensor, causal: bool = False,
+        scale: Optional[float] = None, block_q: Optional[int] = None,
+        block_k: Optional[int] = None) -> torch.Tensor:
+    """dQ of flash attention: K3 on a CUDA tensor,
+    ``flash_mha_bwd_dq_reference`` on a CPU tensor."""
+    global dq_launches
+    dev = _bwd_inputs(q, k, v, do, lse, delta, block_q, block_k)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if dev.type == "cpu":
+        return flash_mha_bwd_dq_reference(q, k, v, do, lse, delta, causal,
+                                          scale, block_q, block_k)
+    bh, s_q, d = q.shape
+    s_k = k.shape[1]
+    suffix = _check_kernel_shape("flash_mha_bwd_dq", q.dtype, bh, d,
+                                 (s_q, s_k))
+    q, k, v, do, lse, delta = map(_ready, (q, k, v, do, lse, delta))
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    _launch("flash_bwd", f"flash_bwd_dq_{suffix}", _DQ_ARGTYPES, dev,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s_q, s_k,
+            d, float(scale), int(bool(causal)))
+    dq_launches += 1
+    return dq
+
+
+# -- flash_mha ----------------------------------------------------------------
 
 def _flash_mha_fwd(q, k, v, causal=False, scale=None, block_q=None,
                    block_k=None):
-    """Forward of flash_mha: returns (out, lse), lse (b*h, s_q) f32 being
-    the residual the backward kernels of the training slice will read."""
+    """Forward of flash_mha: returns (out, residuals), the residuals being
+    (qf, kf, vf, of, lse, (b, h)) as in the JAX package — the folded
+    inputs, the normalised output ``of`` in q's dtype (δ is computed from
+    it) and lse (b*h, s_q) f32."""
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash_mha requires uniform q/k/v dtype, got q={q.dtype} "
@@ -210,29 +417,74 @@ def _flash_mha_fwd(q, k, v, causal=False, scale=None, block_q=None,
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
     fold = lambda x, s: x.transpose(1, 2).reshape(b * h, s, d)
+    qf, kf, vf = fold(q, s_q), fold(k, s_k), fold(v, s_k)
     o_un, m, l = flash_attention_partials(
-        fold(q, s_q), fold(k, s_k), fold(v, s_k), causal=causal, scale=scale,
-        block_q=block_q, block_k=block_k)
+        qf, kf, vf, causal=causal, scale=scale, block_q=block_q,
+        block_k=block_k)
     l = torch.clamp_min(l, 1e-20)
     of = (o_un / l[..., None]).to(q.dtype)
     lse = m + torch.log(l)
-    return of.reshape(b, h, s_q, d).transpose(1, 2), lse
+    out = of.reshape(b, h, s_q, d).transpose(1, 2)
+    return out, (qf, kf, vf, of, lse, (b, h))
+
+
+def _flash_mha_bwd(causal, scale, bwd_block_q, bwd_block_k, residuals, g):
+    """Backward of flash_mha from the forward's residuals and the cotangent
+    g (b, s_q, h, d): δ, then K2, then K3.  Returns dq, dk, dv."""
+    qf, kf, vf, of, lse, (b, h) = residuals
+    bh, s_q, d = qf.shape
+    s_k = kf.shape[1]
+    dof = g.transpose(1, 2).reshape(bh, s_q, d).to(qf.dtype)
+    # δ_i = Σ_d dO·O, the dS correction term (FlashAttention-2 eq. 4), from
+    # the output in q's dtype, as the JAX package computes it
+    delta = (dof.float() * of.float()).sum(dim=-1)
+    dk, dv = flash_mha_bwd_dkdv(qf, kf, vf, dof, lse, delta, causal, scale,
+                                bwd_block_q, bwd_block_k)
+    dq = flash_mha_bwd_dq(qf, kf, vf, dof, lse, delta, causal, scale,
+                          bwd_block_q, bwd_block_k)
+    unfold = lambda x, s: x.reshape(b, h, s, d).transpose(1, 2)
+    return unfold(dq, s_q), unfold(dk, s_k), unfold(dv, s_k)
+
+
+class _FlashMha(torch.autograd.Function):
+    """The counterpart of the JAX package's ``custom_vjp`` around
+    ``flash_mha``: residuals q, k, v, o, lse — O(seq) memory, never the
+    score matrix."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, block_q, block_k, bwd_block_q,
+                bwd_block_k):
+        out, (qf, kf, vf, of, lse, bh) = _flash_mha_fwd(
+            q, k, v, causal, scale, block_q, block_k)
+        ctx.save_for_backward(qf, kf, vf, of, lse)
+        # bwd tiles independently of fwd: the bwd override, else the fwd
+        # override, else the default
+        ctx.args = (causal, scale, bwd_block_q or block_q,
+                    bwd_block_k or block_k, bh)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, scale, bq, bk, bh = ctx.args
+        grads = _flash_mha_bwd(causal, scale, bq, bk,
+                               (*ctx.saved_tensors, bh), g)
+        return (*grads, None, None, None, None, None, None)
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False, scale: Optional[float] = None,
-              block_q: Optional[int] = None,
-              block_k: Optional[int] = None) -> torch.Tensor:
-    """Flash attention over (batch, seq, heads, head_dim), forward only.
+              block_q: Optional[int] = None, block_k: Optional[int] = None,
+              bwd_block_q: Optional[int] = None,
+              bwd_block_k: Optional[int] = None) -> torch.Tensor:
+    """Differentiable flash attention over (batch, seq, heads, head_dim).
 
-    The same math as the JAX package's ``flash_mha`` forward: partials,
-    then o / max(l, 1e-20) in q's dtype.  Gradients need the backward
-    kernels (K2, K3) and the ``torch.autograd.Function`` of the training
-    slice, so an input that requires grad raises."""
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_mha has no backward yet: the training slice (ROADMAP "
-            "P2, kernels K2/K3) brings it; run under torch.no_grad() or "
-            "use attn='dense'")
-    out, _ = _flash_mha_fwd(q, k, v, causal, scale, block_q, block_k)
-    return out
+    The same math as the JAX package's ``flash_mha``: the forward is the
+    partials (K1) normalised by max(l, 1e-20) in q's dtype, and the
+    backward recomputes p blockwise from the saved logsumexp in K2 (dK, dV)
+    and K3 (dQ).  ``bwd_block_q``/``bwd_block_k`` tile the backward's plain
+    versions independently of the forward (None = the forward's override,
+    else the default).  The block arguments only tile the plain versions
+    (CPU tensors): on CUDA tensors they are checked and have no effect, as
+    the kernels keep their own tiles.  q, k and v must share one dtype."""
+    return _FlashMha.apply(q, k, v, causal, scale, block_q, block_k,
+                           bwd_block_q, bwd_block_k)

@@ -11,6 +11,13 @@ accumulate in different orders), and the flash_mha forward to 2e-5 (f32) and
 0.06 (bf16), the figures of tests/test_ops.py.  Partials are compared only
 on rows that see at least one key: a fully masked row's o and l depend on
 the tiling, and a merge weights them by zero.
+
+Gradients (the backward's plain versions of K2 and K3 through autograd,
+against jax.grad through the Pallas backward) are held to 2e-4 in f32, the
+figure of tests/test_ops.py, and in bf16 to 2e-2 of the largest gradient:
+both sides round p and ds to bf16 before their products at the same
+tiling, so they differ by a bf16 rounding of the sums (2^-8 relative) in a
+few elements.
 """
 
 import jax
@@ -199,9 +206,11 @@ def test_flash_mha_forward_matches_jax(dtype, causal):
     assert got.dtype == tq.dtype and got.shape == tq.shape
     tol = FLASH_MHA_TOL[dtype]
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
-    _, lse = attn._flash_mha_fwd(tq, tk, tv, causal, None, 64, 64)
-    np.testing.assert_allclose(lse.numpy(), np.asarray(res[4]), rtol=tol,
-                               atol=tol)
+    _, got_res = attn._flash_mha_fwd(tq, tk, tv, causal, None, 64, 64)
+    # δ comes from the saved output in q's dtype, as in the JAX package
+    assert got_res[3].dtype == tq.dtype
+    np.testing.assert_allclose(got_res[4].numpy(), np.asarray(res[4]),
+                               rtol=tol, atol=tol)
 
 
 def test_flash_mha_requires_uniform_dtype():
@@ -210,10 +219,121 @@ def test_flash_mha_requires_uniform_dtype():
         attn.flash_mha(q, k.to(torch.bfloat16), v)
 
 
-def test_flash_mha_refuses_gradients():
-    q, k, v = (torch.from_numpy(a) for a in _arrays((1, 64, 2, 16)))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        attn.flash_mha(q.requires_grad_(), k, v)
+def _jax_grads(fn, q, k, v):
+    # the loss of tests/test_ops.py: a non-uniform cotangent, so that dq,
+    # dk and dv all see structure
+    def loss(q, k, v):
+        out = fn(q, k, v)
+        w = jnp.arange(out.size, dtype=out.dtype).reshape(out.shape)
+        return jnp.sum(out * w) / out.size
+    return jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+
+
+def _torch_grads(fn, q, k, v):
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    out = fn(q, k, v)
+    w = torch.arange(out.numel(), dtype=out.dtype).reshape(out.shape)
+    ((out * w).sum() / out.numel()).backward()
+    return q.grad, k.grad, v.grad
+
+
+def _assert_grads_close(got, want, dtype):
+    for g, w, name in zip(got, want, "qkv"):
+        g, w = _np(g), _np(w)
+        assert g.shape == w.shape
+        if dtype == "f32":
+            np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-4,
+                                       err_msg=f"d{name}")
+        else:
+            err = np.abs(g - w).max()
+            assert err <= 2e-2 * np.abs(w).max(), (name, err)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_mha_grads_match_jax(dtype, causal):
+    (jq, jk, jv), (tq, tk, tv) = _both(_arrays((2, 128, 2, 16)), dtype)
+    want = _jax_grads(lambda q, k, v: jax_attn.flash_mha(
+        q, k, v, causal, None, 64, 64, True), jq, jk, jv)
+    got = _torch_grads(lambda q, k, v: attn.flash_mha(
+        q, k, v, causal, None, 64, 64), tq, tk, tv)
+    assert all(g.dtype == tq.dtype for g in got)
+    _assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("bwd_blocks", [(32, 32), (64, 32), (128, 64)])
+def test_flash_mha_bwd_blocks_tile_independently(bwd_blocks):
+    """The backward tiles independently of the forward: any legal pair of
+    bwd blocks gives the JAX package's gradients (tests/test_ops.py)."""
+    bq, bk = bwd_blocks
+    (jq, jk, jv), (tq, tk, tv) = _both(_arrays((2, 128, 2, 16)), "f32")
+    want = _jax_grads(lambda q, k, v: jax_attn.flash_mha(
+        q, k, v, True, None, 64, 64, True, bq, bk), jq, jk, jv)
+    got = _torch_grads(lambda q, k, v: attn.flash_mha(
+        q, k, v, True, None, 64, 64, bq, bk), tq, tk, tv)
+    _assert_grads_close(got, want, "f32")
+
+
+def test_flash_mha_grads_match_dense_reference():
+    """Autograd through flash_mha equals autograd through the dense
+    attention_reference (the check of tests/test_ops.py, port side)."""
+    tq, tk, tv = (torch.from_numpy(a) for a in _arrays((2, 128, 2, 16)))
+    got = _torch_grads(lambda q, k, v: attn.flash_mha(q, k, v, True), tq,
+                       tk, tv)
+    want = _torch_grads(lambda q, k, v: ring.attention_reference(
+        q, k, v, causal=True), tq, tk, tv)
+    _assert_grads_close(got, want, "f32")
+
+
+# on the same residuals and cotangent the two backwards differ only in the
+# order of f32 sums: f32 to 1e-6 of max|grad|, and bf16 to 1e-3 of it, a
+# quarter of one bf16 step (2^-8) at the largest gradient — a missing cast
+# of p or ds to bf16 moves results by about one step
+SAME_RESIDUALS_TOL = {"f32": 1e-6, "bf16": 1e-3}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", ["causal", "dense", "cross_sq_lt_sk"])
+def test_flash_mha_bwd_matches_jax_on_same_residuals(case, dtype):
+    """The port's backward (δ, then the plain versions of K2 and K3) fed
+    the JAX package's own forward residuals and cotangent, against the
+    JAX package's Pallas backward, s_q ≠ s_k included."""
+    causal, _, _, s_q, s_k = CASES[case]
+    b, h, d = 1, 2, 16
+    q, g = _arrays((b, s_q, h, d), 2, seed=3)
+    k, v = _arrays((b, s_k, h, d), 2, seed=4)
+    (jq, jk, jv, jg), (_, _, _, tg) = _both([q, k, v, g], dtype)
+    _, res = jax_attn._flash_mha_fwd(jq, jk, jv, causal, None, 64, 64, True)
+    want = jax_attn._flash_mha_bwd(causal, None, 64, 64, True, 32, 64, res,
+                                   jg)
+    td = DTYPES[dtype][1]
+    qf, kf, vf, of = (torch.tensor(_np(x)).to(td) for x in res[:4])
+    lse = torch.tensor(np.asarray(res[4]))
+    got = attn._flash_mha_bwd(causal, None, 32, 64,
+                              (qf, kf, vf, of, lse, res[5]), tg)
+    for x, w, name in zip(got, want, "qkv"):
+        assert x.dtype == td and x.shape == w.shape
+        w = _np(w)
+        err = np.abs(_np(x) - w).max()
+        assert err <= SAME_RESIDUALS_TOL[dtype] * np.abs(w).max(), (name,
+                                                                     err)
+
+
+def test_bwd_refuses_mixed_inputs():
+    q, k, v, do = (torch.from_numpy(a) for a in _arrays((2, 64, 16), 4))
+    lse = delta = torch.zeros((2, 64))
+    with pytest.raises(TypeError, match="uniform"):
+        attn.flash_mha_bwd_dq(q, k.to(torch.bfloat16), v, do, lse, delta)
+    with pytest.raises(TypeError, match="float32"):
+        attn.flash_mha_bwd_dkdv(q, k, v, do, lse.double(), delta)
+    with pytest.raises(ValueError, match="shapes"):
+        attn.flash_mha_bwd_dkdv(q, k, v, do, lse[:, :32], delta)
+    with pytest.raises(ValueError, match="must divide into"):
+        attn.flash_mha_bwd_dq(q, k, v, do, lse, delta, block_q=48)
+    meta = torch.empty((2, 64, 16), device="meta")
+    mlse = torch.empty((2, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        attn.flash_mha_bwd_dkdv(meta, meta, meta, meta, mlse, mlse)
 
 
 @pytest.mark.parametrize("blocks", [(48, 64), (64, 96)])

@@ -47,6 +47,7 @@ print(json.dumps(out))
 def test_every_module_is_listed():
     assert "ompi_tpu_torch.ops.attention" in MODULES
     assert "ompi_tpu_torch.models.transformer" in MODULES
+    assert "ompi_tpu_torch.optim" in MODULES
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -57,6 +58,7 @@ def test_import_loads_no_jax(module, leaks):
 def test_entry_points_refuse_without_cuda():
     code = """
 import torch
+from ompi_tpu_torch import optim
 from ompi_tpu_torch.models import transformer as tfm
 cfg = tfm.Config(vocab=16, d_model=16, n_layers=1, n_heads=2, head_dim=8,
                  d_ff=32, seq=8, dtype=torch.float32, attn="flash")
@@ -65,11 +67,14 @@ assert not torch.cuda.is_available()
 refused = []
 for call in (lambda: tfm.forward(params, [[1, 2, 3]], cfg),
              lambda: tfm.init_params(torch.Generator(), cfg),
-             lambda: tfm.greedy(params, [[1, 2]], 1, cfg)):
+             lambda: tfm.greedy(params, [[1, 2]], 1, cfg),
+             lambda: tfm.make_train_step(cfg),
+             lambda: optim.opt_state_from_numpy(
+                 {"count": 0, "mu": [], "nu": []})):
     try:
         call()
     except RuntimeError as e:
         refused.append("CUDA" in str(e))
 print(refused)
 """
-    assert _run(code).strip() == "[True, True, True]"
+    assert _run(code).strip() == "[True, True, True, True, True]"
