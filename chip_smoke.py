@@ -12,21 +12,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                rejects a planted fault), and flash_mha's gradients through
                autograd against
                autograd through the dense attention_reference;
-  4. forward path — the flagship forward at full flagship_config() width,
+  4. flash_attention — K4 against its plain version over K4_CASES (each
+               case also shows that the check rejects a planted fault);
+               SDPA's top-left causal alignment for s_q != s_k checked;
+               flash_attention at full flagship width, (4, 2048, 16, 128)
+               bf16 causal and not, and q (4, 1024, 16, 128) against that
+               k/v: each call checked against the plain version and SDPA,
+               exactly one K4 and no K1-K3 launch per call, CUDA-event
+               medians of K4 alone, the entry point with its folds, the
+               plain version and SDPA, and a torch.profiler breakdown;
+  5. forward path — the flagship forward at full flagship_config() width,
                batch 4 x 2048, weights from torch.Generator().manual_seed(0):
                logits checked, K1 launches counted (exactly n_layers per
-               forward), 4 requests answered greedily by full-context
-               recompute, and the flash logits held against attn="dense";
-  5. forward numbers — CUDA-event medians of K1, its plain version, the
+               forward, no K4 launch), 4 requests answered greedily by
+               full-context recompute, and the flash logits held against
+               attn="dense";
+  6. forward numbers — CUDA-event medians of K1, its plain version, the
                SDPA yardstick and one forward, as JSON lines, and a
                torch.profiler breakdown of one forward's device time;
-  6. train path — make_train_step at full width, batch 4 x (2048 + 1),
-               remat "dots", AdamW: K1/K2/K3 launches per step counted
-               exactly, a finite loss that falls over six steps on one
+  7. train path — make_train_step at full width, batch 4 x (2048 + 1),
+               remat "dots", AdamW: K1/K2/K3/K4 launches per step counted
+               exactly (12/6/6/0), a finite loss that falls over six steps on one
                batch, and attn="dense" from the same weights (losses and
                first-step gradients held to stated bounds, no K1/K2/K3
                launch);
-  7. train numbers — CUDA-event medians of K2, K3, their plain versions,
+  8. train numbers — CUDA-event medians of K2, K3, their plain versions,
                flash_mha's backward and SDPA's backward; the train step's
                ms, tokens/s, MFU and peak memory for remat none/dots/full
                and attn="dense"; a torch.profiler breakdown of one step.
@@ -94,6 +104,39 @@ BWD_ATOL = 1e-5
 # the last quarter of the rows and on the last 64-row tile, and requires
 # the check to reject both.
 PLANTED_ERR = 0.1
+# K4 against its plain version: elementwise TOL on the normalised output,
+# and a planted fault (PLANTED_ERR on the last 64-row tile) that the check
+# must reject.  q is drawn at Q_SCALE times unit scale: scores of std ~2, a
+# peaked softmax as trained models have, so the outputs are O(1) and a 10%
+# fault stands above the elementwise bound, where on the ~0.1 outputs of a
+# flat softmax it would not.
+Q_SCALE = 2.0
+# (name, q dtype, k/v dtype, causal, b, h, s_q, s_k, d)
+K4_CASES = [
+    ("f32 dense d64", "float32", "float32", False, 2, 2, 256, 256, 64),
+    ("f32 causal d128", "float32", "float32", True, 2, 2, 256, 256, 128),
+    ("f32 ragged causal s=77", "float32", "float32", True, 1, 3, 77, 77, 64),
+    ("f32 causal sq>sk d256", "float32", "float32", True, 2, 1, 320, 128,
+     256),
+    ("f32 causal sq<sk", "float32", "float32", True, 2, 2, 128, 320, 64),
+    ("bf16 dense d64", "bfloat16", "bfloat16", False, 2, 2, 256, 256, 64),
+    ("bf16 causal d128", "bfloat16", "bfloat16", True, 2, 2, 256, 256, 128),
+    ("bf16 ragged causal s=200", "bfloat16", "bfloat16", True, 2, 2, 200,
+     200, 128),
+    ("bf16 ragged s=77 d80", "bfloat16", "bfloat16", False, 3, 2, 77, 77,
+     80),
+    ("bf16 causal d256", "bfloat16", "bfloat16", True, 1, 2, 192, 192, 256),
+    ("bf16 causal sq>sk", "bfloat16", "bfloat16", True, 2, 2, 320, 128, 128),
+    ("bf16 causal sq<sk", "bfloat16", "bfloat16", True, 2, 2, 128, 320, 128),
+    ("bf16 dense sq<sk ragged", "bfloat16", "bfloat16", False, 2, 2, 131,
+     320, 128),
+    ("mixed bf16 q, f32 k/v", "bfloat16", "float32", True, 2, 2, 256, 256,
+     128),
+]
+# flash_attention at full flagship width: (name, causal, s_q) against k/v
+# of the flagship's sequence, batch BATCH, its heads and head_dim, bf16.
+K4_PATH = [("causal", True, 2048), ("not causal", False, 2048),
+           ("cross s_q 1024", False, 1024)]
 # (name, dtype, causal, bh, s_q, s_k, d)
 BWD_CASES = [
     ("f32 dense d64", "float32", False, 4, 256, 256, 64),
@@ -132,6 +175,7 @@ BATCH = 4
 
 # How the profile groups kernels by name (first match wins).
 KERNEL_CLASSES = [
+    ("K4 attention_kernel", ("attention_kernel<",)),
     ("K1 partials_kernel", ("partials_kernel",)),
     ("K2 dkdv_kernel", ("dkdv_kernel",)),
     ("K3 dq_kernel", ("dq_kernel",)),
@@ -343,6 +387,163 @@ def check_grad(torch, attention, ring) -> None:
             del got, want
 
 
+def fold(x):
+    """(b, s, h, d) -> (b*h, s, d), as flash_attention folds its inputs."""
+    b, s, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, d)
+
+
+def k4_inputs(torch, gen, b, h, s_q, s_k, d, q_dtype, kv_dtype):
+    """q (b, s_q, h, d) at Q_SCALE, k and v (b, s_k, h, d) at unit scale."""
+    mk = lambda s, dtype, scale=1.0: (torch.randn(
+        (b, s, h, d), generator=gen, device="cuda") * scale).to(
+        getattr(torch, dtype))
+    return mk(s_q, q_dtype, Q_SCALE), mk(s_k, kv_dtype), mk(s_k, kv_dtype)
+
+
+def elementwise_use(got, want, tol: float) -> float:
+    """The largest |got - want| over its bound tol + tol * |want|; the check
+    passes at <= 1."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+def check_k4(torch, attention, case):
+    """One K4-vs-plain comparison through flash_attention (which folds b
+    and h into the kernel's bh); returns the max abs error, the share of
+    the bound used and what the planted fault on the last 64-row tile
+    reads."""
+    name, dtype, kv_dtype, causal, b, h, s_q, s_k, d = case
+    gen = torch.Generator(device="cuda").manual_seed(s_q * 1000 + d + 2)
+    q, k, v = k4_inputs(torch, gen, b, h, s_q, s_k, d, dtype, kv_dtype)
+    out = attention.flash_attention(q, k, v, causal=causal)
+    want = attention.flash_attention_reference(fold(q), fold(k), fold(v),
+                                               causal=causal)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    if out.shape != (b, s_q, h, d) or out.dtype != q.dtype or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"K4 {name}: output {tuple(out.shape)} "
+                             f"{out.dtype}, finite="
+                             f"{bool(torch.isfinite(out).all())}")
+    got = fold(out).float()
+    err = float((got - want.float()).abs().max())
+    used = elementwise_use(got, want, tol)
+    if not used <= 1:
+        raise AssertionError(f"K4 {name}: max err {err:.3g}, {used:.3g} of "
+                             f"the bound (tol {tol})")
+    bad = got.clone()
+    bad[:, max(s_q - 64, 0):] *= 1 + PLANTED_ERR
+    planted = elementwise_use(bad, want, tol)
+    if not planted > 1:
+        raise AssertionError(f"K4 {name}: the last 64-row tile "
+                             f"{PLANTED_ERR:.0%} off reads {planted:.3g} of "
+                             f"the bound; the check would pass it")
+    return err, used, planted
+
+
+def sdpa(torch, q, k, v, causal):
+    """SDPA's forward on the (b, h, s, d) views of (b, s, h, d) inputs."""
+    t = lambda x: x.transpose(1, 2)
+    return torch.nn.functional.scaled_dot_product_attention(
+        t(q), t(k), t(v), is_causal=causal)
+
+
+def check_sdpa_alignment(torch, attention) -> None:
+    """SDPA's is_causal with s_q != s_k against the plain version, whose
+    causal mask is aligned at the top left (row i sees the keys j <= i).
+    Logged, not required: the yardstick's timed shapes do not depend on
+    it (causal at s_q == s_k, cross not causal)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, h, d = 2, 2, 128
+    for s_q, s_k in ((320, 128), (128, 320)):
+        q, k, v = k4_inputs(torch, gen, b, h, s_q, s_k, d, "bfloat16",
+                            "bfloat16")
+        want = attention.flash_attention_reference(fold(q), fold(k),
+                                                   fold(v), causal=True)
+        got = sdpa(torch, q, k, v, True).reshape(b * h, s_q, d)
+        use = elementwise_use(got, want, TOL["bfloat16"])
+        log({"phase": "sdpa_alignment", "s_q": s_q, "s_k": s_k,
+             "bound_use": use, "top_left": use <= 1})
+
+
+def visible_pairs(s_q: int, s_k: int, causal: bool) -> int:
+    """(query, key) pairs the mask leaves visible, top-left causal."""
+    if not causal:
+        return s_q * s_k
+    return sum(min(i + 1, s_k) for i in range(s_q))
+
+
+def k4_path(torch, attention, cfg, card):
+    """flash_attention at full flagship width over K4_PATH: each call
+    checked against the plain version and SDPA, its launches counted, and
+    timed.  Returns one row of numbers per shape."""
+    b, h, d, s_k = BATCH, cfg.n_heads, cfg.head_dim, cfg.seq
+    tol = TOL["bfloat16"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for name, causal, s_q in K4_PATH:
+        q, k, v = k4_inputs(torch, gen, b, h, s_q, s_k, d, "bfloat16",
+                            "bfloat16")
+        zero_counts(attention)
+        out = attention.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        counts = launch_counts(attention)
+        if counts != (0, 0, 0, 1):
+            raise AssertionError(f"flash_attention {name}: K1/K2/K3/K4 "
+                                 f"launches {counts}, want (0, 0, 0, 1)")
+        qf, kf, vf = fold(q), fold(k), fold(v)
+        want = attention.flash_attention_reference(qf, kf, vf, causal=causal)
+        got = fold(out)
+        use = elementwise_use(got, want, tol)
+        sdpa_use = elementwise_use(
+            sdpa(torch, q, k, v, causal).reshape(b * h, s_q, d), want, tol)
+        if out.shape != q.shape or out.dtype != q.dtype or \
+                not bool(torch.isfinite(out).all()) or not use <= 1:
+            raise AssertionError(
+                f"flash_attention {name}: output {tuple(out.shape)} "
+                f"{out.dtype}, finite={bool(torch.isfinite(out).all())}, "
+                f"{use:.3g} of the bound against the plain version")
+        if not sdpa_use <= 1:
+            raise AssertionError(f"SDPA {name}: {sdpa_use:.3g} of the bound "
+                                 f"against the plain version; it is no "
+                                 f"yardstick for this function")
+        # K4 alone: with h = 1 the fold and unfold are views, no copy runs
+        one = lambda t: t[:, :, None]
+        k4_ms = median_ms(lambda: attention.flash_attention(
+            one(qf), one(kf), one(vf), causal=causal))
+        entry_ms = median_ms(lambda: attention.flash_attention(
+            q, k, v, causal=causal))
+        plain_ms = median_ms(lambda: attention.flash_attention_reference(
+            qf, kf, vf, causal=causal), n=5, warmup=1)
+        sdpa_ms = median_ms(lambda: sdpa(torch, q, k, v, causal))
+        # K1 on the same folded inputs: the same tile loop, K1's epilogue
+        k1_ms = median_ms(lambda: attention.flash_attention_partials(
+            qf, kf, vf, causal=causal))
+        # QK^T and PV over the visible pairs; q, k, v read and o written
+        flops = 4 * d * b * h * visible_pairs(s_q, s_k, causal)
+        n_bytes = 2 * b * h * d * (2 * s_q + 2 * s_k)
+        bound_ms, bound_by = bound(flops, n_bytes)
+        row = {"phase": "k4_path", "case": name, "causal": causal,
+               "q_shape": list(q.shape), "kv_shape": list(k.shape),
+               "launches": counts[3], "max_abs_err": float(
+                   (got.float() - want.float()).abs().max()),
+               "bound_use": use, "sdpa_bound_use": sdpa_use, "tol": tol,
+               "k4_ms": k4_ms, "flash_attention_ms": entry_ms,
+               "plain_ms": plain_ms, "sdpa_ms": sdpa_ms,
+               "k1_same_inputs_ms": k1_ms, "flop": flops,
+               "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": bound_by,
+               "k4_tflops": flops / k4_ms / 1e9,
+               "roofline_share": bound_ms / k4_ms, "card": card}
+        log(row)
+        rows.append(row)
+        if causal:
+            profile_run(torch, lambda: attention.flash_attention(
+                q, k, v, causal=True), entry_ms, card, "flash_attention")
+        del q, k, v, out, want, got, qf, kf, vf
+    return rows
+
+
 def profile_run(torch, fn, ref_ms: float, card: str, what: str) -> None:
     """Where one warm run of ``fn`` spends device time: kernel time by name
     from torch.profiler, and the device's idle share of the unprofiled time
@@ -398,8 +599,14 @@ def bound(flops: float, n_bytes: float):
 
 
 def launch_counts(attention):
+    """K1, K2, K3 and K4 launches since the counts were last set to 0."""
     return (attention.launches, attention.dkdv_launches,
-            attention.dq_launches)
+            attention.dq_launches, attention.attention_launches)
+
+
+def zero_counts(attention) -> None:
+    attention.launches = attention.dkdv_launches = 0
+    attention.dq_launches = attention.attention_launches = 0
 
 
 def clone_tree(optim, tree):
@@ -425,20 +632,20 @@ def run_steps(tfm, cfg, params, tokens, n: int):
 
 def train_path(torch, tfm, optim, attention, cfg, pristine, tokens):
     """The slice's main path: make_train_step at full width.  Returns the
-    K1/K2/K3 launches of its first step."""
+    K1/K2/K3/K4 launches of its first step."""
     n = cfg.n_layers
     init_opt, step = tfm.make_train_step(cfg, learning_rate=1e-3)
     params = clone_tree(optim, pristine)
     state = init_opt(params)
-    attention.launches = attention.dkdv_launches = attention.dq_launches = 0
+    zero_counts(attention)
     params, state, loss = step(params, state, tokens)
     torch.cuda.synchronize()
     per_step = launch_counts(attention)
     # K1 runs in the forward and again in the remat recompute; K2 and K3
-    # once per layer in the backward
-    want = (2 * n if cfg.remat != "none" else n, n, n)
+    # once per layer in the backward; K4 is off the path
+    want = (2 * n if cfg.remat != "none" else n, n, n, 0)
     if per_step != want:
-        raise AssertionError(f"K1/K2/K3 launches in one train step: "
+        raise AssertionError(f"K1/K2/K3/K4 launches in one train step: "
                              f"{per_step}, want {want}")
     losses = [float(loss)]
     for _ in range(TRAIN_STEPS - 1):
@@ -447,7 +654,7 @@ def train_path(torch, tfm, optim, attention, cfg, pristine, tokens):
     log({"phase": "train_path", "config": dataclasses.asdict(cfg)
          | {"dtype": str(cfg.dtype)}, "batch": BATCH,
          "tokens_shape": list(tokens.shape), "learning_rate": 1e-3,
-         "k1_k2_k3_launches_per_step": list(per_step), "losses": losses})
+         "k1_k2_k3_k4_launches_per_step": list(per_step), "losses": losses})
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"train losses on one repeated batch: {losses}")
@@ -464,7 +671,7 @@ def train_path(torch, tfm, optim, attention, cfg, pristine, tokens):
     g_dense = grads(dense)
     torch.cuda.synchronize()
     if launch_counts(attention) != before:
-        raise AssertionError("the dense train path launched K1, K2 or K3")
+        raise AssertionError("the dense train path launched a kernel")
     g_flash = grads(cfg)
     rel = grads_rel_rms(g_flash, g_dense)
     g_truth = grads(dataclasses.replace(dense, dtype=torch.float32))
@@ -579,17 +786,34 @@ def main() -> int:
     check_grad(torch, attention, ring)
     torch.cuda.empty_cache()
 
-    # 4. the main path at full width
+    # 4. flash_attention (K4): against its plain version, then its path at
+    # full flagship width
     cfg = tfm.flagship_config()
+    for case in K4_CASES:
+        err, used, planted = check_k4(torch, attention, case)
+        log({"phase": "k4_check", "case": case[0], "dtype": case[1],
+             "kv_dtype": case[2], "causal": case[3],
+             "b_h_sq_sk_d": list(case[4:]), "max_abs_err": err,
+             "tol": TOL[case[1]], "bound_use": used,
+             "planted_fault_bound_use": planted, "ok": True})
+    check_sdpa_alignment(torch, attention)
+    k4_rows = k4_path(torch, attention, cfg, card)
+    torch.cuda.empty_cache()
+
+    # 5. the forward path at full width
     rng = np.random.default_rng(0)
     params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, cfg.seq)))
     prompts = rng.integers(0, cfg.vocab, (4, cfg.seq - 4)).tolist()
     with torch.inference_mode():
-        attention.launches = 0
+        zero_counts(attention)
         logits = tfm.forward(params, tokens, cfg)
         torch.cuda.synchronize()
-        per_forward = attention.launches
+        fwd_counts = launch_counts(attention)
+        per_forward = fwd_counts[0]
+        if fwd_counts[1:] != (0, 0, 0):
+            raise AssertionError(f"K2/K3/K4 launched in one forward: "
+                                 f"{fwd_counts}")
         streams = tfm.greedy(params, prompts, 4, cfg)
         torch.cuda.synchronize()
         launches = attention.launches
@@ -606,7 +830,7 @@ def main() -> int:
                                  f"{bool(torch.isfinite(logits).all())}")
         log({"phase": "main_path", "config": dataclasses.asdict(
             cfg) | {"dtype": str(cfg.dtype)}, "batch": 4,
-            "k1_launches_per_forward": per_forward,
+            "k1_k2_k3_k4_launches_per_forward": list(fwd_counts),
             "k1_launches_main_path": launches})
         for i, (p, s) in enumerate(zip(prompts, streams)):
             log({"phase": "greedy", "request": i, "prompt_len": len(p),
@@ -634,7 +858,7 @@ def main() -> int:
                                  f"{rel:.4g} >= {FLASH_VS_DENSE_RMS}")
         del logits, logits_d, truth
 
-        # 5. numbers, CUDA-event medians
+        # 6. numbers, CUDA-event medians
         bh, s, d = 4 * cfg.n_heads, cfg.seq, cfg.head_dim
         gen = torch.Generator(device="cuda").manual_seed(1)
         q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda",
@@ -677,7 +901,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # 6. the train path at full width
+    # 7. the train path at full width
     pristine = tfm.init_params(torch.Generator().manual_seed(0), cfg)
     train_tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab, (BATCH, cfg.seq + 1))).cuda()
@@ -685,7 +909,7 @@ def main() -> int:
                           train_tokens)
     torch.cuda.empty_cache()
 
-    # 7. train numbers, CUDA-event medians
+    # 8. train numbers, CUDA-event medians
     args = bwd_args(torch, attention, "bfloat16", True, bh, s, s, d)
     k2_ms = median_ms(lambda: attention.flash_mha_bwd_dkdv(*args,
                                                            causal=True))
@@ -761,7 +985,19 @@ def main() -> int:
          "replaces": "ompi_tpu/ops/attention.py:436",
          "launches": per_step[2], "max_abs_err": bwd_err["dq"],
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": sdpa_bwd_ms}]})
+         "bound_by": k3_by, "library_ms": sdpa_bwd_ms},
+        # the causal call at full width is K4's path run; its other two
+        # shapes are in the k4_path lines
+        {"name": "flash_attention", "route": "cuda",
+         "source": "ompi_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "ompi_tpu/ops/attention.py:139",
+         "launches": k4_rows[0]["launches"],
+         "launches_per_train_step": per_step[3],
+         "max_abs_err": k4_rows[0]["max_abs_err"], "ms": k4_rows[0]["k4_ms"],
+         "plain_ms": k4_rows[0]["plain_ms"],
+         "bound_ms": k4_rows[0]["bound_ms"],
+         "bound_by": k4_rows[0]["bound_by"],
+         "library_ms": k4_rows[0]["sdpa_ms"]}]})
     log(card)
     # count: the cards this run used
     log({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,13 @@
-"""Flash attention for the port: the K1, K2 and K3 kernels and their plain
-versions.
+"""Flash attention for the port: the K1, K2, K3 and K4 kernels and their
+plain versions.
 
 Counterpart of ``ompi_tpu/ops/attention.py``.  Entry points:
 
+  * ``flash_attention`` — normalised attention over (batch, seq, heads,
+    head_dim), cross-attention (s_q ≠ s_k) and a top-left causal mask
+    allowed.  On a CUDA tensor it launches the hand-written Hopper kernel
+    ``csrc/flash_attention.cu`` (K4, K1's tile loop with a normalising
+    epilogue); on a CPU tensor it runs ``flash_attention_reference``.
   * ``flash_attention_partials`` — the *un-normalised* (o, m, l) triple of a
     Q shard against one visiting K/V shard, with global position offsets
     for the causal mask: the per-hop block compute of ring attention and
@@ -44,10 +49,11 @@ from .. import _build
 NEG_INF = -1e30
 
 # Launches since a count was last set to 0: one per kernel launch, counted
-# only where the wrapper launches it.  K1, K2 and K3 respectively.
+# only where the wrapper launches it.  K1, K2, K3 and K4 respectively.
 launches = 0
 dkdv_launches = 0
 dq_launches = 0
+attention_launches = 0
 
 _DTYPE_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _PARTIALS_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
@@ -57,6 +63,8 @@ _DKDV_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _DQ_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_ATTENTION_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _default_block(s: int) -> int:
@@ -191,6 +199,27 @@ def _partials_cuda(q, k, v, causal, scale, q_offset, kv_offset):
     return o, m, l
 
 
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """(b, s, h, d) → (b·h, s, d): batch and heads folded, as the kernels
+    take them."""
+    b, s, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, d)
+
+
+def _unfold(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
+    """(b·h, s, d) → (b, s, h, d), a view."""
+    return x.reshape(b, h, *x.shape[1:]).transpose(1, 2)
+
+
+def _check_shapes(q, k, v) -> None:
+    """q (b, s_q, h, d) and k, v (b, s_k, h, d), or raise: the kernels
+    index k and v by q's b·h and d."""
+    b, _, h, d = q.shape
+    if k.shape != (b, k.shape[1], h, d) or v.shape != k.shape:
+        raise ValueError(f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+
+
 def _check_devices(*tensors) -> torch.device:
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
@@ -233,6 +262,70 @@ def flash_attention_partials(
         return _partials_cuda(q, k, v, causal, scale, q_offset, kv_offset)
     return flash_attention_partials_reference(
         q, k, v, causal, scale, q_offset, kv_offset, block_q, block_k)
+
+
+# -- K4: flash_attention ------------------------------------------------------
+
+def flash_attention_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        causal: bool = False, scale: Optional[float] = None,
+        block_q: Optional[int] = None, block_k: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K4 on any device: (bh, s, d) inputs → the
+    normalised output (bh, s_q, d) in q's dtype.  The blocked online
+    softmax of K1's plain version at zero offsets, then the TPU kernel's
+    epilogue: o / max(l, 1e-20), cast to q's dtype."""
+    o, _, l = flash_attention_partials_reference(
+        q, k, v, causal, scale, 0, 0, block_q, block_k)
+    return (o / torch.clamp_min(l, 1e-20)[..., None]).to(q.dtype)
+
+
+def _attention_cuda(q, k, v, causal, scale):
+    global attention_launches
+    bh, s_q, d = q.shape
+    s_k = k.shape[1]
+    suffix = _check_kernel_shape("flash_attention", q.dtype, bh, d,
+                                 (s_q, s_k))
+    q, k, v = _ready(q), _ready(k), _ready(v)
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    _launch("flash_attention", f"flash_attention_{suffix}",
+            _ATTENTION_ARGTYPES, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), bh, s_q, s_k, d, float(scale),
+            int(bool(causal)))
+    attention_launches += 1
+    return o
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False, scale: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
+    """Attention over (batch, seq, heads, head_dim) inputs.
+
+    q may have a different sequence length than k/v (cross attention);
+    ``causal`` assumes both sequences start at position 0, so row i sees
+    the keys j ≤ i.  k and v are cast to q's dtype and the output comes in
+    q's dtype.  A CUDA tensor launches K4 once, which tiles by its own
+    fixed tile and masks the ragged edge itself; ``block_q``/``block_k``
+    tile the plain version and raise ``ValueError`` for sequences they do
+    not divide on either device.
+    """
+    dev = _check_devices(q, k, v)
+    _check_shapes(q, k, v)
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _block_sizes(s_q, s_k, block_q, block_k)
+    qf, kf, vf = (_fold(x).to(q.dtype) for x in (q, k, v))
+    if dev.type == "cuda":
+        out = _attention_cuda(qf, kf, vf, causal, scale)
+    else:
+        out = flash_attention_reference(qf, kf, vf, causal, scale, block_q,
+                                        block_k)
+    return _unfold(out, b, h)
 
 
 # -- K2, K3: the backward -----------------------------------------------------
@@ -414,27 +507,23 @@ def _flash_mha_fwd(q, k, v, causal=False, scale=None, block_q=None,
         raise TypeError(
             f"flash_mha requires uniform q/k/v dtype, got q={q.dtype} "
             f"k={k.dtype} v={v.dtype}; cast inputs before calling")
-    b, s_q, h, d = q.shape
-    s_k = k.shape[1]
-    fold = lambda x, s: x.transpose(1, 2).reshape(b * h, s, d)
-    qf, kf, vf = fold(q, s_q), fold(k, s_k), fold(v, s_k)
+    _check_shapes(q, k, v)
+    b, _, h, _ = q.shape
+    qf, kf, vf = _fold(q), _fold(k), _fold(v)
     o_un, m, l = flash_attention_partials(
         qf, kf, vf, causal=causal, scale=scale, block_q=block_q,
         block_k=block_k)
     l = torch.clamp_min(l, 1e-20)
     of = (o_un / l[..., None]).to(q.dtype)
     lse = m + torch.log(l)
-    out = of.reshape(b, h, s_q, d).transpose(1, 2)
-    return out, (qf, kf, vf, of, lse, (b, h))
+    return _unfold(of, b, h), (qf, kf, vf, of, lse, (b, h))
 
 
 def _flash_mha_bwd(causal, scale, bwd_block_q, bwd_block_k, residuals, g):
     """Backward of flash_mha from the forward's residuals and the cotangent
     g (b, s_q, h, d): δ, then K2, then K3.  Returns dq, dk, dv."""
     qf, kf, vf, of, lse, (b, h) = residuals
-    bh, s_q, d = qf.shape
-    s_k = kf.shape[1]
-    dof = g.transpose(1, 2).reshape(bh, s_q, d).to(qf.dtype)
+    dof = _fold(g).to(qf.dtype)
     # δ_i = Σ_d dO·O, the dS correction term (FlashAttention-2 eq. 4), from
     # the output in q's dtype, as the JAX package computes it
     delta = (dof.float() * of.float()).sum(dim=-1)
@@ -442,8 +531,7 @@ def _flash_mha_bwd(causal, scale, bwd_block_q, bwd_block_k, residuals, g):
                                 bwd_block_q, bwd_block_k)
     dq = flash_mha_bwd_dq(qf, kf, vf, dof, lse, delta, causal, scale,
                           bwd_block_q, bwd_block_k)
-    unfold = lambda x, s: x.reshape(b, h, s, d).transpose(1, 2)
-    return unfold(dq, s_q), unfold(dk, s_k), unfold(dv, s_k)
+    return _unfold(dq, b, h), _unfold(dk, b, h), _unfold(dv, b, h)
 
 
 class _FlashMha(torch.autograd.Function):
