@@ -5,22 +5,27 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi) and properties;
-  2. build   — nvcc builds every kernel under ompi_tpu_torch/csrc/;
+  2. build   — nvcc builds every kernel under ompi_tpu_torch/csrc/; the
+               ptxas report of every kernel is read (registers, spills:
+               any spill fails) and the bf16 forward tiles are printed;
   3. kernels — each kernel against its plain PyTorch version on the card:
                K1 over K1_CASES and the merge contract, K2 and K3 over
                BWD_CASES row by row (each case also shows that the check
                rejects a planted fault), and flash_mha's gradients through
                autograd against
                autograd through the dense attention_reference;
-  4. flash_attention — K4 against its plain version over K4_CASES (each
-               case also shows that the check rejects a planted fault);
+  4. flash_attention — K4 against its plain version over K4_CASES and
+               K4_VIEWS (strided (b, s, h, d) views; each case also shows
+               that the check rejects a planted fault on its last BQ rows);
                SDPA's top-left causal alignment for s_q != s_k checked;
                flash_attention at full flagship width, (4, 2048, 16, 128)
                bf16 causal and not, and q (4, 1024, 16, 128) against that
                k/v: each call checked against the plain version and SDPA,
-               exactly one K4 and no K1-K3 launch per call, CUDA-event
-               medians of K4 alone, the entry point with its folds, the
-               plain version and SDPA, and a torch.profiler breakdown;
+               exactly one K4 and no K1-K3 launch per call, and one
+               profiled call holding exactly one device kernel (K4, no
+               copy); CUDA-event medians of K4 on folded inputs, the entry
+               point on (b, s, h, d), the plain version and SDPA, and a
+               torch.profiler breakdown;
   5. forward path — the flagship forward at full flagship_config() width,
                batch 4 x 2048, weights from torch.Generator().manual_seed(0):
                logits checked, K1 launches counted (exactly n_layers per
@@ -50,6 +55,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -58,7 +64,8 @@ import time
 # Tolerances of the kernel-vs-plain checks, on o/l over rows that see a key
 # (elementwise, rtol = atol): f32 takes the same FMA arithmetic in another
 # order; bf16 rounds p to bf16 at tile-dependent running maxima (the kernel
-# tiles 64, the plain version 128).  m must agree to M_TOL * max|s|.
+# tiles 128 kv columns, 64 at d 256; the plain version 128).  m must agree
+# to M_TOL * max|s|.
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 M_TOL = 1e-5
 # Flash vs dense logits at full width, bf16: relative RMS difference.  Each
@@ -83,6 +90,17 @@ K1_CASES = [
     ("bf16 hop invisible", "bfloat16", True, 4, 256, 256, 128, 0, 256),
     ("bf16 hop partly masked", "bfloat16", True, 4, 256, 256, 128, 0, 32),
     ("f32 hop partly masked", "float32", True, 4, 256, 256, 64, 96, 160),
+    # the bf16 tile's edges: BQ = BK = 128 (d <= 128), 64 (d 256)
+    ("bf16 s=127 (tile-1)", "bfloat16", True, 4, 127, 127, 128, 0, 0),
+    ("bf16 s=129 (tile+1)", "bfloat16", True, 4, 129, 129, 128, 0, 0),
+    ("bf16 bh=1 sq=129 sk=127", "bfloat16", False, 1, 129, 127, 128, 0, 0),
+    ("bf16 d64 sq=127 sk=129", "bfloat16", True, 2, 127, 129, 64, 0, 0),
+    ("bf16 d256 s=65 (tile+1)", "bfloat16", True, 2, 65, 65, 256, 0, 0),
+    ("bf16 d256 s=63 (tile-1)", "bfloat16", False, 2, 63, 63, 256, 0, 0),
+    ("bf16 hop offsets off the tile", "bfloat16", True, 2, 200, 300, 128,
+     77, 13),
+    ("bf16 hop off the tile, kv past", "bfloat16", True, 2, 129, 127, 128,
+     300, 45),
     ("bf16 flagship shape", "bfloat16", True, 64, 2048, 2048, 128, 0, 0),
 ]
 PATH_CASE = "bf16 flagship shape"
@@ -101,12 +119,13 @@ PATH_CASE = "bf16 flagship shape"
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 BWD_ATOL = 1e-5
 # Every case also plants a fault in the kernel's result, PLANTED_ERR off on
-# the last quarter of the rows and on the last 64-row tile, and requires
-# the check to reject both.
+# the last quarter of the rows and on the last 64-row tile (K2/K3's tile),
+# and requires the check to reject both.
 PLANTED_ERR = 0.1
 # K4 against its plain version: elementwise TOL on the normalised output,
-# and a planted fault (PLANTED_ERR on the last 64-row tile) that the check
-# must reject.  q is drawn at Q_SCALE times unit scale: scores of std ~2, a
+# and a planted fault (PLANTED_ERR on the last BQ rows, the kernel's q
+# tile: 128 rows in bf16 at d <= 128, 64 at d 256, F32_TILE_ROWS in f32)
+# that the check must reject.  q is drawn at Q_SCALE times unit scale: scores of std ~2, a
 # peaked softmax as trained models have, so the outputs are O(1) and a 10%
 # fault stands above the elementwise bound, where on the ~0.1 outputs of a
 # flat softmax it would not.
@@ -132,7 +151,28 @@ K4_CASES = [
      320, 128),
     ("mixed bf16 q, f32 k/v", "bfloat16", "float32", True, 2, 2, 256, 256,
      128),
+    ("bf16 causal s=129 (tile+1) b=h=1", "bfloat16", "bfloat16", True, 1, 1,
+     129, 129, 128),
+    ("bf16 dense s=127 (tile-1)", "bfloat16", "bfloat16", False, 2, 3, 127,
+     127, 128),
+    ("bf16 causal sq=129 sk=127", "bfloat16", "bfloat16", True, 2, 2, 129,
+     127, 128),
+    ("bf16 causal d256 s=65 (tile+1)", "bfloat16", "bfloat16", True, 1, 2,
+     65, 65, 256),
 ]
+# K4 on (b, s, h, d) views as a model passes them, read in place: (name,
+# layout, dtype, causal, b, h, s, d).  "packed qkv": q, k and v sliced from
+# one (b, s, 3, h, d) tensor; "transposed": (b, h, s, d) tensors seen as
+# (b, s, h, d).
+K4_VIEWS = [
+    ("bf16 packed qkv causal", "packed qkv", "bfloat16", True, 2, 4, 300,
+     128),
+    ("bf16 packed qkv d80", "packed qkv", "bfloat16", False, 2, 2, 129, 80),
+    ("bf16 transposed causal", "transposed", "bfloat16", True, 2, 4, 257,
+     128),
+    ("f32 packed qkv causal", "packed qkv", "float32", True, 2, 2, 200, 64),
+]
+F32_TILE_ROWS = 32       # the float32 loop's q tile (csrc/flash_fwd.cuh)
 # flash_attention at full flagship width: (name, causal, s_q) against k/v
 # of the flagship's sequence, batch BATCH, its heads and head_dim, bf16.
 K4_PATH = [("causal", True, 2048), ("not causal", False, 2048),
@@ -175,8 +215,8 @@ BATCH = 4
 
 # How the profile groups kernels by name (first match wins).
 KERNEL_CLASSES = [
-    ("K4 attention_kernel", ("attention_kernel<",)),
-    ("K1 partials_kernel", ("partials_kernel",)),
+    ("K4 attention_sm90", ("attention_sm90", "attention_f32")),
+    ("K1 partials_sm90", ("partials_sm90", "partials_f32")),
     ("K2 dkdv_kernel", ("dkdv_kernel",)),
     ("K3 dq_kernel", ("dq_kernel",)),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -184,6 +224,11 @@ KERNEL_CLASSES = [
     ("reductions", ("reduce_kernel",)),
     ("elementwise", ("elementwise_kernel",)),
 ]
+
+# A kernel's time is the median of 20 samples of KERNEL_REPS launches in
+# a row: a sub-millisecond kernel timed one launch at a time would also
+# count the host's gap before the launch.
+KERNEL_REPS = 10
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W).
 PEAK_BF16_FLOPS = 989e12
@@ -202,7 +247,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, n: int = 20, warmup: int = 3) -> float:
+def median_ms(fn, n: int = 20, warmup: int = 3, reps: int = 1) -> float:
+    """The median over n samples of the ms per call of ``reps`` calls in a
+    row between two CUDA events."""
     import torch
     for _ in range(warmup):
         fn()
@@ -211,10 +258,11 @@ def median_ms(fn, n: int = 20, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -388,7 +436,7 @@ def check_grad(torch, attention, ring) -> None:
 
 
 def fold(x):
-    """(b, s, h, d) -> (b*h, s, d), as flash_attention folds its inputs."""
+    """(b, s, h, d) -> (b*h, s, d), as the plain version takes them."""
     b, s, h, d = x.shape
     return x.transpose(1, 2).reshape(b * h, s, d)
 
@@ -408,14 +456,22 @@ def elementwise_use(got, want, tol: float) -> float:
     return float(((got - want).abs() / (tol + tol * want.abs())).max())
 
 
-def check_k4(torch, attention, case):
-    """One K4-vs-plain comparison through flash_attention (which folds b
-    and h into the kernel's bh); returns the max abs error, the share of
-    the bound used and what the planted fault on the last 64-row tile
-    reads."""
-    name, dtype, kv_dtype, causal, b, h, s_q, s_k, d = case
-    gen = torch.Generator(device="cuda").manual_seed(s_q * 1000 + d + 2)
-    q, k, v = k4_inputs(torch, gen, b, h, s_q, s_k, d, dtype, kv_dtype)
+def tile_rows(attention_lib, dtype: str, d: int) -> int:
+    """The q tile of K1/K4 at this dtype and head dim: the rows a planted
+    fault covers."""
+    if dtype == "float32":
+        return F32_TILE_ROWS
+    import ctypes
+    out = (ctypes.c_int * 4)()
+    attention_lib.flash_attention_tile(d, out)
+    return out[0]
+
+
+def check_k4(torch, attention, lib, name, dtype, causal, q, k, v):
+    """One K4-vs-plain comparison through flash_attention on (b, s, h, d)
+    inputs as they lie; returns the max abs error, the share of the bound
+    used and what the planted fault on the last BQ rows reads."""
+    b, s_q, h, d = q.shape
     out = attention.flash_attention(q, k, v, causal=causal)
     want = attention.flash_attention_reference(fold(q), fold(k), fold(v),
                                                causal=causal)
@@ -432,14 +488,28 @@ def check_k4(torch, attention, case):
     if not used <= 1:
         raise AssertionError(f"K4 {name}: max err {err:.3g}, {used:.3g} of "
                              f"the bound (tol {tol})")
+    rows = tile_rows(lib, dtype, d)
     bad = got.clone()
-    bad[:, max(s_q - 64, 0):] *= 1 + PLANTED_ERR
+    bad[:, max(s_q - rows, 0):] *= 1 + PLANTED_ERR
     planted = elementwise_use(bad, want, tol)
     if not planted > 1:
-        raise AssertionError(f"K4 {name}: the last 64-row tile "
-                             f"{PLANTED_ERR:.0%} off reads {planted:.3g} of "
+        raise AssertionError(f"K4 {name}: the last {rows} rows "
+                             f"{PLANTED_ERR:.0%} off read {planted:.3g} of "
                              f"the bound; the check would pass it")
-    return err, used, planted
+    return err, used, planted, rows
+
+
+def k4_view_inputs(torch, gen, layout, dtype, b, h, s, d):
+    """q (at Q_SCALE), k and v as (b, s, h, d) views of the given layout."""
+    dt = getattr(torch, dtype)
+    if layout == "packed qkv":
+        x = torch.randn((b, s, 3, h, d), generator=gen, device="cuda")
+        x[:, :, 0] *= Q_SCALE
+        x = x.to(dt)
+        return x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda")
+               * scale for scale in (Q_SCALE, 1.0, 1.0))
+    return tuple(x.to(dt).transpose(1, 2) for x in (q, k, v))
 
 
 def sdpa(torch, q, k, v, causal):
@@ -492,6 +562,14 @@ def k4_path(torch, attention, cfg, card):
         if counts != (0, 0, 0, 1):
             raise AssertionError(f"flash_attention {name}: K1/K2/K3/K4 "
                                  f"launches {counts}, want (0, 0, 0, 1)")
+        # the device sees exactly one kernel, K4: no fold, copy or cast
+        seen = device_kernels(torch, lambda: attention.flash_attention(
+            q, k, v, causal=causal))
+        log({"phase": "k4_one_kernel", "case": name, "kernels": seen})
+        if len(seen) != 1 or seen[0]["count"] != 1 or \
+                "attention_sm90" not in seen[0]["name"]:
+            raise AssertionError(f"flash_attention {name}: one profiled "
+                                 f"call ran {seen}, want K4 alone")
         qf, kf, vf = fold(q), fold(k), fold(v)
         want = attention.flash_attention_reference(qf, kf, vf, causal=causal)
         got = fold(out)
@@ -508,18 +586,19 @@ def k4_path(torch, attention, cfg, card):
             raise AssertionError(f"SDPA {name}: {sdpa_use:.3g} of the bound "
                                  f"against the plain version; it is no "
                                  f"yardstick for this function")
-        # K4 alone: with h = 1 the fold and unfold are views, no copy runs
+        # K4 on the folded inputs, read as (b·h, s, 1, d)
         one = lambda t: t[:, :, None]
         k4_ms = median_ms(lambda: attention.flash_attention(
-            one(qf), one(kf), one(vf), causal=causal))
+            one(qf), one(kf), one(vf), causal=causal), reps=KERNEL_REPS)
         entry_ms = median_ms(lambda: attention.flash_attention(
-            q, k, v, causal=causal))
+            q, k, v, causal=causal), reps=KERNEL_REPS)
         plain_ms = median_ms(lambda: attention.flash_attention_reference(
             qf, kf, vf, causal=causal), n=5, warmup=1)
-        sdpa_ms = median_ms(lambda: sdpa(torch, q, k, v, causal))
+        sdpa_ms = median_ms(lambda: sdpa(torch, q, k, v, causal),
+                            reps=KERNEL_REPS)
         # K1 on the same folded inputs: the same tile loop, K1's epilogue
         k1_ms = median_ms(lambda: attention.flash_attention_partials(
-            qf, kf, vf, causal=causal))
+            qf, kf, vf, causal=causal), reps=KERNEL_REPS)
         # QK^T and PV over the visible pairs; q, k, v read and o written
         flops = 4 * d * b * h * visible_pairs(s_q, s_k, causal)
         n_bytes = 2 * b * h * d * (2 * s_q + 2 * s_k)
@@ -534,6 +613,7 @@ def k4_path(torch, attention, cfg, card):
                "k1_same_inputs_ms": k1_ms, "flop": flops,
                "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": bound_by,
                "k4_tflops": flops / k4_ms / 1e9,
+               "flash_attention_tflops": flops / entry_ms / 1e9,
                "roofline_share": bound_ms / k4_ms, "card": card}
         log(row)
         rows.append(row)
@@ -542,6 +622,74 @@ def k4_path(torch, attention, cfg, card):
                 q, k, v, causal=True), entry_ms, card, "flash_attention")
         del q, k, v, out, want, got, qf, kf, vf
     return rows
+
+
+def device_kernels(torch, fn):
+    """The device kernels of one warm call of ``fn``, by torch.profiler:
+    [{"name", "count"}]."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = torch.autograd.DeviceType.CUDA
+    return [{"name": e.key[:120], "count": e.count}
+            for e in prof.key_averages() if e.device_type == kernels]
+
+
+KERNEL_NAMES = ("partials_sm90", "attention_sm90", "partials_f32",
+                "attention_f32", "dkdv_kernel", "dq_kernel")
+
+
+def ptxas_table(report: str):
+    """Registers and spills of every kernel in an nvcc -Xptxas=-v report:
+    [{"kernel", "registers", "spill_stores", "spill_loads"}], and the
+    count of ptxas's notes that it serialised wgmma instructions."""
+    rows, current = [], None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            mangled = m.group(1)
+            base = next((k for k in KERNEL_NAMES if k in mangled), mangled)
+            ints = re.findall(r"Li(\d+)E", mangled)
+            dtype = "bf16" if ("sm90" in base or "bfloat16" in mangled) \
+                else "f32"
+            current = {"kernel": f"{base}<{dtype}{''.join(',' + i for i in ints)}>"}
+            rows.append(current)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current is not None:
+            current["spill_stores"] = int(m.group(1))
+            current["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+    return rows, sum("C7512" in line for line in report.splitlines())
+
+
+def check_ptxas(_build, lib) -> None:
+    """Every kernel's registers and spills from its nvcc report, and the
+    bf16 forward tiles (BQ, BK, threads, dynamic shared memory); a spill
+    anywhere fails."""
+    import ctypes
+    spills = []
+    for src in _build.sources():
+        rows, serialised = ptxas_table(_build.report(src.stem))
+        log({"phase": "ptxas", "source": src.name, "kernels": rows,
+             "wgmma_serialised_notes": serialised})
+        spills += [r["kernel"] for r in rows
+                   if r.get("spill_stores", 0) or r.get("spill_loads", 0)]
+    tiles = {}
+    for d in (64, 128, 256):
+        out = (ctypes.c_int * 4)()
+        lib.flash_attention_tile(d, out)
+        tiles[d] = dict(zip(("bq", "bk", "threads", "smem_bytes"), out))
+    log({"phase": "fwd_tiles", "by_padded_head_dim": tiles})
+    if spills:
+        raise AssertionError(f"ptxas spilled registers in {spills}")
 
 
 def profile_run(torch, fn, ref_ms: float, card: str, what: str) -> None:
@@ -756,10 +904,9 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = _build.build()
     build_s = time.perf_counter() - t0
-    for name, text in reports.items():
-        log(f"nvcc report for {name}:\n{text.strip()}")
-    log({"phase": "build", "seconds": build_s,
+    log({"phase": "build", "seconds": build_s, "built": sorted(reports),
          "sources": [s.name for s in _build.sources()]})
+    check_ptxas(_build, _build.library("flash_attention"))
 
     # 3. kernels against their plain versions
     path_err = None
@@ -789,12 +936,27 @@ def main() -> int:
     # 4. flash_attention (K4): against its plain version, then its path at
     # full flagship width
     cfg = tfm.flagship_config()
+    k4_lib = _build.library("flash_attention")
     for case in K4_CASES:
-        err, used, planted = check_k4(torch, attention, case)
-        log({"phase": "k4_check", "case": case[0], "dtype": case[1],
-             "kv_dtype": case[2], "causal": case[3],
+        name, dtype, kv_dtype, causal, b, h, s_q, s_k, d = case
+        gen = torch.Generator(device="cuda").manual_seed(s_q * 1000 + d + 2)
+        q, k, v = k4_inputs(torch, gen, b, h, s_q, s_k, d, dtype, kv_dtype)
+        err, used, planted, rows = check_k4(torch, attention, k4_lib, name,
+                                            dtype, causal, q, k, v)
+        log({"phase": "k4_check", "case": name, "dtype": dtype,
+             "kv_dtype": kv_dtype, "causal": causal,
              "b_h_sq_sk_d": list(case[4:]), "max_abs_err": err,
-             "tol": TOL[case[1]], "bound_use": used,
+             "tol": TOL[dtype], "bound_use": used, "planted_rows": rows,
+             "planted_fault_bound_use": planted, "ok": True})
+    for name, layout, dtype, causal, b, h, s, d in K4_VIEWS:
+        gen = torch.Generator(device="cuda").manual_seed(s * 1000 + d + 4)
+        q, k, v = k4_view_inputs(torch, gen, layout, dtype, b, h, s, d)
+        err, used, planted, rows = check_k4(torch, attention, k4_lib, name,
+                                            dtype, causal, q, k, v)
+        log({"phase": "k4_check", "case": name, "layout": layout,
+             "dtype": dtype, "causal": causal, "b_h_s_d": [b, h, s, d],
+             "q_strides": list(q.stride()), "max_abs_err": err,
+             "tol": TOL[dtype], "bound_use": used, "planted_rows": rows,
              "planted_fault_bound_use": planted, "ok": True})
     check_sdpa_alignment(torch, attention)
     k4_rows = k4_path(torch, attention, cfg, card)
@@ -864,16 +1026,18 @@ def main() -> int:
         q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda",
                                dtype=torch.bfloat16) for _ in range(3))
         k1_ms = median_ms(lambda: attention.flash_attention_partials(
-            q, k, v, causal=True))
+            q, k, v, causal=True), reps=KERNEL_REPS)
         plain_ms = median_ms(
             lambda: attention.flash_attention_partials_reference(
                 q, k, v, causal=True))
         unfold = lambda x: x.reshape(4, cfg.n_heads, s, d)
         sdpa_ms = median_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                unfold(q), unfold(k), unfold(v), is_causal=True))
+                unfold(q), unfold(k), unfold(v), is_causal=True),
+            reps=KERNEL_REPS)
         qm, km, vm = (unfold(x).transpose(1, 2) for x in (q, k, v))
-        mha_ms = median_ms(lambda: attention.flash_mha(qm, km, vm, True))
+        mha_ms = median_ms(lambda: attention.flash_mha(qm, km, vm, True),
+                           reps=KERNEL_REPS)
         fwd_ms = median_ms(lambda: tfm.forward(params, tokens, cfg), n=10)
         dense_ms = median_ms(lambda: tfm.forward(params, tokens, dense), n=10)
         profile_run(torch, lambda: tfm.forward(params, tokens, cfg), fwd_ms,
@@ -912,8 +1076,10 @@ def main() -> int:
     # 8. train numbers, CUDA-event medians
     args = bwd_args(torch, attention, "bfloat16", True, bh, s, s, d)
     k2_ms = median_ms(lambda: attention.flash_mha_bwd_dkdv(*args,
-                                                           causal=True))
-    k3_ms = median_ms(lambda: attention.flash_mha_bwd_dq(*args, causal=True))
+                                                           causal=True),
+                      reps=KERNEL_REPS)
+    k3_ms = median_ms(lambda: attention.flash_mha_bwd_dq(*args, causal=True),
+                      reps=KERNEL_REPS)
     k2_plain_ms = median_ms(lambda: attention.flash_mha_bwd_dkdv_reference(
         *args, causal=True), n=5, warmup=1)
     k3_plain_ms = median_ms(lambda: attention.flash_mha_bwd_dq_reference(
@@ -924,13 +1090,13 @@ def main() -> int:
     out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs,
                                                            is_causal=True)
     sdpa_bwd_ms = median_ms(lambda: torch.autograd.grad(
-        out, (qs, ks, vs), b4(do), retain_graph=True))
+        out, (qs, ks, vs), b4(do), retain_graph=True), reps=KERNEL_REPS)
     qm, km, vm = (b4(x).transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     out = attention.flash_mha(qm, km, vm, True)
     g = b4(do).transpose(1, 2)
     mha_bwd_ms = median_ms(lambda: torch.autograd.grad(
-        out, (qm, km, vm), g, retain_graph=True))
+        out, (qm, km, vm), g, retain_graph=True), reps=KERNEL_REPS)
     del out, qs, ks, vs, qm, km, vm, args
     # the step's two halves at the path: value-and-grad, then AdamW
     params = clone_tree(optim, pristine)
@@ -972,7 +1138,8 @@ def main() -> int:
          "replaces": "ompi_tpu/ops/attention.py:248",
          "launches": per_step[0], "max_abs_err": path_err, "ms": k1_ms,
          "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": sdpa_ms},
+         "library_ms": sdpa_ms, "tflops": flops / k1_ms / 1e9,
+         "bound_share": k1_bound / k1_ms},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ompi_tpu/ops/attention.py:381",
@@ -997,7 +1164,9 @@ def main() -> int:
          "plain_ms": k4_rows[0]["plain_ms"],
          "bound_ms": k4_rows[0]["bound_ms"],
          "bound_by": k4_rows[0]["bound_by"],
-         "library_ms": k4_rows[0]["sdpa_ms"]}]})
+         "library_ms": k4_rows[0]["sdpa_ms"],
+         "tflops": k4_rows[0]["k4_tflops"],
+         "bound_share": k4_rows[0]["roofline_share"]}]})
     log(card)
     # count: the cards this run used
     log({"ok": True, "device": {"platform": "gpu",

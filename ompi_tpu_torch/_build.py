@@ -5,8 +5,10 @@ into ``build/kernels/<name>-<hash>.so`` at the repository root (listed in
 ``.gitignore``).  The hash covers the source, every ``csrc/*.cuh`` header
 and the flags, so an edited kernel rebuilds and an unchanged one loads at
 once.  ``build()`` starts one nvcc per source, all together, and waits for
-all of them.  The first call to ``library`` builds, so a fresh checkout
-builds everything the first time a kernel launches.
+all of them, and keeps nvcc's report (``-Xptxas=-v``: registers, spills)
+beside each library, where ``report`` reads it.  The first call to
+``library`` builds, so a fresh checkout builds everything the first time a
+kernel launches.
 
 A failed build raises with nvcc's stderr.  Nothing falls back.
 """
@@ -75,11 +77,18 @@ def build() -> Dict[str, str]:
             failures.append(f"nvcc failed on {src.name} (exit "
                             f"{proc.returncode}):\n{stderr}{stdout}")
         else:
+            out.with_suffix(".txt").write_text(stderr + stdout)
             os.replace(tmp, out)
             reports[src.stem] = stderr + stdout
     if failures:
         raise RuntimeError("\n".join(failures))
     return reports
+
+
+def report(name: str) -> str:
+    """nvcc's report for ``csrc/<name>.cu``, built first if need be."""
+    build()
+    return target(CSRC / f"{name}.cu").with_suffix(".txt").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

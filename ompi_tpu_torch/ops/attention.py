@@ -7,7 +7,9 @@ Counterpart of ``ompi_tpu/ops/attention.py``.  Entry points:
     head_dim), cross-attention (s_q ≠ s_k) and a top-left causal mask
     allowed.  On a CUDA tensor it launches the hand-written Hopper kernel
     ``csrc/flash_attention.cu`` (K4, K1's tile loop with a normalising
-    epilogue); on a CPU tensor it runs ``flash_attention_reference``.
+    epilogue), which reads q, k and v through their strides and writes
+    (batch, seq, heads, head_dim) itself; on a CPU tensor it folds batch
+    and heads and runs ``flash_attention_reference``.
   * ``flash_attention_partials`` — the *un-normalised* (o, m, l) triple of a
     Q shard against one visiting K/V shard, with global position offsets
     for the causal mask: the per-hop block compute of ring attention and
@@ -63,8 +65,13 @@ _DKDV_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _DQ_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_ATTENTION_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+_ATTENTION_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# The forward kernels' grid is (bh, q tiles): at most 65535 q tiles of
+# their smallest tile (32 rows, float32).  The backward's is (tiles, bh).
+_MAX_FWD_SEQ = 65535 * 32
+_MAX_BWD_BH = 65535
 
 
 def _default_block(s: int) -> int:
@@ -86,7 +93,7 @@ def _block_sizes(s_q: int, s_k: int, block_q: Optional[int],
     return bq, bk
 
 
-def _check_kernel_shape(what: str, dtype: torch.dtype, bh: int, d: int,
+def _check_kernel_shape(what: str, dtype: torch.dtype, d: int,
                         positions=()) -> str:
     """Raise on what the CUDA kernels do not take; return the dtype suffix
     of the kernel's C entry point."""
@@ -97,18 +104,49 @@ def _check_kernel_shape(what: str, dtype: torch.dtype, bh: int, d: int,
     if d % 16 or not 16 <= d <= 256:
         raise ValueError(f"{what} on CUDA needs head_dim a multiple of 16 in "
                          f"[16, 256], got {d}")
-    if bh > 65535:
-        raise ValueError(f"batch*heads {bh} exceeds the kernel grid's 65535")
     for x in positions:
         if not -2**31 <= x < 2**31:
             raise ValueError(f"positions must fit int32, got {x}")
     return suffix
 
 
+def _check_bwd_grid(bh: int) -> None:
+    if bh > _MAX_BWD_BH:
+        raise ValueError(f"batch*heads {bh} exceeds the backward kernels' "
+                         f"grid ({_MAX_BWD_BH})")
+
+
+def _check_fwd_seq(what: str, s_q: int) -> None:
+    if s_q > _MAX_FWD_SEQ:
+        raise ValueError(f"{what} on CUDA takes at most {_MAX_FWD_SEQ} "
+                         f"queries (65535 tiles of 32 rows), got {s_q}")
+
+
 def _ready(t: torch.Tensor) -> torch.Tensor:
     """Contiguous and 16-byte aligned, as the kernels' vector loads need."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _strided_ready(t: torch.Tensor) -> torch.Tensor:
+    """A (b, s, h, d) operand as K4 reads it in place: d contiguous, the
+    base and every other stride 16-byte aligned (what a TMA tensor map and
+    the float32 loop's 16-byte loads take).  Anything else is made
+    contiguous first; strides of size-1 dimensions are never read."""
+    size = t.element_size()
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+            n == 1 or (st * size) % 16 == 0
+            for n, st in zip(t.shape[:-1], t.stride()[:-1])):
+        return t
+    return _ready(t)
+
+
+def _strides(t: torch.Tensor):
+    """Element strides (b, s, h) of a (b, s, h, d) operand; a size-1
+    dimension, whose stride is never read, takes d's row length, which is
+    16-byte aligned."""
+    d = t.shape[-1]
+    return [st if n > 1 else d for n, st in zip(t.shape[:-1], t.stride()[:-1])]
 
 
 def _launch(lib_name: str, fn_name: str, argtypes, device, *args) -> None:
@@ -182,8 +220,9 @@ def _partials_cuda(q, k, v, causal, scale, q_offset, kv_offset):
     bh, s_q, d = q.shape
     s_k = k.shape[1]
     suffix = _check_kernel_shape(
-        "flash_attention_partials", q.dtype, bh, d,
+        "flash_attention_partials", q.dtype, d,
         (q_offset, kv_offset, s_q + q_offset, s_k + kv_offset))
+    _check_fwd_seq("flash_attention_partials", s_q)
     q, k, v = _ready(q), _ready(k), _ready(v)
     f32 = dict(dtype=torch.float32, device=q.device)
     o = torch.empty((bh, s_q, d), **f32)
@@ -281,18 +320,26 @@ def flash_attention_reference(
 
 
 def _attention_cuda(q, k, v, causal, scale):
+    """K4 on (b, s, h, d) operands as they lie: k and v cast only when
+    their dtype is not q's, an operand copied only when its strides are
+    not ones the kernel reads (``_strided_ready``).  Returns a new
+    (b, s_q, h, d) tensor in q's dtype."""
     global attention_launches
-    bh, s_q, d = q.shape
+    d = q.shape[-1]
+    suffix = _check_kernel_shape("flash_attention", q.dtype, d,
+                                 (q.shape[1], k.shape[1]))
+    b, s_q, h, _ = q.shape
     s_k = k.shape[1]
-    suffix = _check_kernel_shape("flash_attention", q.dtype, bh, d,
-                                 (s_q, s_k))
-    q, k, v = _ready(q), _ready(k), _ready(v)
-    o = torch.empty_like(q)
+    _check_fwd_seq("flash_attention", s_q)
+    k, v = (x if x.dtype == q.dtype else x.to(q.dtype) for x in (k, v))
+    q, k, v = (_strided_ready(x) for x in (q, k, v))
+    o = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
     _launch("flash_attention", f"flash_attention_{suffix}",
             _ATTENTION_ARGTYPES, q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), bh, s_q, s_k, d, float(scale),
+            v.data_ptr(), o.data_ptr(), b, h, s_q, s_k, d,
+            *_strides(q), *_strides(k), *_strides(v), float(scale),
             int(bool(causal)))
     attention_launches += 1
     return o
@@ -307,8 +354,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q may have a different sequence length than k/v (cross attention);
     ``causal`` assumes both sequences start at position 0, so row i sees
     the keys j ≤ i.  k and v are cast to q's dtype and the output comes in
-    q's dtype.  A CUDA tensor launches K4 once, which tiles by its own
-    fixed tile and masks the ragged edge itself; ``block_q``/``block_k``
+    q's dtype.  A CUDA tensor launches K4 once, which reads the inputs
+    through their strides, writes a new (b, s_q, h, d) output, tiles by its
+    own fixed tile and masks the ragged edge itself; ``block_q``/``block_k``
     tile the plain version and raise ``ValueError`` for sequences they do
     not divide on either device.
     """
@@ -319,13 +367,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     _block_sizes(s_q, s_k, block_q, block_k)
-    qf, kf, vf = (_fold(x).to(q.dtype) for x in (q, k, v))
     if dev.type == "cuda":
-        out = _attention_cuda(qf, kf, vf, causal, scale)
-    else:
-        out = flash_attention_reference(qf, kf, vf, causal, scale, block_q,
-                                        block_k)
-    return _unfold(out, b, h)
+        return _attention_cuda(q, k, v, causal, scale)
+    qf, kf, vf = (_fold(x).to(q.dtype) for x in (q, k, v))
+    return _unfold(flash_attention_reference(qf, kf, vf, causal, scale,
+                                             block_q, block_k), b, h)
 
 
 # -- K2, K3: the backward -----------------------------------------------------
@@ -451,8 +497,8 @@ def flash_mha_bwd_dkdv(
                                             scale, block_q, block_k)
     bh, s_q, d = q.shape
     s_k = k.shape[1]
-    suffix = _check_kernel_shape("flash_mha_bwd_dkdv", q.dtype, bh, d,
-                                 (s_q, s_k))
+    suffix = _check_kernel_shape("flash_mha_bwd_dkdv", q.dtype, d, (s_q, s_k))
+    _check_bwd_grid(bh)
     q, k, v, do, lse, delta = map(_ready, (q, k, v, do, lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
@@ -481,8 +527,8 @@ def flash_mha_bwd_dq(
                                           scale, block_q, block_k)
     bh, s_q, d = q.shape
     s_k = k.shape[1]
-    suffix = _check_kernel_shape("flash_mha_bwd_dq", q.dtype, bh, d,
-                                 (s_q, s_k))
+    suffix = _check_kernel_shape("flash_mha_bwd_dq", q.dtype, d, (s_q, s_k))
+    _check_bwd_grid(bh)
     q, k, v, do, lse, delta = map(_ready, (q, k, v, do, lse, delta))
     dq = torch.empty_like(q)
     if dq.numel() == 0:

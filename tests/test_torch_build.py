@@ -13,6 +13,7 @@ for a; do
 done
 case "$a" in *bad.cu) echo "$a(1): error: expected a declaration" >&2; exit 2;; esac
 echo "$a" >> "$(dirname "$0")/calls"
+echo "ptxas info    : Used 8 registers ($a)" >&2
 touch "$out"
 """
 
@@ -58,3 +59,15 @@ def test_failed_build_raises_with_compiler_output(tree):
 def test_unknown_kernel_raises(tree):
     with pytest.raises(FileNotFoundError):
         _build.library("absent")
+
+
+def test_report_is_kept_beside_the_library(tree):
+    """The compiler's report of a source stays readable after the build
+    that made it, so a later run can still read registers and spills."""
+    csrc, calls = tree
+    (csrc / "a.cu").write_text("// a")
+    built = _build.build()
+    assert "Used 8 registers" in built["a"]
+    assert _build.build() == {}
+    assert _build.report("a") == built["a"]
+    assert len(calls()) == 1

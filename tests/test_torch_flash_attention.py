@@ -174,16 +174,85 @@ def test_refuses_bad_inputs():
         attn.flash_attention(meta, meta, meta)
 
 
-@pytest.mark.parametrize("dtype, d, error", [
-    (torch.float16, 64, TypeError), (torch.float32, 8, ValueError),
-    (torch.bfloat16, 272, ValueError), (torch.bfloat16, 72, ValueError)])
-def test_kernel_refuses_what_it_does_not_take(dtype, d, error):
-    """K4's launch path refuses a dtype or head_dim the kernel does not
-    take before it touches a device, so a CUDA tensor raises there rather
-    than taking the plain version."""
-    x = torch.zeros((2, 64, d), dtype=dtype)
+@pytest.mark.parametrize("dtype, d, s, error", [
+    (torch.float16, 64, 64, TypeError), (torch.float32, 8, 64, ValueError),
+    (torch.bfloat16, 272, 64, ValueError),
+    (torch.bfloat16, 72, 64, ValueError),
+    # the grid holds at most 65535 q tiles of 32 rows
+    (torch.bfloat16, 16, 65535 * 32 + 1, ValueError)])
+def test_kernel_refuses_what_it_does_not_take(dtype, d, s, error):
+    """K4's launch path refuses a dtype, head_dim or sequence the kernel
+    does not take before it touches a device (the (b, s, h, d) inputs here
+    hold no data), so a CUDA tensor raises there rather than taking the
+    plain version."""
+    x = torch.empty((1, s, 2, d), dtype=dtype, device="meta")
     with pytest.raises(error):
         attn._attention_cuda(x, x, x, False, 1.0)
+
+
+def test_grid_limits():
+    """The forward kernels put b·h on the grid's x axis, which has no
+    65535 cap; the backward kernels still keep b·h on y."""
+    attn._check_fwd_seq("flash_attention", 65535 * 32)
+    attn._check_bwd_grid(65535)
+    with pytest.raises(ValueError, match="backward"):
+        attn._check_bwd_grid(65536)
+
+
+def _packed(b, s, h, d, n, dtype=torch.bfloat16):
+    """n operands of (b, s, h, d), sliced from one (b, s, n, h, d) tensor
+    as a fused projection leaves them."""
+    x = torch.randn((b, s, n, h, d)).to(dtype)
+    return [x[:, :, i] for i in range(n)]
+
+
+def test_strided_ready_reads_views_in_place():
+    """K4 reads a (b, s, h, d) operand through its strides when d is
+    contiguous and the base and the other strides are 16-byte aligned;
+    otherwise the operand is made contiguous first."""
+    for t in _packed(2, 8, 3, 32, 3) + [
+            torch.randn((2, 3, 8, 32)).transpose(1, 2),
+            torch.randn((2, 8, 1, 32))[:, :, :, :16]]:
+        got = attn._strided_ready(t)
+        assert got.data_ptr() == t.data_ptr() and got.stride() == t.stride()
+    odd_rows = torch.randn((2, 8, 3, 36)).to(torch.bfloat16)[..., :32]
+    not_unit = torch.randn((2, 8, 3, 64))[..., ::2]
+    shifted = torch.randn(2 * 8 * 3 * 32 + 1)[1:].view(2, 8, 3, 32)
+    for t in (odd_rows, not_unit, shifted):
+        got = attn._strided_ready(t)
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
+        assert torch.equal(got, t)
+    # a size-1 dimension's stride is never read: d's row length stands in
+    t = torch.randn((1, 8, 1, 32))
+    assert attn._strides(t) == [32, 32, 32]
+
+
+# name: how q, k and v are laid out, as views of one tensor each
+VIEWS = {
+    "packed_qkv": lambda b, s, h, d: _packed(b, s, h, d, 3, torch.float32),
+    "transposed": lambda b, s, h, d: [
+        torch.randn((b, h, s, d)).transpose(1, 2) for _ in range(3)],
+    "q_apart_packed_kv": lambda b, s, h, d: [
+        torch.randn((b, s, h, d))] + _packed(b, s, h, d, 2, torch.float32),
+}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("view", sorted(VIEWS))
+def test_noncontiguous_views_match_jax(view, causal):
+    """flash_attention on (b, s, h, d) views that are not contiguous (as a
+    model passes them) equals the JAX flash_attention in interpret mode on
+    the same values."""
+    torch.manual_seed(3)
+    q, k, v = VIEWS[view](B, 128, H, D)
+    assert not q.is_contiguous() or not k.is_contiguous()
+    got = attn.flash_attention(q, k, v, causal=causal, block_q=64,
+                               block_k=64)
+    jq, jk, jv = (jnp.asarray(x.contiguous().numpy()) for x in (q, k, v))
+    want = jax_attn.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                    block_k=64, interpret=True)
+    assert got.shape == q.shape
+    _close(got, want, F32_TOL)
 
 
 # Public names of the JAX package's attention module that the port leaves
