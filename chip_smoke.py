@@ -6,14 +6,15 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi) and properties;
   2. build   — nvcc builds every kernel under ompi_tpu_torch/csrc/; the
-               ptxas report of every kernel is read (registers, spills:
-               any spill fails) and the bf16 forward tiles are printed;
+               ptxas report of every kernel is read (registers, spills and
+               serialised wgmma: either fails) and the bf16 forward and
+               backward tiles (rows, threads, shared memory) are printed;
   3. kernels — each kernel against its plain PyTorch version on the card:
                K1 over K1_CASES and the merge contract, K2 and K3 over
                BWD_CASES row by row (each case also shows that the check
-               rejects a planted fault), and flash_mha's gradients through
-               autograd against
-               autograd through the dense attention_reference;
+               rejects a planted fault on the kernel's own last tile), and
+               flash_mha's gradients through autograd against autograd
+               through the dense attention_reference;
   4. flash_attention — K4 against its plain version over K4_CASES and
                K4_VIEWS (strided (b, s, h, d) views; each case also shows
                that the check rejects a planted fault on its last BQ rows);
@@ -42,9 +43,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                first-step gradients held to stated bounds, no K1/K2/K3
                launch);
   8. train numbers — CUDA-event medians of K2, K3, their plain versions,
-               flash_mha's backward and SDPA's backward; the train step's
-               ms, tokens/s, MFU and peak memory for remat none/dots/full
-               and attn="dense"; a torch.profiler breakdown of one step.
+               flash_mha's backward beside SDPA's backward; the train
+               step's ms, tokens/s, MFU and peak memory for remat
+               none/dots/full and attn="dense"; a torch.profiler breakdown
+               of one step, whose K1/K2/K3/K4 launches must be 12/6/6/0.
 The last lines are the kernels JSON object, the nvidia-smi line and
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
 result.
@@ -119,8 +121,11 @@ PATH_CASE = "bf16 flagship shape"
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 BWD_ATOL = 1e-5
 # Every case also plants a fault in the kernel's result, PLANTED_ERR off on
-# the last quarter of the rows and on the last 64-row tile (K2/K3's tile),
-# and requires the check to reject both.
+# the last quarter of the live rows and on the kernel's last tile of them
+# (K3's q tile for dq, K2's kv tile for dk and dv, from flash_bwd_tile), and
+# requires the check to reject both.  Live rows are those a gradient can
+# reach: under top-left causal masking kv rows at or past s_q see no query,
+# so dk and dv are zero there and a scaled zero is no fault.
 PLANTED_ERR = 0.1
 # K4 against its plain version: elementwise TOL on the normalised output,
 # and a planted fault (PLANTED_ERR on the last BQ rows, the kernel's q
@@ -172,7 +177,8 @@ K4_VIEWS = [
      128),
     ("f32 packed qkv causal", "packed qkv", "float32", True, 2, 2, 200, 64),
 ]
-F32_TILE_ROWS = 32       # the float32 loop's q tile (csrc/flash_fwd.cuh)
+F32_TILE_ROWS = 32       # the float32 loops' tile: K1/K4's q tile
+                         # (csrc/flash_fwd.cuh), K2's kv and K3's q tile
 # flash_attention at full flagship width: (name, causal, s_q) against k/v
 # of the flagship's sequence, batch BATCH, its heads and head_dim, bf16.
 K4_PATH = [("causal", True, 2048), ("not causal", False, 2048),
@@ -189,6 +195,17 @@ BWD_CASES = [
     ("bf16 ragged s=200", "bfloat16", True, 4, 200, 200, 128),
     ("bf16 ragged d80", "bfloat16", False, 2, 131, 97, 80),
     ("bf16 d256 causal", "bfloat16", True, 2, 192, 192, 256),
+    # the Hopper kernels' edges (K2: 128 kv rows a block, 64 q rows a step;
+    # K3: 128 q rows a block, 64 kv rows a step), d padded to D = 64 or 128
+    ("bf16 causal s=127 (tile-1)", "bfloat16", True, 4, 127, 127, 128),
+    ("bf16 causal s=129 (tile+1)", "bfloat16", True, 4, 129, 129, 128),
+    ("bf16 causal s=255", "bfloat16", True, 4, 255, 255, 128),
+    ("bf16 causal d64 s=255", "bfloat16", True, 4, 255, 255, 64),
+    ("bf16 causal d80 s=200", "bfloat16", True, 4, 200, 200, 80),
+    ("bf16 causal sq<sk", "bfloat16", True, 4, 128, 320, 128),
+    ("bf16 causal sq>sk", "bfloat16", True, 4, 320, 128, 128),
+    ("bf16 causal sq<sk ragged d64", "bfloat16", True, 2, 129, 257, 64),
+    ("bf16 causal sq>sk ragged d80", "bfloat16", True, 2, 257, 129, 80),
     ("bf16 flagship shape", "bfloat16", True, 64, 2048, 2048, 128),
 ]
 # flash_mha's gradients against autograd through the dense reference: f32
@@ -217,8 +234,8 @@ BATCH = 4
 KERNEL_CLASSES = [
     ("K4 attention_sm90", ("attention_sm90", "attention_f32")),
     ("K1 partials_sm90", ("partials_sm90", "partials_f32")),
-    ("K2 dkdv_kernel", ("dkdv_kernel",)),
-    ("K3 dq_kernel", ("dq_kernel",)),
+    ("K2 dkdv", ("dkdv_sm90", "dkdv_kernel")),
+    ("K3 dq", ("dq_sm90", "dq_kernel")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("copies and casts", ("copy_kernel", "bfloat16_copy")),
     ("reductions", ("reduce_kernel",)),
@@ -357,10 +374,22 @@ def bound_use(got, want, tol: float) -> float:
     return float(((got - want).abs() / lim).max())
 
 
-def check_bwd(torch, attention, case):
+def bwd_tile_rows(bwd_lib, dtype: str, d: int):
+    """The rows of K2's kv tile (dk, dv) and K3's q tile (dq) at this dtype
+    and head dim: the rows a planted fault covers."""
+    if dtype == "float32":
+        return dict.fromkeys(("dk", "dv", "dq"), F32_TILE_ROWS)
+    import ctypes
+    out = (ctypes.c_int * 7)()
+    bwd_lib.flash_bwd_tile(d, out)
+    return {"dk": out[1], "dv": out[1], "dq": out[2]}
+
+
+def check_bwd(torch, attention, case, tiles):
     """One K2/K3-vs-plain comparison; returns, for each of dq, dk and dv,
     the max abs error, the bound used (bound_use) and what the two planted
-    faults read."""
+    faults read.  ``tiles`` gives each gradient's tile rows
+    (bwd_tile_rows)."""
     name, dtype, causal, bh, s_q, s_k, d = case
     args = bwd_args(torch, attention, dtype, causal, bh, s_q, s_k, d)
     dk, dv = attention.flash_mha_bwd_dkdv(*args, causal=causal)
@@ -381,12 +410,15 @@ def check_bwd(torch, attention, case):
                 f"K2/K3 {name}: {what} max err {errs[what]:.3g}, "
                 f"{used[what]:.3g} of its row's bound, finite="
                 f"{bool(torch.isfinite(got).all())}")
-        s = got.shape[1]
-        planted[what] = {}
-        for fault, rows in (("last_quarter", slice(s - s // 4, s)),
-                            ("last_tile", slice(max(s - 64, 0), s))):
+        live = got.shape[1]
+        if causal and what != "dq":
+            live = min(live, s_q)
+        rows = tiles[what]
+        planted[what] = {"tile_rows": rows}
+        for fault, sl in (("last_quarter", slice(live - live // 4, live)),
+                          ("last_tile", slice(max(live - rows, 0), live))):
             bad = got.clone()
-            bad[:, rows] *= 1 + PLANTED_ERR
+            bad[:, sl] *= 1 + PLANTED_ERR
             planted[what][fault] = bound_use(bad, want, tol)
             if not planted[what][fault] > 1:
                 raise AssertionError(
@@ -640,7 +672,8 @@ def device_kernels(torch, fn):
 
 
 KERNEL_NAMES = ("partials_sm90", "attention_sm90", "partials_f32",
-                "attention_f32", "dkdv_kernel", "dq_kernel")
+                "attention_f32", "dkdv_sm90", "dq_sm90", "dkdv_kernel",
+                "dq_kernel")
 
 
 def ptxas_table(report: str):
@@ -670,33 +703,47 @@ def ptxas_table(report: str):
     return rows, sum("C7512" in line for line in report.splitlines())
 
 
-def check_ptxas(_build, lib) -> None:
+def check_ptxas(_build, lib, bwd_lib) -> None:
     """Every kernel's registers and spills from its nvcc report, and the
-    bf16 forward tiles (BQ, BK, threads, dynamic shared memory); a spill
-    anywhere fails."""
+    bf16 forward tiles (BQ, BK, threads, dynamic shared memory) and backward
+    tiles; a spill or a serialised wgmma anywhere fails."""
     import ctypes
-    spills = []
+    spills, serialised = [], {}
     for src in _build.sources():
-        rows, serialised = ptxas_table(_build.report(src.stem))
+        rows, notes = ptxas_table(_build.report(src.stem))
         log({"phase": "ptxas", "source": src.name, "kernels": rows,
-             "wgmma_serialised_notes": serialised})
+             "wgmma_serialised_notes": notes})
         spills += [r["kernel"] for r in rows
                    if r.get("spill_stores", 0) or r.get("spill_loads", 0)]
+        if notes:
+            serialised[src.name] = notes
     tiles = {}
     for d in (64, 128, 256):
         out = (ctypes.c_int * 4)()
         lib.flash_attention_tile(d, out)
         tiles[d] = dict(zip(("bq", "bk", "threads", "smem_bytes"), out))
     log({"phase": "fwd_tiles", "by_padded_head_dim": tiles})
+    # d 64 and 128: the Hopper kernels; d 256: the wmma loop
+    tiles = {}
+    for d in (64, 128, 256):
+        out = (ctypes.c_int * 7)()
+        bwd_lib.flash_bwd_tile(d, out)
+        tiles[d] = dict(zip(("k2_bq", "k2_bk", "k3_bq", "k3_bk", "threads",
+                             "k2_smem_bytes", "k3_smem_bytes"), out))
+    log({"phase": "bwd_tiles", "by_padded_head_dim": tiles})
     if spills:
         raise AssertionError(f"ptxas spilled registers in {spills}")
+    if serialised:
+        raise AssertionError(f"ptxas serialised wgmma in {serialised}")
 
 
-def profile_run(torch, fn, ref_ms: float, card: str, what: str) -> None:
+def profile_run(torch, fn, ref_ms: float, card: str, what: str,
+                want_launches=None) -> None:
     """Where one warm run of ``fn`` spends device time: kernel time by name
     from torch.profiler, and the device's idle share of the unprofiled time
     ``ref_ms`` (the profiler's own overhead lengthens the profiled wall
-    time, so that is reported but not used)."""
+    time, so that is reported but not used).  ``want_launches`` maps
+    kernel classes to the launches the run must show."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
@@ -733,6 +780,11 @@ def profile_run(torch, fn, ref_ms: float, card: str, what: str) -> None:
                     "device_ms": e.self_device_time_total / 1e3}
                    for e in top]}
     log(out)
+    for cls, n in (want_launches or {}).items():
+        seen = by_class.get(cls, (0.0, 0))[1]
+        if seen != n:
+            raise AssertionError(f"profile of {what}: {seen} launches of "
+                                 f"{cls}, want {n}")
 
 
 def rel_rms(a, b) -> float:
@@ -872,7 +924,10 @@ def time_train(torch, tfm, optim, cfg, pristine, tokens, card,
         def one_step():
             nonlocal params, state
             params, state, _ = step(params, state, tokens)
-        profile_run(torch, one_step, ms, card, "train_step")
+        n = cfg.n_layers
+        profile_run(torch, one_step, ms, card, "train_step", {
+            "K1 partials_sm90": 2 * n if cfg.remat != "none" else n,
+            "K2 dkdv": n, "K3 dq": n, "K4 attention_sm90": 0})
 
 
 def main() -> int:
@@ -906,7 +961,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log({"phase": "build", "seconds": build_s, "built": sorted(reports),
          "sources": [s.name for s in _build.sources()]})
-    check_ptxas(_build, _build.library("flash_attention"))
+    check_ptxas(_build, _build.library("flash_attention"),
+                _build.library("flash_bwd"))
 
     # 3. kernels against their plain versions
     path_err = None
@@ -921,8 +977,10 @@ def main() -> int:
     for dtype in ("float32", "bfloat16"):
         check_merge(torch, attention, ring, dtype)
     bwd_err = None
+    bwd_lib = _build.library("flash_bwd")
     for case in BWD_CASES:
-        errs, used, planted = check_bwd(torch, attention, case)
+        errs, used, planted = check_bwd(
+            torch, attention, case, bwd_tile_rows(bwd_lib, case[1], case[6]))
         log({"phase": "k2_k3_check", "case": case[0], "dtype": case[1],
              "causal": case[2], "shape": list(case[3:]), "max_abs_err": errs,
              "row_tol": BWD_TOL[case[1]], "atol_of_max": BWD_ATOL,
@@ -1117,9 +1175,10 @@ def main() -> int:
                pristine, train_tokens, card)
 
     # K2: q, k, v, dO, lse, delta in; dk, dv out; 4 causal products
-    k2_bound, k2_by = bound(8 * d * pairs, 6 * tile + 2 * vec)
+    k2_flops, k3_flops = 8 * d * pairs, 6 * d * pairs
+    k2_bound, k2_by = bound(k2_flops, 6 * tile + 2 * vec)
     # K3: q, k, v, dO, lse, delta in; dq out; 3 causal products
-    k3_bound, k3_by = bound(6 * d * pairs, 5 * tile + 2 * vec)
+    k3_bound, k3_by = bound(k3_flops, 5 * tile + 2 * vec)
     for metric, value in (("k2_ms", k2_ms), ("k2_plain_ms", k2_plain_ms),
                           ("k3_ms", k3_ms), ("k3_plain_ms", k3_plain_ms),
                           ("flash_mha_bwd_ms", mha_bwd_ms),
@@ -1127,10 +1186,15 @@ def main() -> int:
                           ("train_adamw_ms", adamw_ms),
                           ("sdpa_bwd_ms", sdpa_bwd_ms),
                           ("k2_bound_ms", k2_bound), ("k3_bound_ms", k3_bound),
-                          ("k2_tflops", 8 * d * pairs / k2_ms / 1e9),
-                          ("k3_tflops", 6 * d * pairs / k3_ms / 1e9)):
+                          ("k2_tflops", k2_flops / k2_ms / 1e9),
+                          ("k3_tflops", k3_flops / k3_ms / 1e9)):
         log({"phase": "numbers", "metric": metric, "value": value,
              "card": card})
+    # like for like: flash_mha's whole backward (fold of dO, delta, K2, K3)
+    # against SDPA's on the same (b, h, s, d) inputs
+    log({"phase": "numbers", "metric": "bwd_vs_sdpa",
+         "flash_mha_bwd_ms": mha_bwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
+         "ratio": mha_bwd_ms / sdpa_bwd_ms, "card": card})
 
     log({"kernels": [
         {"name": "flash_partials", "route": "cuda",
@@ -1146,13 +1210,16 @@ def main() -> int:
          "launches": per_step[1],
          "max_abs_err": max(bwd_err["dk"], bwd_err["dv"]), "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": sdpa_bwd_ms},
+         "library_ms": sdpa_bwd_ms, "flash_mha_bwd_ms": mha_bwd_ms,
+         "tflops": k2_flops / k2_ms / 1e9, "bound_share": k2_bound / k2_ms},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ompi_tpu/ops/attention.py:436",
          "launches": per_step[2], "max_abs_err": bwd_err["dq"],
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": sdpa_bwd_ms},
+         "bound_by": k3_by, "library_ms": sdpa_bwd_ms,
+         "flash_mha_bwd_ms": mha_bwd_ms, "tflops": k3_flops / k3_ms / 1e9,
+         "bound_share": k3_bound / k3_ms},
         # the causal call at full width is K4's path run; its other two
         # shapes are in the k4_path lines
         {"name": "flash_attention", "route": "cuda",

@@ -83,8 +83,10 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
                                      {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
                                      {v_sb, v_ss, v_sh}))
       return err;
-    return sm90::launch<F>(attention_sm90<F>, b * h, s_q, stream, maps, a,
-                           (__nv_bfloat16*)o);
+    // one block per (b * h, q tile)
+    return sm90::launch<F>(attention_sm90<F>,
+                           dim3(b * h, (s_q + F::BQ - 1) / F::BQ), stream,
+                           maps, a, (__nv_bfloat16*)o);
   });
 }
 

@@ -12,7 +12,10 @@
 //   K3: dq = sum_kv ds k                       for one q tile
 // p and ds are cast to the storage dtype before their products, and every
 // sum is an f32 accumulator cast to the storage dtype at the end, as the
-// TPU kernels do.
+// TPU kernels do.  No atomics: dq has its own kernel, so every sum is
+// deterministic.  On the TPU the inner loop was the sequential innermost
+// grid axis with the accumulator in VMEM scratch; here it is a loop inside
+// the block, and the causal skip is K2's loop start and K3's loop end.
 //
 // What bounds them.  At the flagship shape (bh 64, s 2048, d 128, bf16,
 // causal) one causal product is 2 d bh s(s+1)/2 = 34.4 GFLOP.  K2 does four
@@ -22,35 +25,35 @@
 // against ~169 MB (~50 us).  Both are bounded by operations, with one exp
 // per visible score on the SFUs beside them.
 //
-// What the design does about it.  This is the first, simple form, in the
-// style of K1 (flash_partials.cu):
-//   * K2: one block per (kv tile, bh) that loops over the q tiles; K3: one
-//     block per (q tile, bh) that loops over the kv tiles.  On the TPU the
-//     loop was the sequential innermost grid axis with the accumulator in
-//     VMEM scratch.  The causal skip is K2's loop start and K3's loop end.
-//     No atomics: dq has its own kernel, so every sum is deterministic;
-//   * bf16 products run on the tensor cores through nvcuda::wmma
-//     (16x16x16, f32 accumulate); float32 inputs take a plain FMA path with
-//     no TF32;
-//   * the score, dp and accumulator tiles stay in shared memory in f32.
-//     The shared-memory budget (227 KB) sets the tiles: bf16 takes 64x64 up
-//     to d = 128 and halves the accumulator's side of the tile above it; f32
-//     takes 32x32 so that d = 256 fits (~213 KB for K2);
-//   * rows past s_q and columns past s_k are loaded as zeros and given
-//     p = 0, so they contribute nothing; rows past the end are not written.
-// The tiles round-trip through shared memory between the wmma products
-// and the elementwise step, loads do not overlap products, and one block of
-// eight warps fills an SM.  Register-resident accumulators (mma.sync or
-// wgmma) and a TMA/cp.async pipeline are the later work that moves them
-// toward their bounds.
+// The kernels, chosen by dtype and head dim before the launch:
+//   * bf16, d <= 128 (padded to D = 64 or 128 by the tensor maps'
+//     zero fill): the Hopper kernels of flash_bwd_sm90.cuh, where their
+//     design is set out (wgmma with register-resident accumulators, K2's
+//     scores transposed so P^T and dS^T are A fragments in registers, a
+//     TMA/mbarrier ring, longest-first causal order);
+//   * bf16, 128 < d <= 256: the first, simple form below, nvcuda::wmma
+//     16x16x16 products with the score, dp and accumulator tiles in f32 in
+//     shared memory, 64 q x 32 kv rows for K2 and 32 q x 64 kv rows for K3
+//     so that they fit its 227 KB;
+//   * float32: the same loops with plain FMA products (no TF32) on 32 x 32
+//     tiles.
+// In the simple form rows past s_q and columns past s_k are loaded as
+// zeros and given p = 0, so they contribute nothing; rows past the end are
+// not written.  Its tiles round-trip through shared memory between the
+// products and the elementwise step, and loads do not overlap products.
 //
 // Interface: plain C, launched on the caller's stream, allocates nothing.
-// Each entry point returns cudaGetLastError() after the launch.
+// q, k, v, dO are (bh, s, d) contiguous, lse and delta (bh, s_q) f32.  Each
+// entry point returns the error of the launch (see flash_bwd_error_string).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "flash_bwd_sm90.cuh"
+
+namespace bw = sm90::bwd;
 
 namespace {
 
@@ -421,15 +424,19 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO,
 
 extern "C" {
 
-// bf16 tiles: 64x64 up to d = 128; above it the accumulator's side of the
-// tile (kv for K2, q for K3) halves to 32 to stay inside shared memory.
+// bf16: the Hopper kernels up to d = 128, the wmma loop above it, whose
+// accumulator side of the tile (kv for K2, q for K3) is 32 rows to stay
+// inside shared memory.
 int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v,
                         const void* dO, const void* lse, const void* delta,
                         void* dk, void* dv, int bh, int s_q, int s_k, int d,
                         float scale, int causal, void* stream) {
+  if (d <= 64)
+    return bw::launch_dkdv<bw::Dkdv64>(q, k, v, dO, lse, delta, dk, dv, bh,
+                                       s_q, s_k, d, scale, causal, stream);
   if (d <= 128)
-    return launch_dkdv<bf16, 64, 64>(q, k, v, dO, lse, delta, dk, dv, bh,
-                                     s_q, s_k, d, scale, causal, stream);
+    return bw::launch_dkdv<bw::Dkdv128>(q, k, v, dO, lse, delta, dk, dv, bh,
+                                        s_q, s_k, d, scale, causal, stream);
   return launch_dkdv<bf16, 64, 32>(q, k, v, dO, lse, delta, dk, dv, bh, s_q,
                                    s_k, d, scale, causal, stream);
 }
@@ -438,9 +445,12 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                       const void* dO, const void* lse, const void* delta,
                       void* dq, int bh, int s_q, int s_k, int d, float scale,
                       int causal, void* stream) {
-  if (d <= 128)
-    return launch_dq<bf16, 64, 64>(q, k, v, dO, lse, delta, dq, bh, s_q, s_k,
+  if (d <= 64)
+    return bw::launch_dq<bw::Dq64>(q, k, v, dO, lse, delta, dq, bh, s_q, s_k,
                                    d, scale, causal, stream);
+  if (d <= 128)
+    return bw::launch_dq<bw::Dq128>(q, k, v, dO, lse, delta, dq, bh, s_q,
+                                    s_k, d, scale, causal, stream);
   return launch_dq<bf16, 32, 64>(q, k, v, dO, lse, delta, dq, bh, s_q, s_k,
                                  d, scale, causal, stream);
 }
@@ -461,8 +471,29 @@ int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                                   d, scale, causal, stream);
 }
 
+// The bf16 tiles at head dim d: out[0..1] K2's q rows a step and kv rows a
+// block, out[2..3] K3's q rows a block and kv rows a step, out[4] threads,
+// out[5..6] K2's and K3's dynamic shared memory in bytes.
+int flash_bwd_tile(int d, int* out) {
+  auto put = [&](int k2_bq, int k2_bk, int k3_bq, int k3_bk, size_t k2_smem,
+                 size_t k3_smem) {
+    const int v[7] = {k2_bq, k2_bk, k3_bq, k3_bk, NT, (int)k2_smem,
+                      (int)k3_smem};
+    for (int i = 0; i < 7; ++i) out[i] = v[i];
+    return 0;
+  };
+  if (d <= 64)
+    return put(bw::Dkdv64::BQ, bw::Dkdv64::BK, bw::Dq64::BQ, bw::Dq64::BK,
+               bw::Dkdv64::SMEM, bw::Dq64::SMEM);
+  if (d <= 128)
+    return put(bw::Dkdv128::BQ, bw::Dkdv128::BK, bw::Dq128::BQ, bw::Dq128::BK,
+               bw::Dkdv128::SMEM, bw::Dq128::SMEM);
+  return put(64, 32, 32, 64, Layout<bf16, 64, 32, true>(d).bytes,
+             Layout<bf16, 32, 64, false>(d).bytes);
+}
+
 const char* flash_bwd_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
+  return sm90::error_string(err);
 }
 
 }  // extern "C"

@@ -624,14 +624,13 @@ int make_maps(Maps* maps, const void* q, const void* k, const void* v, int b,
   return make_map(&maps->v, v, d, h, s_k, b, sv.h, sv.s, sv.b, F::BK);
 }
 
-// Launch `kernel` with one block per (bh, q tile) and F's dynamic shared
-// memory on `stream`; returns the CUDA error of the launch.
+// Launch `kernel` on `grid` with F's threads and dynamic shared memory on
+// `stream`; returns the CUDA error of the launch.
 template <class F, class Kernel, class... Params>
-int launch(Kernel kernel, int bh, int s_q, void* stream, Params... params) {
+int launch(Kernel kernel, dim3 grid, void* stream, Params... params) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh, (s_q + F::BQ - 1) / F::BQ);
   kernel<<<grid, F::NT, F::SMEM, (cudaStream_t)stream>>>(params...);
   return (int)cudaGetLastError();
 }

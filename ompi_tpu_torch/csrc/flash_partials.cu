@@ -89,8 +89,10 @@ int flash_partials_bf16(const void* q, const void* k, const void* v, void* o,
     if (int err = sm90::make_maps<F>(&maps, q, k, v, bh, 1, s_q, s_k, d, sq,
                                      skv, skv))
       return err;
-    return sm90::launch<F>(partials_sm90<F>, bh, s_q, stream, maps, a,
-                           (float*)o, (float*)m, (float*)l);
+    // one block per (bh, q tile)
+    return sm90::launch<F>(partials_sm90<F>,
+                           dim3(bh, (s_q + F::BQ - 1) / F::BQ), stream, maps,
+                           a, (float*)o, (float*)m, (float*)l);
   });
 }
 

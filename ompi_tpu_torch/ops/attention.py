@@ -19,7 +19,10 @@ Counterpart of ``ompi_tpu/ops/attention.py``.  Entry points:
   * ``flash_mha_bwd_dkdv`` and ``flash_mha_bwd_dq`` — the FlashAttention-2
     backward, split in two as the JAX package splits it: dK/dV (K2) and dQ
     (K3), both in ``csrc/flash_bwd.cu``, recomputing p from the saved row
-    logsumexp.  On a CPU tensor they run their ``*_reference`` versions.
+    logsumexp.  bf16 at head_dim ≤ 128 runs the Hopper kernels of
+    ``csrc/flash_bwd_sm90.cuh`` (tiles: ``flash_bwd_tile`` in the built
+    library); bf16 above it and float32 run the simple loops.  On a CPU
+    tensor they run their ``*_reference`` versions.
   * ``flash_mha`` — differentiable flash attention over (batch, seq, heads,
     head_dim): a ``torch.autograd.Function`` whose forward is K1 plus the
     normalising epilogue and whose backward is δ = Σ dO·O, then K2, then K3
@@ -69,7 +72,9 @@ _ATTENTION_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 # The forward kernels' grid is (bh, q tiles): at most 65535 q tiles of
-# their smallest tile (32 rows, float32).  The backward's is (tiles, bh).
+# their smallest tile (32 rows, float32).  The backward's simple loops
+# (float32, bf16 above head_dim 128) take (tiles, bh), so bh is held to
+# 65535 on every backward launch.
 _MAX_FWD_SEQ = 65535 * 32
 _MAX_BWD_BH = 65535
 

@@ -291,25 +291,42 @@ def test_flash_mha_grads_match_dense_reference():
 # of p or ds to bf16 moves results by about one step
 SAME_RESIDUALS_TOL = {"f32": 1e-6, "bf16": 1e-3}
 
+# (causal, s_q, s_k, forward blocks, backward blocks): the offset-free cases
+# of CASES at bwd blocks (32, 64), then the tiles of the Hopper kernels that
+# chip_smoke.py holds against these plain versions (K2 64 q x 128 kv rows,
+# K3 128 x 128; the plain versions run both kernels' loops at one tile
+# pair), ragged lengths on either side of 128 (one block each), and causal
+# masking with s_q != s_k both ways
+SAME_RESIDUALS_CASES = {
+    name: (CASES[name][0], CASES[name][3], CASES[name][4], (64, 64),
+           (32, 64)) for name in ("causal", "dense", "cross_sq_lt_sk")} | {
+    "k2_tile_64x128": (True, 256, 256, (64, 64), (64, 128)),
+    "k3_tile_128x128": (True, 256, 256, (64, 64), (128, 128)),
+    "ragged_127": (True, 127, 127, (None, None), (None, None)),
+    "ragged_129": (True, 129, 129, (None, None), (None, None)),
+    "causal_sq_lt_sk": (True, 128, 256, (64, 64), (64, 128)),
+    "causal_sq_gt_sk": (True, 256, 128, (64, 64), (128, 128)),
+}
+
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("case", ["causal", "dense", "cross_sq_lt_sk"])
+@pytest.mark.parametrize("case", list(SAME_RESIDUALS_CASES))
 def test_flash_mha_bwd_matches_jax_on_same_residuals(case, dtype):
     """The port's backward (δ, then the plain versions of K2 and K3) fed
     the JAX package's own forward residuals and cotangent, against the
     JAX package's Pallas backward, s_q ≠ s_k included."""
-    causal, _, _, s_q, s_k = CASES[case]
+    causal, s_q, s_k, (fq, fk), (bq, bk) = SAME_RESIDUALS_CASES[case]
     b, h, d = 1, 2, 16
     q, g = _arrays((b, s_q, h, d), 2, seed=3)
     k, v = _arrays((b, s_k, h, d), 2, seed=4)
     (jq, jk, jv, jg), (_, _, _, tg) = _both([q, k, v, g], dtype)
-    _, res = jax_attn._flash_mha_fwd(jq, jk, jv, causal, None, 64, 64, True)
-    want = jax_attn._flash_mha_bwd(causal, None, 64, 64, True, 32, 64, res,
+    _, res = jax_attn._flash_mha_fwd(jq, jk, jv, causal, None, fq, fk, True)
+    want = jax_attn._flash_mha_bwd(causal, None, fq, fk, True, bq, bk, res,
                                    jg)
     td = DTYPES[dtype][1]
     qf, kf, vf, of = (torch.tensor(_np(x)).to(td) for x in res[:4])
     lse = torch.tensor(np.asarray(res[4]))
-    got = attn._flash_mha_bwd(causal, None, 32, 64,
+    got = attn._flash_mha_bwd(causal, None, bq, bk,
                               (qf, kf, vf, of, lse, res[5]), tg)
     for x, w, name in zip(got, want, "qkv"):
         assert x.dtype == td and x.shape == w.shape
