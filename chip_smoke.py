@@ -47,9 +47,24 @@ Phases, in order; any failure raises and the script exits non-zero:
                step's ms, tokens/s, MFU and peak memory for remat
                none/dots/full and attn="dense"; a torch.profiler breakdown
                of one step, whose K1/K2/K3/K4 launches must be 12/6/6/0.
-The last lines are the kernels JSON object, the nvidia-smi line and
-{"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
-result.
+  9. device collectives — DeviceComm in a one-process NCCL world, R = 8
+               rank rows on the card (the single-device regime of
+               bench.py's sweep): every method of the device plane on
+               CUDA tensors against its MPI result in numpy (bitwise
+               where data only moves, rtol 1e-6 for f32 sums, 1e-2 for
+               bf16), each comparison shown to reject one planted wrong
+               row (coll_check lines); bench.py's seven collectives at
+               its sizes, 8 B to 64 MB a rank, by CUDA events, beside its
+               staged arm and the HBM bound (coll_numbers lines); the
+               allreduce at the flagship's gradient size in bf16.
+The last lines are the collectives and kernels JSON objects, the
+nvidia-smi line and {"ok": true, "device": {...}}.  Without CUDA it exits
+1 and prints no result.
+
+    python3 chip_smoke.py --coll-only
+
+runs phase 9 alone, across every visible card of the host (one NCCL
+process a card, R = 8 rows over them; the staged arm only on one card).
 """
 
 from __future__ import annotations
@@ -206,6 +221,8 @@ BWD_CASES = [
     ("bf16 causal sq>sk", "bfloat16", True, 4, 320, 128, 128),
     ("bf16 causal sq<sk ragged d64", "bfloat16", True, 2, 129, 257, 64),
     ("bf16 causal sq>sk ragged d80", "bfloat16", True, 2, 257, 129, 80),
+    # b 4100 x h 16: bh past 65535, on the Hopper kernels' grid x
+    ("bf16 bh 65600", "bfloat16", True, 65600, 128, 128, 64),
     ("bf16 flagship shape", "bfloat16", True, 64, 2048, 2048, 128),
 ]
 # flash_mha's gradients against autograd through the dense reference: f32
@@ -930,6 +947,513 @@ def time_train(torch, tfm, optim, cfg, pristine, tokens, card,
             "K2 dkdv": n, "K3 dq": n, "K4 attention_sm90": 0})
 
 
+# -- 9. device collectives (DeviceComm on NCCL) -------------------------------
+
+# bench.py's sweep: float32 counts a rank (8 B to 64 MB) and its seven
+# collectives, R = 8 rank rows (its single-device regime keeps all eight
+# on one device; with n processes each holds 8/n).
+COLL_ROWS = 8
+COLL_SIZES = [2, 256, 16 * 1024, 262_144, 4 * 1024 * 1024,
+              16 * 1024 * 1024]
+COLLS = ["allreduce", "bcast", "allgather", "reduce_scatter", "alltoall",
+         "allgatherv", "alltoallv"]
+# the nccl-tests bus-bandwidth factors bench.py uses, at R ranks
+BUS_FACTOR = {
+    "allreduce": lambda R: 2 * (R - 1) / R, "bcast": lambda R: 1.0,
+    "reduce_scatter": lambda R: (R - 1) / R, "allgather": lambda R: R - 1.0,
+    "allgatherv": lambda R: R - 1.0, "alltoall": lambda R: (R - 1) / R,
+    "alltoallv": lambda R: (R - 1) / R,
+    "alltoallv_rows": lambda R: (R - 1) / R}
+# f32 reductions held to the CPU tests' rtol (the inputs are small
+# integers, so the sums are exact in any order); bf16 to 1e-2; data that
+# only moves, bitwise
+COLL_RTOL = {"float32": 1e-6, "bfloat16": 1e-2}
+# elements of each row the gradient allreduce's check holds at a time
+# (8 rows of float32: 2 GiB a chunk)
+GRAD_CHUNK = 1 << 26
+
+
+def coll_global(torch, dc, t):
+    """The global result as numpy (bf16 as float32), every process's rows
+    gathered (to_ranks)."""
+    full = torch.stack(dc.to_ranks(t))
+    return (full.float() if full.dtype == torch.bfloat16 else full).numpy()
+
+
+def coll_agree(np, got, want, rtol) -> bool:
+    if got.shape != want.shape:
+        return False
+    if rtol is None:
+        return bool(np.array_equal(got, want))
+    return bool(np.allclose(got, want, rtol=rtol, atol=0))
+
+
+def coll_cases(torch, np, dc, R: int):
+    """(method, run, want, rtol): run() gives the method's global result on
+    the card, want its MPI result computed in numpy from the same inputs,
+    as tests/test_device_coll.py states each; rtol None = bitwise."""
+    from ompi_tpu_torch import op as ops
+    from ompi_tpu_torch import topo as topos
+    rng = np.random.default_rng(0)
+    n = dc.n
+    ints = lambda *s, lo=-8, hi=9: rng.integers(lo, hi, s).astype(np.float32)
+    dev = lambda a: dc.from_ranks(list(a))
+    glob = lambda t: coll_global(torch, dc, t)
+    rep = lambda row: np.broadcast_to(row, (R,) + row.shape).copy()
+    cases = []
+    add = lambda name, run, want, rtol=None: cases.append(
+        (name, run, want, rtol))
+
+    x = ints(R, 64)
+    add("allreduce sum", lambda: glob(dc.allreduce(dev(x))), rep(x.sum(0)),
+        1e-6)
+    add("allreduce max", lambda: glob(dc.allreduce(dev(x), ops.MAX)),
+        rep(x.max(0)))
+    add("allreduce min", lambda: glob(dc.allreduce(dev(x), ops.MIN)),
+        rep(x.min(0)))
+    xp = ints(R, 64, lo=-2, hi=3)
+    add("allreduce prod", lambda: glob(dc.allreduce(dev(xp), ops.PROD)),
+        rep(xp.prod(0)), 1e-6)
+    xi = rng.integers(0, 1 << 20, (R, 64)).astype(np.int32)
+    add("allreduce band (all-gather and fold)",
+        lambda: glob(dc.allreduce(dev(xi), ops.BAND)),
+        rep(np.bitwise_and.reduce(xi, 0)))
+    user = ops.Op.create(lambda a, b: a + b + 1, name="sum_plus_one")
+    add("allreduce user op", lambda: glob(dc.allreduce(dev(x), user)),
+        rep(x.sum(0) + R - 1), 1e-6)
+    add("allreduce bf16",
+        lambda: glob(dc.allreduce(dev(x).to(torch.bfloat16))),
+        rep(x.sum(0)), COLL_RTOL["bfloat16"])
+    add("reduce", lambda: glob(dc.reduce(dev(x), root=2)), rep(x.sum(0)),
+        1e-6)
+    root = min(5, R - 1)
+    add("bcast", lambda: glob(dc.bcast(dev(x), root)), rep(x[root]))
+    x3 = ints(R, 4, 2)
+    add("allgather", lambda: glob(dc.allgather(dev(x3))),
+        rep(x3.reshape(R * 4, 2)))
+    add("gather", lambda: glob(dc.gather(dev(x3), root=1)),
+        rep(x3.reshape(R * 4, 2)))
+    add("allgather_dedup", lambda: glob(dc.allgather_dedup(dev(x3))),
+        np.broadcast_to(x3.reshape(R * 4, 2), (n, R * 4, 2)).copy())
+    add("dedup_to_ranks", lambda: torch.stack(dc.dedup_to_ranks(
+        dc.allgather_dedup(dev(x3)), R)).numpy(), rep(x3.reshape(R * 4, 2)))
+    xs = ints(R, R * 6)
+    add("reduce_scatter sum", lambda: glob(dc.reduce_scatter(dev(xs))),
+        xs.sum(0).reshape(R, 6), 1e-6)
+    add("reduce_scatter max",
+        lambda: glob(dc.reduce_scatter(dev(xs), ops.MAX)),
+        xs.max(0).reshape(R, 6))
+    xa = ints(R, R, 3)
+    add("alltoall", lambda: glob(dc.alltoall(dev(xa))), np.swapaxes(xa, 0, 1))
+    add("ring_shift 3", lambda: glob(dc.ring_shift(dev(x), 3)),
+        np.roll(x, 3, 0))
+    add("ring_shift 4 in 2 steps",
+        lambda: glob(dc.ring_shift(dev(x), 4, steps=2)), np.roll(x, 4, 0))
+    pushed = x.copy()
+    pushed[1 % R] = x[(R - 2) % R]
+    add("push_row", lambda: glob(dc.push_row(dev(x), R - 2, 1 % R)), pushed)
+    inc = np.cumsum(x, 0)
+    add("scan sum", lambda: glob(dc.scan(dev(x))), inc, 1e-6)
+    add("scan sum exclusive", lambda: glob(dc.scan(dev(x), exclusive=True)),
+        np.concatenate([np.zeros_like(x[:1]), inc[:-1]]), 1e-6)
+    add("scan max", lambda: glob(dc.scan(dev(x), ops.MAX)),
+        np.maximum.accumulate(x, 0))
+    add("from_ranks/to_ranks", lambda: glob(dev(x3)), x3)
+    add("from_local/to_local", lambda: dc.to_local(dc.from_local(
+        x3[dc.pos * (R // n):(dc.pos + 1) * (R // n)])).numpy(),
+        x3[dc.pos * (R // n):(dc.pos + 1) * (R // n)])
+    full = ints(3, 4 * n)
+    add("canonicalize", lambda: glob(dc.canonicalize(torch.from_numpy(
+        np.split(full, n, 1)[dc.pos].copy()).to(dc.device), 1)),
+        np.stack(np.split(full, n, 1)))
+
+    # ragged and rooted
+    counts = [int(c) for c in rng.integers(1, 6, R)]
+    rows = [ints(c) for c in counts]
+    cat = np.concatenate(rows)
+    add("pad_ragged/unpad_ragged",
+        lambda: np.concatenate([t.numpy() for t in dc.unpad_ragged(
+            *dc.pad_ragged(rows))]), cat)
+    add("allgatherv", lambda: glob(dc.allgatherv(*dc.pad_ragged(rows))),
+        rep(cat))
+    add("gatherv", lambda: glob(dc.gatherv(*dc.pad_ragged(rows), root=0)),
+        rep(cat))
+    xsc = ints(R, R, 2)
+    add("scatter", lambda: glob(dc.scatter(dev(xsc), root=root)), xsc[root])
+    add("scatterv",
+        lambda: glob(dc.scatterv(dev(xsc), [2] * R, root=root)), xsc[root])
+    C = rng.integers(0, 4, (R, R))
+    cap = max(1, int(C.max()))
+    blocks = ints(R, R, cap)
+    out_cap = dc._bucket(max(1, int(C.sum(0).max())))
+    add("alltoallv", lambda: glob(dc.alltoallv(dev(blocks), C)[0]),
+        dc.compact_ragged_blocks(blocks, C, out_cap))
+    dense = ints(R, max(1, int(C.sum(1).max())), 2)
+    add("alltoallv_from_rows slice_cap 2",
+        lambda: glob(dc.alltoallv_from_rows(dev(dense), C, 2)[0]),
+        dc.compact_from_rows(dense, C, out_cap))
+    add("alltoallv_from_rows", lambda: glob(dc.alltoallv_from_rows(
+        dev(dense), C)[0]), dc.compact_from_rows(dense, C, out_cap))
+    idx = rng.integers(-1, 6, (R, 9))
+    src = ints(R, 6, 2)
+    want = np.where((idx >= 0)[..., None],
+                    np.take_along_axis(src, np.maximum(idx, 0)[..., None],
+                                       1), 0).astype(np.float32)
+    add("row_gather", lambda: glob(dc.row_gather(dev(src), idx)), want)
+    vc = [1, 2, 3, 2, 1, 2, 3, 2][:R]
+    xv = ints(R, sum(vc))
+    vcap = dc._bucket(max(vc))
+    displ = np.concatenate([[0], np.cumsum(vc)[:-1]])
+    for name, red, op in (("sum", xv.sum(0), ops.SUM),
+                          ("max", xv.max(0), ops.MAX)):
+        want = np.zeros((R, vcap), np.float32)
+        for i, (d, c) in enumerate(zip(displ, vc)):
+            want[i, :c] = red[d:d + c]
+        add(f"reduce_scatter_v {name}", lambda op=op: glob(
+            dc.reduce_scatter_v(dev(xv), vc, op)), want, 1e-6)
+
+    # neighbourhood collectives: one rank a process
+    dims = [2, n // 2] if n % 2 == 0 and n > 2 else [n]
+    cart = topos.CartTopo(dims, [True] * len(dims))
+    xn = ints(n, 3)
+    k = 2 * len(dims)
+    add("neighbor_allgather_cart", lambda: glob(
+        dc.neighbor_allgather_cart(dev(xn), cart)),
+        np.stack([xn[cart.neighbors(i)] for i in range(n)]))
+    xk = ints(n, k, 3)
+    add("neighbor_alltoall_cart", lambda: glob(
+        dc.neighbor_alltoall_cart(dev(xk), cart)),
+        np.stack([np.stack([xk[nb, j ^ 1] for j, nb in
+                            enumerate(cart.neighbors(i))])
+                  for i in range(n)]))
+    # a graph of every degree the methods handle: a self-loop (one card),
+    # a pair, and the reference's 4-rank graphs (0-1, 0-2, 1-3 for the
+    # allgather; 0-1, 0-3, 1-2 for the alltoall)
+    graphs = {1: [([1], [0])] * 2, 2: [([1, 2], [1, 0])] * 2,
+              4: [([2, 4, 5, 6], [1, 2, 0, 3, 0, 1]),
+                  ([2, 4, 5, 6], [1, 3, 0, 2, 1, 0])]}[n]
+    graph = topos.GraphTopo(*graphs[0])
+    deg = max(len(graph.neighbors(i)) for i in range(n))
+    want = np.zeros((n, deg, 3), np.float32)
+    for i in range(n):
+        for j, nb in enumerate(graph.neighbors(i)):
+            want[i, j] = xn[nb]
+    add("neighbor_allgather_graph", lambda: glob(
+        dc.neighbor_allgather_graph(dev(xn), graph)), want)
+    graph2 = topos.GraphTopo(*graphs[1])
+    deg = max(len(graph2.neighbors(i)) for i in range(n))
+    xg = ints(n, deg, 3)
+    want = np.zeros((n, deg, 3), np.float32)
+    for j in range(n):
+        for slot, s in enumerate(graph2.in_neighbors(j)):
+            want[j, slot] = xg[s, graph2.out_neighbors(s).index(j)]
+    add("neighbor_alltoall_graph", lambda: glob(
+        dc.neighbor_alltoall_graph(dev(xg), graph2)), want)
+    return cases
+
+
+def coll_check(torch, np, dc, R: int, log_fn) -> int:
+    """Every DeviceComm method on the card against its numpy result; each
+    comparison must also reject the result with one row planted wrong."""
+    checked = 0
+    for name, run, want, rtol in coll_cases(torch, np, dc, R):
+        got = run()
+        ok = coll_agree(np, got, want, rtol)
+        bad = got.copy()
+        last = bad.reshape(bad.shape[0], -1)[-1]
+        last[:] = last * 1.1 + 1                   # one row 10% and 1 off
+        planted = coll_agree(np, bad, want, rtol)
+        err = (float(np.abs(got.astype(np.float64) - want).max())
+               if got.shape == want.shape and got.size else 0.0)
+        log_fn({"phase": "coll_check", "method": name,
+                "shape": list(want.shape), "rtol": rtol, "max_abs_err": err,
+                "planted_row_passes": planted, "ok": ok and not planted})
+        if not ok:
+            raise AssertionError(f"DeviceComm {name}: result differs from "
+                                 f"its MPI semantics (max err {err})")
+        if planted:
+            raise AssertionError(f"DeviceComm {name}: a wrong row passes "
+                                 f"the comparison")
+        checked += 1
+    dc.barrier()
+    log_fn({"phase": "coll_check", "method": "barrier", "ok": True})
+    return checked + 1
+
+
+def coll_bytes(coll: str, R: int, n: int, b: int, total: int,
+               out_cap: int) -> int:
+    """Bytes one card must move for the collective (each input byte it
+    holds read once, each output byte written once): b bytes a rank row,
+    total valid ragged elements, out_cap the padded receive row."""
+    r = R // n
+    return {"allreduce": 2 * r * b, "bcast": b + r * b,
+            "reduce_scatter": r * b + r * b // R,
+            "allgather": r * b + R * b, "alltoall": 2 * r * b,
+            "allgatherv": 4 * total // n + r * 4 * total,
+            "alltoallv": r * b + r * 4 * out_cap,
+            "alltoallv_rows": r * b + r * 4 * out_cap}[coll]
+
+
+def coll_sweep(torch, np, dc, R: int, card: str, log_fn,
+               staged: bool = True) -> list:
+    """bench.py's sweep on the card: the device arm of every collective at
+    every size by CUDA events, beside the staged arm bench.py times (device
+    to host, numpy, host to device) and the HBM bound."""
+    n = dc.n
+    rng = np.random.default_rng(0)
+    rows_out = []
+    to_dev = lambda a: torch.from_numpy(np.require(a, requirements="CW")).to(
+        dc.device)
+    for count in COLL_SIZES:
+        nbytes = count * 4
+        host = rng.standard_normal((R, count), dtype=np.float32)
+        x = dc.from_ranks(list(host))
+        per = count // R
+        vbase = [(per - per // 2) if j % 2 == 0 else (per + per // 2)
+                 for j in range(R)]
+        vbase[-1] += count - sum(vbase)
+        vC = np.stack([np.roll(vbase, -i) for i in range(R)])
+        for coll in COLLS:
+            if coll in ("alltoall", "reduce_scatter") and count % R:
+                continue
+            if coll in ("allgatherv", "alltoallv") and per < 1:
+                continue
+            row_nbytes, total, out_cap = nbytes, count, 0
+            if coll == "allreduce":
+                dev = lambda: dc.allreduce(x)
+
+                def host_arm():
+                    h = x.cpu().numpy()
+                    to_dev(np.broadcast_to(h.sum(0, dtype=np.float32),
+                                           h.shape))
+            elif coll == "bcast":
+                dev = lambda: dc.bcast(x, 0)
+
+                def host_arm():
+                    h = x.cpu().numpy()
+                    to_dev(np.broadcast_to(h[0], h.shape))
+            elif coll == "reduce_scatter":
+                dev = lambda: dc.reduce_scatter(x)
+
+                def host_arm():
+                    h = x.cpu().numpy()
+                    to_dev(h.sum(0, dtype=np.float32).reshape(R, count // R))
+            elif coll == "allgather":
+                xg = x.reshape(x.shape[0], 1, count)
+                dev = lambda: dc.allgather_dedup(xg)
+
+                def host_arm():
+                    h = x.cpu().numpy()
+                    to_dev(np.broadcast_to(h.reshape(1, -1), (n, R * count)))
+            elif coll == "alltoall":
+                xt = x.reshape(x.shape[0], R, count // R)
+                dev = lambda: dc.alltoall(xt)
+
+                def host_arm():
+                    h = xt.cpu().numpy()
+                    to_dev(np.swapaxes(h, 0, 1).reshape(R, count))
+            elif coll == "allgatherv":
+                vx, vcounts = dc.pad_ragged(
+                    [host[i, :c] for i, c in enumerate(vbase)])
+                row_nbytes = dc._bucket(max(vbase)) * 4
+                dev = lambda: dc.allgatherv(vx, vcounts)
+
+                def host_arm():
+                    h = vx.cpu().numpy()
+                    cat = np.concatenate([h[i, :c]
+                                          for i, c in enumerate(vbase)])
+                    to_dev(np.broadcast_to(cat, (R, len(cat))))
+            else:
+                vcap = dc._bucket(int(vC.max()))
+                out_cap = dc._bucket(int(vC.sum(axis=0).max()))
+                if R * R * vcap * 4 > 1 << 27:
+                    # bench.py's switch: past 128 MiB of padded blocks the
+                    # dense-rows exchange, with no padding anywhere
+                    coll = "alltoallv_rows"
+                    dev = lambda: dc.alltoallv_from_rows(x, vC)
+
+                    def host_arm():
+                        to_dev(dc.compact_from_rows(x.cpu().numpy(), vC,
+                                                    out_cap))
+                else:
+                    blocks = dc.pack_ragged_blocks(host, vC, vcap)
+                    bx = dc.from_ranks(list(blocks))
+                    row_nbytes = R * vcap * 4
+                    dev = lambda: dc.alltoallv(bx, vC)
+
+                    def host_arm():
+                        to_dev(dc.compact_ragged_blocks(bx.cpu().numpy(), vC,
+                                                        out_cap))
+            big = nbytes >= 1 << 24
+            # KERNEL_REPS calls in a row, so that the host's launch time
+            # of one call hides behind the device work of the one before
+            dev_ms = median_ms(dev, n=10 if big else 20, warmup=10,
+                               reps=KERNEL_REPS)
+            # the staged arm is 100x slower from 16 MB up: one call there
+            staged_ms = (median_ms(host_arm, n=1 if big else 3,
+                                   warmup=0 if big else 1)
+                         if staged else None)
+            bound_b = coll_bytes(coll, R, n, nbytes, total, out_cap)
+            bound_ms = bound_b / PEAK_BYTES * 1e3
+            row = {"phase": "coll_numbers", "collective": coll,
+                   "bytes_per_rank": row_nbytes, "ranks": R, "cards": n,
+                   "device_ms": dev_ms,
+                   "device_GBps": row_nbytes / dev_ms / 1e6,
+                   "busbw_GBps": BUS_FACTOR[coll](R) * row_nbytes / dev_ms
+                   / 1e6,
+                   "staged_ms": staged_ms,
+                   "speedup_vs_staged": (staged_ms / dev_ms if staged
+                                         else None),
+                   "bound_bytes": bound_b, "bound_ms": bound_ms,
+                   "bound_share": bound_ms / dev_ms, "card": card}
+            log_fn(row)
+            rows_out.append(row)
+        del x
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def grad_err(torch, got, want) -> float:
+    """The largest error of the r result rows ``got`` against the float32
+    sum ``want``, over the largest value of ``want``."""
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def grad_allreduce(torch, dc, R: int, numel: int, card: str, log_fn) -> dict:
+    """The allreduce at the flagship's gradient size: numel bf16 elements a
+    rank row, R rows (r on this card).  Every element of every row is held
+    against a float32 sum, GRAD_CHUNK elements at a time, and a block
+    planted wrong in the middle of the last row must fail that check;
+    timed by CUDA events."""
+    r = R // dc.n
+    gen = torch.Generator(device=dc.device).manual_seed(dc.pos)
+    x = torch.empty((r, numel), dtype=torch.bfloat16, device=dc.device)
+    x.normal_(generator=gen)
+    out = dc.allreduce(x)
+    mid = numel // 2
+    errs, planted = [], None
+    for lo in range(0, numel, GRAD_CHUNK):
+        part = slice(lo, min(lo + GRAD_CHUNK, numel))
+        want = x[:, part].float().sum(0)
+        torch.distributed.all_reduce(want, group=dc.group)
+        # bf16 rounds the fold once and NCCL's sum once a hop: the error
+        # over the part's largest value, 1e-2 as the CPU tests' bf16 rtol
+        errs.append(grad_err(torch, out[:, part], want))
+        if lo <= mid < part.stop:
+            bad = out[:, part].clone()
+            blk = bad[-1, mid - lo:mid - lo + 4096]
+            blk.mul_(1.1).add_(1)                  # 10% and 1 off
+            planted = grad_err(torch, bad, want)
+            del bad
+        del want
+    err = max(errs)
+    if not err <= COLL_RTOL["bfloat16"]:
+        raise AssertionError(f"gradient allreduce: error {err} of the "
+                             f"largest value")
+    if planted <= COLL_RTOL["bfloat16"]:
+        raise AssertionError("gradient allreduce: a block planted wrong in "
+                             "the middle of a row passes the check")
+    del out
+    ms = median_ms(lambda: dc.allreduce(x), n=10, warmup=2)
+    # the call's three parts, timed alone: the local fold of the r rows,
+    # the NCCL all-reduce of the folded row, the copies into the r rows
+    from ompi_tpu_torch.op import SUM
+    from ompi_tpu_torch.parallel.collectives import _repeat_rows
+    red = dc._fold_local(x, SUM)
+    parts = {"fold": median_ms(lambda: dc._fold_local(x, SUM), n=5),
+             "nccl": median_ms(lambda: torch.distributed.all_reduce(
+                 red, group=dc.group), n=5),
+             "rows": median_ms(lambda: _repeat_rows(red, r), n=5)}
+    del red
+    b = numel * 2
+    bound_b = coll_bytes("allreduce", R, dc.n, b, numel, 0)
+    bound_ms = bound_b / PEAK_BYTES * 1e3
+    row = {"phase": "coll_numbers", "collective": "flagship_grad_allreduce",
+           "dtype": "bfloat16", "elements_per_rank": numel,
+           "bytes_per_rank": b, "ranks": R, "cards": dc.n, "device_ms": ms,
+           "device_GBps": b / ms / 1e6,
+           "busbw_GBps": BUS_FACTOR["allreduce"](R) * b / ms / 1e6,
+           "bound_bytes": bound_b, "bound_ms": bound_ms,
+           "bound_share": bound_ms / ms, "err_of_max": err,
+           "planted_block_err": planted, "chunks_checked": len(errs),
+           "parts_ms": parts, "card": card}
+    log_fn(row)
+    del x
+    torch.cuda.empty_cache()
+    return row
+
+
+def device_coll(torch, np, dc, card: str, grad_numel: int, log_fn,
+                staged: bool = True) -> list:
+    """Phase 9 on a comm: the checks, bench.py's sweep and the flagship's
+    gradient allreduce.  Returns the rows of the collectives line."""
+    n = dc.n
+    if COLL_ROWS % n:
+        raise ValueError(f"{COLL_ROWS} rows do not divide over {n} cards")
+    t0 = time.perf_counter()
+    coll_check(torch, np, dc, COLL_ROWS, log_fn)
+    t1 = time.perf_counter()
+    rows = coll_sweep(torch, np, dc, COLL_ROWS, card, log_fn, staged)
+    t2 = time.perf_counter()
+    rows.append(grad_allreduce(torch, dc, COLL_ROWS, grad_numel, card,
+                               log_fn))
+    log_fn({"phase": "device_coll_seconds", "check": t1 - t0,
+            "sweep": t2 - t1, "grad_allreduce": time.perf_counter() - t2})
+    return [{k: v for k, v in row.items() if k not in ("phase", "card")}
+            for row in rows]
+
+
+def coll_only_worker(rank: int, world: int, init_method: str,
+                      card: str) -> None:
+    """One rank of phase 9 run alone: an NCCL world of ``world``
+    processes, one card each, R = 8 rank rows over them."""
+    import numpy as np
+    import torch
+    from ompi_tpu_torch.models import transformer as tfm
+    from ompi_tpu_torch import optim
+    from ompi_tpu_torch.parallel import DeviceComm, init_device_plane
+    from ompi_tpu_torch.parallel import make_mesh
+    init_device_plane(rank=rank, world_size=world, init_method=init_method)
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             tfm.flagship_config())
+    grad_numel = sum(p.numel() for p in optim.tree_leaves(params))
+    del params
+    torch.cuda.empty_cache()
+    dc = DeviceComm(make_mesh({"x": world}), "x")
+    out = log if rank == 0 else (lambda obj: None)
+    # the staged arm is single-controller code: one process only
+    rows = device_coll(torch, np, dc, card, grad_numel, out,
+                       staged=world == 1)
+    out({"collectives": rows})
+    torch.distributed.destroy_process_group()
+
+
+def coll_only_main() -> int:
+    """Phase 9 alone across every visible card of the host, one spawned
+    process a card: the check, the timed sweep (its staged arm with one
+    process only) and the gradient allreduce."""
+    import os
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs only on a CUDA device", file=sys.stderr)
+        return 1
+    world = torch.cuda.device_count()
+    card = card_line()
+    log({"phase": "device", "card": card, "cards": world,
+         "torch": torch.__version__, "cuda": torch.version.cuda})
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "store")
+        mp.spawn(coll_only_worker, args=(world, init, card), nprocs=world)
+    log(card)
+    log({"ok": True, "device": {"platform": "gpu",
+                                "kind": torch.cuda.get_device_name(0),
+                                "count": world}})
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1173,6 +1697,19 @@ def main() -> int:
         torch.cuda.empty_cache()
     time_train(torch, tfm, optim, dataclasses.replace(cfg, attn="dense"),
                pristine, train_tokens, card)
+    grad_numel = sum(p.numel() for p in optim.tree_leaves(pristine))
+    del pristine, train_tokens
+    torch.cuda.empty_cache()
+
+    # 9. device collectives: DeviceComm in a one-process NCCL world, R = 8
+    # rank rows on this card
+    from ompi_tpu_torch.parallel import DeviceComm, init_device_plane
+    from ompi_tpu_torch.parallel import make_mesh
+    init_device_plane(rank=0, world_size=1,
+                      store=torch.distributed.HashStore())
+    dc = DeviceComm(make_mesh({"x": 1}), "x")
+    coll_rows = device_coll(torch, np, dc, card, grad_numel, log)
+    torch.distributed.destroy_process_group()
 
     # K2: q, k, v, dO, lse, delta in; dk, dv out; 4 causal products
     k2_flops, k3_flops = 8 * d * pairs, 6 * d * pairs
@@ -1196,6 +1733,7 @@ def main() -> int:
          "flash_mha_bwd_ms": mha_bwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
          "ratio": mha_bwd_ms / sdpa_bwd_ms, "card": card})
 
+    log({"collectives": coll_rows})
     log({"kernels": [
         {"name": "flash_partials", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_partials.cu",
@@ -1243,4 +1781,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--coll-only", action="store_true",
+                    help="run only phase 9, across every visible card")
+    ns = ap.parse_args()
+    sys.exit(coll_only_main() if ns.coll_only else main())

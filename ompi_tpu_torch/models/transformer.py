@@ -199,7 +199,7 @@ def _attn_apply(x, layer, cfg: Config):
     k = _rope(k, positions, cfg.rope_base)
     if cfg.attn == "flash":
         att = flash_mha(q, k, v, True, None, cfg.attn_block, cfg.attn_block,
-                        cfg.attn_bwd_block, cfg.attn_bwd_block)
+                        None, cfg.attn_bwd_block, cfg.attn_bwd_block)
     else:
         att = attention_reference(q, k, v, causal=True)
     att = att.reshape(b, s, cfg.n_heads * cfg.head_dim)

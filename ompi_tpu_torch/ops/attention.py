@@ -72,11 +72,13 @@ _ATTENTION_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 # The forward kernels' grid is (bh, q tiles): at most 65535 q tiles of
-# their smallest tile (32 rows, float32).  The backward's simple loops
-# (float32, bf16 above head_dim 128) take (tiles, bh), so bh is held to
-# 65535 on every backward launch.
+# their smallest tile (32 rows, float32).  The backward's Hopper kernels
+# (bf16, head_dim <= 128; csrc/flash_bwd_sm90.cuh) take (bh, tiles of
+# _SM90_BWD_TILE rows), so there the tiles are held to 65535; its simple
+# loops (float32, bf16 above head_dim 128) take (tiles, bh), so there bh is.
 _MAX_FWD_SEQ = 65535 * 32
-_MAX_BWD_BH = 65535
+_MAX_GRID_Y = 65535
+_SM90_BWD_TILE = 128
 
 
 def _default_block(s: int) -> int:
@@ -115,10 +117,22 @@ def _check_kernel_shape(what: str, dtype: torch.dtype, d: int,
     return suffix
 
 
-def _check_bwd_grid(bh: int) -> None:
-    if bh > _MAX_BWD_BH:
-        raise ValueError(f"batch*heads {bh} exceeds the backward kernels' "
-                         f"grid ({_MAX_BWD_BH})")
+def _check_bwd_grid(what: str, dtype: torch.dtype, d: int, bh: int,
+                    rows: int) -> None:
+    """Raise on a backward launch its grid cannot hold.  ``rows`` are the
+    rows the kernel tiles over its grid: s_k for K2, s_q for K3."""
+    if dtype == torch.bfloat16 and d <= 128:
+        tiles = -(-rows // _SM90_BWD_TILE)
+        if tiles > _MAX_GRID_Y or bh > 2**31 - 1:
+            raise ValueError(
+                f"{what}: {tiles} tiles of {_SM90_BWD_TILE} rows and bh "
+                f"{bh} exceed the Hopper kernel's grid ({_MAX_GRID_Y} tiles, "
+                f"2^31 - 1 bh)")
+    elif bh > _MAX_GRID_Y:
+        raise ValueError(
+            f"{what}: batch*heads {bh} exceeds the grid of the {dtype} "
+            f"head_dim {d} loop ({_MAX_GRID_Y}); only bfloat16 at head_dim "
+            f"<= 128 runs the Hopper kernel, whose grid takes it")
 
 
 def _check_fwd_seq(what: str, s_q: int) -> None:
@@ -503,7 +517,7 @@ def flash_mha_bwd_dkdv(
     bh, s_q, d = q.shape
     s_k = k.shape[1]
     suffix = _check_kernel_shape("flash_mha_bwd_dkdv", q.dtype, d, (s_q, s_k))
-    _check_bwd_grid(bh)
+    _check_bwd_grid("flash_mha_bwd_dkdv", q.dtype, d, bh, s_k)
     q, k, v, do, lse, delta = map(_ready, (q, k, v, do, lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
@@ -533,7 +547,7 @@ def flash_mha_bwd_dq(
     bh, s_q, d = q.shape
     s_k = k.shape[1]
     suffix = _check_kernel_shape("flash_mha_bwd_dq", q.dtype, d, (s_q, s_k))
-    _check_bwd_grid(bh)
+    _check_bwd_grid("flash_mha_bwd_dq", q.dtype, d, bh, s_q)
     q, k, v, do, lse, delta = map(_ready, (q, k, v, do, lse, delta))
     dq = torch.empty_like(q)
     if dq.numel() == 0:
@@ -613,6 +627,7 @@ class _FlashMha(torch.autograd.Function):
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False, scale: Optional[float] = None,
               block_q: Optional[int] = None, block_k: Optional[int] = None,
+              interpret: Optional[bool] = None,
               bwd_block_q: Optional[int] = None,
               bwd_block_k: Optional[int] = None) -> torch.Tensor:
     """Differentiable flash attention over (batch, seq, heads, head_dim).
@@ -624,6 +639,15 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     versions independently of the forward (None = the forward's override,
     else the default).  The block arguments only tile the plain versions
     (CPU tensors): on CUDA tensors they are checked and have no effect, as
-    the kernels keep their own tiles.  q, k and v must share one dtype."""
+    the kernels keep their own tiles.  q, k and v must share one dtype.
+
+    ``interpret`` stands where the JAX package has it, so its positional
+    calls bind the same arguments here: None or False run as above; True
+    (the JAX package's Pallas interpreter) means the plain versions, which
+    only CPU tensors run, so on CUDA tensors it raises."""
+    if interpret and any(t.device.type != "cpu" for t in (q, k, v)):
+        raise ValueError("flash_mha(interpret=True) runs the plain versions, "
+                         "which take CPU tensors; on CUDA tensors pass "
+                         "interpret=None")
     return _FlashMha.apply(q, k, v, causal, scale, block_q, block_k,
                            bwd_block_q, bwd_block_k)

@@ -270,8 +270,34 @@ def test_flash_mha_bwd_blocks_tile_independently(bwd_blocks):
     want = _jax_grads(lambda q, k, v: jax_attn.flash_mha(
         q, k, v, True, None, 64, 64, True, bq, bk), jq, jk, jv)
     got = _torch_grads(lambda q, k, v: attn.flash_mha(
-        q, k, v, True, None, 64, 64, bq, bk), tq, tk, tv)
+        q, k, v, True, None, 64, 64, None, bq, bk), tq, tk, tv)
     _assert_grads_close(got, want, "f32")
+
+
+@pytest.mark.parametrize("interpret", [None, True])
+def test_flash_mha_takes_the_reference_positionals(interpret):
+    """The JAX package's own call (models/transformer.py: ten positionals,
+    interpret eighth) binds the same arguments on the port: the output and
+    gradients match the JAX call."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_arrays((2, 128, 2, 16)), "f32")
+    args = (True, None, 64, 64, interpret, 32, 64)
+    want_out = _np(jax_attn.flash_mha(jq, jk, jv, True, None, 64, 64, True,
+                                      32, 64))
+    np.testing.assert_allclose(_np(attn.flash_mha(tq, tk, tv, *args)),
+                               want_out, rtol=2e-4, atol=2e-4)
+    want = _jax_grads(lambda q, k, v: jax_attn.flash_mha(
+        q, k, v, True, None, 64, 64, True, 32, 64), jq, jk, jv)
+    got = _torch_grads(lambda q, k, v: attn.flash_mha(q, k, v, *args),
+                       tq, tk, tv)
+    _assert_grads_close(got, want, "f32")
+
+
+def test_flash_mha_interpret_refuses_cuda_tensors():
+    """interpret=True means the plain versions, which only CPU tensors
+    run: any other device raises rather than being moved."""
+    q = torch.empty((1, 64, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="interpret"):
+        attn.flash_mha(q, q, q, True, None, None, None, True)
 
 
 def test_flash_mha_grads_match_dense_reference():

@@ -192,11 +192,32 @@ def test_kernel_refuses_what_it_does_not_take(dtype, d, s, error):
 
 def test_grid_limits():
     """The forward kernels put b·h on the grid's x axis, which has no
-    65535 cap; the backward kernels still keep b·h on y."""
+    65535 cap; so do the backward's Hopper kernels (bf16, head_dim <= 128),
+    while its simple loops keep b·h on y."""
     attn._check_fwd_seq("flash_attention", 65535 * 32)
-    attn._check_bwd_grid(65535)
-    with pytest.raises(ValueError, match="backward"):
-        attn._check_bwd_grid(65536)
+    attn._check_bwd_grid("K2", torch.float32, 64, 65535, 128)
+    with pytest.raises(ValueError, match="65535"):
+        attn._check_bwd_grid("K2", torch.float32, 64, 65536, 128)
+
+
+@pytest.mark.parametrize("dtype,d,bh,rows,ok", [
+    # the Hopper kernels: bh on grid x, 128-row tiles on y
+    (torch.bfloat16, 64, 65600, 128, True),
+    (torch.bfloat16, 128, 2**20, 2048, True),
+    (torch.bfloat16, 128, 4, 65535 * 128, True),
+    (torch.bfloat16, 128, 4, 65535 * 128 + 1, False),
+    # the wmma loop (bf16 above head_dim 128) and the float32 FMA loop:
+    # (tiles, bh), so bh stays within 65535, loudly
+    (torch.bfloat16, 256, 65535, 128, True),
+    (torch.bfloat16, 256, 65536, 128, False),
+    (torch.float32, 64, 65600, 128, False),
+    (torch.float32, 128, 65600, 128, False)])
+def test_bwd_grid_decision(dtype, d, bh, rows, ok):
+    if ok:
+        attn._check_bwd_grid("flash_mha_bwd_dq", dtype, d, bh, rows)
+    else:
+        with pytest.raises(ValueError, match="flash_mha_bwd_dq"):
+            attn._check_bwd_grid("flash_mha_bwd_dq", dtype, d, bh, rows)
 
 
 def _packed(b, s, h, d, n, dtype=torch.bfloat16):

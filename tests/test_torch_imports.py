@@ -48,6 +48,9 @@ def test_every_module_is_listed():
     assert "ompi_tpu_torch.ops.attention" in MODULES
     assert "ompi_tpu_torch.models.transformer" in MODULES
     assert "ompi_tpu_torch.optim" in MODULES
+    for name in ("op", "topo", "parallel.device_plane", "parallel.mesh",
+                 "parallel.collectives"):
+        assert f"ompi_tpu_torch.{name}" in MODULES
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -60,6 +63,7 @@ def test_entry_points_refuse_without_cuda():
 import torch
 from ompi_tpu_torch import optim
 from ompi_tpu_torch.models import transformer as tfm
+from ompi_tpu_torch.parallel.device_plane import init_device_plane
 cfg = tfm.Config(vocab=16, d_model=16, n_layers=1, n_heads=2, head_dim=8,
                  d_ff=32, seq=8, dtype=torch.float32, attn="flash")
 params = tfm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
@@ -70,11 +74,13 @@ for call in (lambda: tfm.forward(params, [[1, 2, 3]], cfg),
              lambda: tfm.greedy(params, [[1, 2]], 1, cfg),
              lambda: tfm.make_train_step(cfg),
              lambda: optim.opt_state_from_numpy(
-                 {"count": 0, "mu": [], "nu": []})):
+                 {"count": 0, "mu": [], "nu": []}),
+             lambda: init_device_plane(rank=0, world_size=1,
+                                       store=torch.distributed.HashStore())):
     try:
         call()
     except RuntimeError as e:
         refused.append("CUDA" in str(e))
 print(refused)
 """
-    assert _run(code).strip() == "[True, True, True, True, True]"
+    assert _run(code).strip() == "[True, True, True, True, True, True]"
