@@ -57,18 +57,40 @@ Phases, in order; any failure raises and the script exits non-zero:
                its sizes, 8 B to 64 MB a rank, by CUDA events, beside its
                staged arm and the HBM bound (coll_numbers lines); the
                allreduce at the flagship's gradient size in bf16.
-The last lines are the collectives and kernels JSON objects, the
+ 10. mesh    — in phase 9's world: (a) the flagship's causal attention,
+               (4, 2048, 16, 128) bf16, cut into 4 sequence shards, every
+               (my, src) hop through ring_block(block_impl="pallas"): 16
+               K1 launches with the hops' global offsets, each hop held to
+               K1's plain version, the merged result to flash_attention
+               (K4) on the whole sequence, and a planted 10% fault on one
+               hop rejected by both checks (ring_hops line); (b) the mesh
+               train step at dp·sp·tp = 1·1·1 and full width, attn "ring"
+               and "flash", remat "dots", from phase 7's weights and batch:
+               the first step's gathered gradients held to the mesh-free
+               step's (MESH_GRAD_RMS), a planted fault (ring: the last
+               hop dropped) rejected, four steps' losses held to the
+               mesh-free step's (MESH_LOSS_REL), falling, K1/K2/K3/K4
+               launches per step exactly 0/0/0/0 (ring) and 12/6/6/0
+               (flash); step ms, tokens/s and MFU beside the mesh-free
+               step's.
+The last lines are the collectives, mesh and kernels JSON objects, the
 nvidia-smi line and {"ok": true, "device": {...}}.  Without CUDA it exits
 1 and prints no result.
 
-    python3 chip_smoke.py --coll-only
+    python3 chip_smoke.py --multi-card
 
-runs phase 9 alone, across every visible card of the host (one NCCL
-process a card, R = 8 rows over them; the staged arm only on one card).
+runs on four cards of one host (else it exits 1): phase 9 across them
+(one NCCL process a card, R = 8 rows over them), then phase 10c: the
+flagship's mesh train step, attn="ring", at full width at (dp, sp, tp) =
+(1, 2, 2) and (2, 2, 1), its gathered gradients and losses held to the
+one-card step from the same weights and tokens as in 10b (planted faults:
+the gradient sum over dp × sp skipped, the last hop dropped), and its
+step ms, tokens/s and MFU beside that step's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -249,6 +271,7 @@ BATCH = 4
 
 # How the profile groups kernels by name (first match wins).
 KERNEL_CLASSES = [
+    ("NCCL", ("nccl",)),
     ("K4 attention_sm90", ("attention_sm90", "attention_f32")),
     ("K1 partials_sm90", ("partials_sm90", "partials_f32")),
     ("K2 dkdv", ("dkdv_sm90", "dkdv_kernel")),
@@ -312,10 +335,23 @@ def check_k1(torch, attention, case):
     want = attention.flash_attention_partials_reference(
         q, k, v, causal=causal, q_offset=q_off, kv_offset=kv_off)
     torch.cuda.synchronize()
-    rows = q_off + torch.arange(s_q, device="cuda")
+    return partials_agree(torch, f"K1 {name}", dtype, got, want, q, k,
+                          causal, q_off, kv_off)
+
+
+def partials_agree(torch, name, dtype, got, want, q, k, causal, q_off,
+                   kv_off, m_step: float = 0.0) -> float:
+    """(o, m, l) of K1 against its plain version's, or raise: o/l over the
+    rows that see a key elementwise to TOL, l to TOL relative, m to
+    M_TOL * max|s| plus ``m_step`` of |m| (a rounding step, where both
+    sides rounded m), m <= -1e29 on rows that see none.  Returns the max
+    abs error of o/l."""
+    bh, s_q, d = q.shape
+    rows = q_off + torch.arange(s_q, device=q.device)
     seen = (rows >= kv_off) if causal else torch.ones_like(rows, dtype=bool)
     seen = seen.expand(bh, s_q)
-    (o1, m1, l1), (o2, m2, l2) = got, want
+    (o1, m1, l1), (o2, m2, l2) = ([x.float() for x in t]
+                                  for t in (got, want))
     tol = TOL[dtype]
     err = 0.0
     if seen.any():
@@ -326,19 +362,22 @@ def check_k1(torch, attention, case):
         scale = 1.0 / math.sqrt(d)
         s_max = float((q.float() @ k.float().transpose(1, 2)).abs().amax()
                       * scale)
-        m_err = float((m1[seen] - m2[seen]).abs().max())
+        m_diff = (m1[seen] - m2[seen]).abs()
+        m_err = float(m_diff.max())
+        ok_m = bool((m_diff <= M_TOL * s_max
+                     + m_step * m2[seen].abs()).all())
         l_err = float(((l1[seen] - l2[seen]).abs()
                        / l2[seen].abs()).max())
-        if not (ok_o and m_err <= M_TOL * s_max and l_err <= tol):
+        if not (ok_o and ok_m and l_err <= tol):
             raise AssertionError(
-                f"K1 {name}: o/l max err {err:.3g} (tol {tol}), m err "
-                f"{m_err:.3g} (tol {M_TOL * s_max:.3g}), l rel err "
-                f"{l_err:.3g} (tol {tol})")
+                f"{name}: o/l max err {err:.3g} (tol {tol}), m err "
+                f"{m_err:.3g} (tol {M_TOL * s_max:.3g} + {m_step} |m|), "
+                f"l rel err {l_err:.3g} (tol {tol})")
     if not bool((m1[~seen] <= -1e29).all() and (m2[~seen] <= -1e29).all()):
-        raise AssertionError(f"K1 {name}: a row that sees no key has m > "
+        raise AssertionError(f"{name}: a row that sees no key has m > "
                              f"-1e29")
     if not all(bool(torch.isfinite(x[seen]).all()) for x in got):
-        raise AssertionError(f"K1 {name}: non-finite output on a seen row")
+        raise AssertionError(f"{name}: non-finite output on a seen row")
     return err
 
 
@@ -755,7 +794,7 @@ def check_ptxas(_build, lib, bwd_lib) -> None:
 
 
 def profile_run(torch, fn, ref_ms: float, card: str, what: str,
-                want_launches=None) -> None:
+                want_launches=None, log_fn=log) -> None:
     """Where one warm run of ``fn`` spends device time: kernel time by name
     from torch.profiler, and the device's idle share of the unprofiled time
     ``ref_ms`` (the profiler's own overhead lengthens the profiled wall
@@ -778,6 +817,12 @@ def profile_run(torch, fn, ref_ms: float, card: str, what: str,
               and not e.key.startswith("ProfilerStep")]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    # the host's time inside operators (dispatch and launch, inflated by
+    # the profiler's own cost); the rest of the host's time is Python
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and not e.key.startswith("ProfilerStep")]
+    host_top = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:8]
     by_class = {}
     for e in events:
         cls = next((c for c, marks in KERNEL_CLASSES
@@ -787,6 +832,10 @@ def profile_run(torch, fn, ref_ms: float, card: str, what: str,
                          count + e.count)
     out = {"phase": "profile", "what": what, "profiled_wall_ms": wall_ms,
            "device_busy_ms": busy_ms, "unprofiled_ms": ref_ms,
+           "host_ops_ms": sum(e.self_cpu_time_total for e in ops) / 1e3,
+           "host_top": [{"name": e.key[:60], "count": e.count,
+                         "host_ms": e.self_cpu_time_total / 1e3}
+                        for e in host_top],
            # no device time seen means the profiler could not trace the
            # card: the share is then not measured, not 100% idle
            "idle_share": 1 - busy_ms / ref_ms if busy_ms else None,
@@ -796,7 +845,7 @@ def profile_run(torch, fn, ref_ms: float, card: str, what: str,
            "top": [{"name": e.key[:90], "count": e.count,
                     "device_ms": e.self_device_time_total / 1e3}
                    for e in top]}
-    log(out)
+    log_fn(out)
     for cls, n in (want_launches or {}).items():
         seen = by_class.get(cls, (0.0, 0))[1]
         if seen != n:
@@ -907,44 +956,61 @@ def train_path(torch, tfm, optim, attention, cfg, pristine, tokens):
 
 
 def time_train(torch, tfm, optim, cfg, pristine, tokens, card,
-               profile=False) -> None:
-    """Log the median ms of TIMED_STEPS chained train steps after
-    WARMUP_STEPS, by CUDA events, with the peak memory of the run."""
-    init_opt, step = tfm.make_train_step(cfg, learning_rate=1e-3)
-    params = clone_tree(optim, pristine)
+               profile=False, mesh=None, log_fn=log) -> dict:
+    """Log and return the median ms of TIMED_STEPS chained train steps
+    after WARMUP_STEPS, by CUDA events, with the peak memory of the run;
+    on a ``mesh``, the step of this rank's shards (MFU over its cards)."""
+    init_opt, step = tfm.make_train_step(cfg, mesh, learning_rate=1e-3)
+    params = (clone_tree(optim, pristine) if mesh is None
+              else tfm.shard_params(pristine, mesh, cfg))
+    cards = 1 if mesh is None else mesh.mesh.numel()
     state = init_opt(params)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     for _ in range(WARMUP_STEPS):
         params, state, _ = step(params, state, tokens)
-    times = []
+    times, host = [], []
     for _ in range(TIMED_STEPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        t0 = time.perf_counter()
         params, state, loss = step(params, state, tokens)
+        # the host's time to issue the step (nothing in it waits for the
+        # card): near step_ms, the step is host-bound
+        host.append((time.perf_counter() - t0) * 1e3)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     ms = statistics.median(times)
     n_tokens = tokens.shape[0] * (tokens.shape[1] - 1)
     tokens_per_s = n_tokens / ms * 1e3
-    log({"phase": "train_numbers", "attn": cfg.attn, "remat": cfg.remat,
-         "step_ms": ms, "step_ms_all": times, "tokens_per_step": n_tokens,
-         "tokens_per_s": tokens_per_s,
-         "mfu": tokens_per_s * tfm.train_flops_per_token(cfg)
-         / PEAK_BF16_FLOPS,
-         "peak_bytes": torch.cuda.max_memory_allocated(),
-         "bytes_before_run": base, "final_loss": float(loss), "card": card})
+    row = {"phase": "train_numbers", "attn": cfg.attn, "remat": cfg.remat,
+           "mesh": None if mesh is None else dict(zip(
+               mesh.mesh_dim_names, mesh.mesh.shape)), "cards": cards,
+           "step_ms": ms, "step_ms_all": times,
+           "host_issue_ms": statistics.median(host),
+           "tokens_per_step": n_tokens,
+           "tokens_per_s": tokens_per_s,
+           "mfu": tokens_per_s * tfm.train_flops_per_token(cfg)
+           / (PEAK_BF16_FLOPS * cards),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "bytes_before_run": base, "final_loss": float(loss),
+           "card": card}
+    log_fn(row)
     if profile:
         def one_step():
             nonlocal params, state
             params, state, _ = step(params, state, tokens)
-        n = cfg.n_layers
-        profile_run(torch, one_step, ms, card, "train_step", {
+        n = cfg.n_layers if cfg.attn == "flash" else 0
+        what = "train_step" if mesh is None else f"mesh_step {row['mesh']}"
+        profile_run(torch, one_step, ms, card, what, {
             "K1 partials_sm90": 2 * n if cfg.remat != "none" else n,
-            "K2 dkdv": n, "K3 dq": n, "K4 attention_sm90": 0})
+            "K2 dkdv": n, "K3 dq": n, "K4 attention_sm90": 0},
+            log_fn=log_fn)
+    del params, state
+    return row
 
 
 # -- 9. device collectives (DeviceComm on NCCL) -------------------------------
@@ -1403,17 +1469,341 @@ def device_coll(torch, np, dc, card: str, grad_numel: int, log_fn,
             for row in rows]
 
 
-def coll_only_worker(rank: int, world: int, init_method: str,
+# -- 10. the flagship on a mesh -----------------------------------------------
+
+# 10a: the flagship's causal q, k, v cut into RING_SP sequence shards and
+# every (my, src) hop run through ring.ring_block(block_impl="pallas"): K1
+# with the hop's global offsets, its f32 o, m and l rounded to bf16 as the
+# reference rounds them.  Each hop is held to its plain version rounded
+# the same way (partials_agree at TOL; m also gets BF16_STEP of |m|: both
+# sides round their f32 m to bf16, and f32 values a few bits apart can
+# round to neighbouring bf16 values, 2^-7 apart at most).  The hops merged
+# in ring order by ring._merge in bf16 and normalised, as ring_attention
+# does, are held to flash_attention (K4) on the whole sequence at RING_TOL
+# of its largest value: each hop's rounding to bf16 (2^-8) and the bf16
+# merge over four hops stay well inside it.
+RING_SP = 4
+RING_TOL = 2e-2
+BF16_STEP = 2.0 ** -7
+# 10b, 10c: the mesh step's losses over MESH_STEPS steps against the
+# mesh-free step from the same weights and tokens.  "flash" at dp·sp·tp =
+# 1·1·1 runs the same kernels and products as the mesh-free step, only the
+# loss summed in another order: 1e-4 relative.  "ring" runs the
+# reference's jnp block where the mesh-free step runs attention_reference:
+# each rounds scores and probabilities to bf16 in other places, as flash
+# and dense do (TRAIN_LOSS_REL, phase 7).
+MESH_STEPS = 4
+MESH_LOSS_REL = {"flash": 1e-4, "ring": TRAIN_LOSS_REL}
+# ... and the first step's gradients, gathered from every rank's shards
+# into the full tree, against the mesh-free step's, by relative RMS over
+# all leaves: 1e-4 for "flash" at 1·1·1 (the same products), phase 7's
+# TRAIN_GRAD_RMS for "ring" (bf16 rounding in other places, as flash
+# against dense).  Each fault planted in mesh_faults must fail it.
+MESH_GRAD_RMS = {"flash": 1e-4, "ring": TRAIN_GRAD_RMS}
+# the multi-card entry's cards and its (dp, sp, tp) layouts on them
+MULTI_CARDS = 4
+MULTI_LAYOUTS = [(1, 2, 2), (2, 2, 1)]
+
+
+def ring_hops(torch, attention, ring, cfg, card) -> dict:
+    """Phase 10a: K1 on every hop of a RING_SP-member ring at the
+    flagship's attention width.  Returns the K1 entry's ring figures."""
+    b, s, h, d, n = BATCH, cfg.seq, cfg.n_heads, cfg.head_dim, RING_SP
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    q = q * Q_SCALE
+    sl = s // n
+    qs, ks, vs = ([fold(x)[:, i * sl:(i + 1) * sl].contiguous()
+                   for i in range(n)] for x in (q, k, v))
+    hops = [(my, (my - i) % n) for my in range(n) for i in range(n)]
+
+    def run(fn):
+        return {(my, src): fn(qs[my], ks[src], vs[src], my, src)
+                for my, src in hops}
+
+    zero_counts(attention)
+    got = run(lambda q_, k_, v_, my, src: ring.ring_block(
+        q_, k_, v_, my, src, causal=True, block_impl="pallas"))
+    torch.cuda.synchronize()
+    launches = launch_counts(attention)
+    if launches != (n * n, 0, 0, 0):
+        raise AssertionError(f"K1/K2/K3/K4 launches over the {n * n} ring "
+                             f"hops: {launches}")
+    plain = run(lambda q_, k_, v_, my, src: tuple(
+        x.to(torch.bfloat16) for x in
+        attention.flash_attention_partials_reference(
+            q_, k_, v_, causal=True, q_offset=my * sl, kv_offset=src * sl)))
+
+    def agree(parts, my, src):
+        return partials_agree(torch, f"ring hop {my}<-{src}", "bfloat16",
+                              parts[my, src], plain[my, src], qs[my],
+                              ks[src], True, my * sl, src * sl, BF16_STEP)
+
+    hop_err = max(agree(got, my, src) for my, src in hops)
+
+    def merged(parts):
+        outs = []
+        for my in range(n):
+            o = torch.zeros_like(qs[my])
+            m = torch.full(o.shape[:2], -1e30, dtype=o.dtype, device="cuda")
+            l = torch.zeros_like(m)
+            for i in range(n):
+                o, m, l = ring._merge(o, m, l, *parts[my, (my - i) % n])
+            outs.append(o / torch.clamp_min(l, 1e-20)[..., None])
+        return torch.cat(outs, dim=1).float()
+
+    k4 = fold(attention.flash_attention(q, k, v, causal=True)).float()
+    big = float(k4.abs().max())
+    err = float((merged(got) - k4).abs().max())
+    # a 10% fault on every row of one hop: the first shard's diagonal,
+    # the only hop those rows see
+    o, m, l = got[0, 0]
+    bad = dict(got)
+    bad[0, 0] = (o * 1.1, m, l)
+    planted = float((merged(bad) - k4).abs().max())
+    try:
+        agree(bad, 0, 0)
+        hop_rejects = False
+    except AssertionError:
+        hop_rejects = True
+    row = {"phase": "ring_hops", "sp": n, "hops": len(hops),
+           "k1_k2_k3_k4_launches": list(launches),
+           "hop_max_abs_err": hop_err, "hop_tol": TOL["bfloat16"],
+           "merged_vs_k4_err": err, "merged_bound": RING_TOL * big,
+           "planted_merged_err": planted,
+           "planted_hop_rejected": hop_rejects}
+    log(row)
+    if not (err <= RING_TOL * big and planted > RING_TOL * big
+            and hop_rejects):
+        raise AssertionError(f"ring hops: {row}")
+
+    # one hop's time: the 16 launches in a row, per launch
+    k1 = lambda q_, k_, v_, my, src: attention.flash_attention_partials(
+        q_, k_, v_, causal=True, q_offset=my * sl, kv_offset=src * sl)
+    ref = lambda q_, k_, v_, my, src: \
+        attention.flash_attention_partials_reference(
+            q_, k_, v_, causal=True, q_offset=my * sl, kv_offset=src * sl)
+    hop_ms = median_ms(lambda: run(k1)) / len(hops)
+    plain_ms = median_ms(lambda: run(ref), n=5, warmup=1) / len(hops)
+    # the work the 16 hops need: the causal pairs of the whole sequence;
+    # every hop writes o (f32), m and l, and only a hop that sees a key
+    # (src <= my) reads its q, k and v: a hop wholly after its queries
+    # writes the empty block's o = 0, m = -1e30, l = 0 from no input
+    bh = b * h
+    pairs = bh * s * (s + 1) // 2
+    writes = bh * sl * d * 4 + 2 * bh * sl * 4
+    reads = 3 * bh * sl * d * 2
+    live = sum(src <= my for my, src in hops)
+    hop_bound, hop_by = bound(4 * d * pairs,
+                              len(hops) * writes + live * reads)
+    out = {"ring_hop_launches": launches[0], "ring_hop_max_abs_err": hop_err,
+           "ring_merged_vs_k4_err": err, "ring_hop_ms": hop_ms,
+           "ring_hop_plain_ms": plain_ms,
+           "ring_hop_bound_ms": hop_bound / len(hops),
+           "ring_hop_bound_by": hop_by}
+    log({"phase": "numbers", "metric": "ring_hop", **out, "card": card})
+    return out
+
+
+@contextlib.contextmanager
+def planted(obj, name: str, value):
+    """``obj.<name>`` replaced by ``value`` while the block runs."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def mesh_faults(torch, tfm, cfg, mesh) -> dict:
+    """The faults the mesh gradient check must reject, by name, each a
+    context that plants it: the gradient sum over dp × sp skipped (where
+    that group has more than one member), and with attn "ring" every
+    rank's last hop dropped (its partials those of a block that sees no
+    key)."""
+    from ompi_tpu_torch.parallel import ring
+    dims = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    faults = {}
+    if dims["dp"] * dims["sp"] > 1:
+        faults["grad_sum_skipped"] = lambda: planted(
+            tfm._Plan, "sync", lambda self, grads: None)
+    if cfg.attn == "ring":
+        real, sp = ring.ring_block, dims["sp"]
+
+        def last_hop_dropped(q, k, v, my, src, *args):
+            o, m, l = real(q, k, v, my, src, *args)
+            if src != (my + 1) % sp:
+                return o, m, l
+            # zeros that keep the hop in the graph (its grads 0)
+            return o * 0, torch.full_like(m, -1e30), l * 0
+
+        faults["last_hop_dropped"] = lambda: planted(
+            ring, "ring_block", last_hop_dropped)
+    return faults
+
+
+def mesh_grads(tfm, optim, cfg, mesh, pristine, tokens) -> list:
+    """The mesh's gradients at ``pristine`` and ``tokens``, gathered from
+    every rank's shards into the full tree's leaves."""
+    params = tfm.shard_params(pristine, mesh, cfg)
+    grads = tfm.value_and_grad(params, tokens, cfg, mesh=mesh)[1]
+    of = dict(zip(map(id, optim.tree_leaves(params)), grads))
+    tree = optim.tree_map(lambda p: of[id(p)], params)
+    return optim.tree_leaves(tfm.gather_params(tree, mesh, cfg))
+
+
+def mesh_losses(torch, tfm, optim, attention, cfg, mesh, pristine, tokens,
+                ref_losses, want_launches, log_fn=log) -> dict:
+    """The mesh step from ``pristine`` against the mesh-free step: the
+    first step's gradients within MESH_GRAD_RMS, each planted fault
+    outside it; then MESH_STEPS steps, the first step's K1-K4 launches
+    ``want_launches``, the losses falling and within MESH_LOSS_REL of
+    ``ref_losses`` (the mesh-free step's)."""
+    want = tfm.value_and_grad(clone_tree(optim, pristine), tokens, cfg)[1]
+    grad_rel = grads_rel_rms(
+        mesh_grads(tfm, optim, cfg, mesh, pristine, tokens), want)
+    planted_rel = {}
+    for name, fault in mesh_faults(torch, tfm, cfg, mesh).items():
+        with fault():
+            planted_rel[name] = grads_rel_rms(
+                mesh_grads(tfm, optim, cfg, mesh, pristine, tokens), want)
+    del want
+    torch.cuda.empty_cache()
+    init_opt, step = tfm.make_train_step(cfg, mesh, learning_rate=1e-3)
+    params = tfm.shard_params(pristine, mesh, cfg)
+    state = init_opt(params)
+    losses = []
+    for i in range(MESH_STEPS):
+        if i == 0:
+            zero_counts(attention)
+        params, state, loss = step(params, state, tokens)
+        losses.append(float(loss))
+        if i == 0:
+            launches = launch_counts(attention)
+    del params, state
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    row = {"phase": "mesh_step", "attn": cfg.attn, "mesh": dict(zip(
+        mesh.mesh_dim_names, mesh.mesh.shape)), "losses": losses,
+        "mesh_free_losses": ref_losses, "loss_max_rel_diff": rel,
+        "loss_bound": MESH_LOSS_REL[cfg.attn], "grad_rel_rms": grad_rel,
+        "grad_bound": MESH_GRAD_RMS[cfg.attn],
+        "planted_grad_rel_rms": planted_rel,
+        "k1_k2_k3_k4_launches_per_step": list(launches)}
+    log_fn(row)
+    if launches != want_launches:
+        raise AssertionError(f"mesh step {cfg.attn}: K1/K2/K3/K4 launches "
+                             f"{launches}, want {want_launches}")
+    bound_ = MESH_GRAD_RMS[cfg.attn]
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0] and rel < MESH_LOSS_REL[cfg.attn]
+            and grad_rel < bound_
+            and all(x > bound_ for x in planted_rel.values())):
+        raise AssertionError(f"mesh step: {row}")
+    return row
+
+
+def mesh_world_of_one(torch, tfm, optim, attention, cfg, pristine, tokens,
+                      card) -> list:
+    """Phase 10b: the mesh step at dp·sp·tp = 1·1·1 in this process's
+    world, attn "ring" and "flash", against the mesh-free step, and both
+    timed."""
+    from ompi_tpu_torch.parallel import make_mesh
+    mesh = make_mesh({"dp": 1, "sp": 1, "tp": 1})
+    n = cfg.n_layers
+    rows = []
+    for attn, want in (("ring", (0, 0, 0, 0)), ("flash", (2 * n, n, n, 0))):
+        c = dataclasses.replace(cfg, attn=attn)
+        ref = run_steps(tfm, c, clone_tree(optim, pristine), tokens,
+                        MESH_STEPS)
+        row = mesh_losses(torch, tfm, optim, attention, c, mesh, pristine,
+                          tokens, ref, want)
+        torch.cuda.empty_cache()
+        on_mesh = time_train(torch, tfm, optim, c, pristine, tokens, card,
+                             mesh=mesh)
+        torch.cuda.empty_cache()
+        free = time_train(torch, tfm, optim, c, pristine, tokens, card)
+        torch.cuda.empty_cache()
+        rows.append({"attn": attn, "mesh": row["mesh"],
+                     "loss_max_rel_diff": row["loss_max_rel_diff"],
+                     "grad_rel_rms": row["grad_rel_rms"],
+                     **{k: on_mesh[k] for k in
+                        ("step_ms", "host_issue_ms", "tokens_per_s",
+                         "mfu")},
+                     **{f"mesh_free_{k}": free[k] for k in
+                        ("step_ms", "host_issue_ms", "tokens_per_s",
+                         "mfu")}})
+    return rows
+
+
+def mesh_multi_card(torch, np, tfm, optim, world: int, card: str,
+                    log_fn) -> list:
+    """Phase 10c: the flagship's mesh step, attn="ring", across four
+    cards, each layout of MULTI_LAYOUTS against the one-card step from the
+    same weights and tokens, and timed."""
+    from ompi_tpu_torch.ops import attention
+    from ompi_tpu_torch.parallel import make_mesh
+    cfg = dataclasses.replace(tfm.flagship_config(), attn="ring")
+    pristine = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (BATCH, cfg.seq + 1))).cuda()
+    # every rank takes the one-card step itself: the same weights and
+    # tokens give the same losses, and no rank waits on another
+    ref = run_steps(tfm, cfg, clone_tree(optim, pristine), tokens,
+                    MESH_STEPS)
+    torch.cuda.empty_cache()
+    one = time_train(torch, tfm, optim, cfg, pristine, tokens, card,
+                     profile=True, log_fn=log_fn)
+    # remat "none" beside "dots": what selective checkpointing costs the
+    # host
+    no_remat = dataclasses.replace(cfg, remat="none")
+    one_none = time_train(torch, tfm, optim, no_remat, pristine, tokens,
+                          card, log_fn=log_fn)
+    torch.cuda.empty_cache()
+    rows = []
+    for dp, sp, tp in MULTI_LAYOUTS:
+        mesh = make_mesh({"dp": dp, "sp": sp, "tp": tp})
+        row = mesh_losses(torch, tfm, optim, attention, cfg, mesh, pristine,
+                          tokens, ref, (0, 0, 0, 0), log_fn)
+        torch.cuda.empty_cache()
+        t = time_train(torch, tfm, optim, cfg, pristine, tokens, card,
+                       profile=True, mesh=mesh, log_fn=log_fn)
+        torch.cuda.empty_cache()
+        t_none = time_train(torch, tfm, optim, no_remat, pristine, tokens,
+                            card, mesh=mesh, log_fn=log_fn)
+        torch.cuda.empty_cache()
+        rows.append({"attn": "ring", "mesh": row["mesh"], "cards": world,
+                     "loss_max_rel_diff": row["loss_max_rel_diff"],
+                     "grad_rel_rms": row["grad_rel_rms"],
+                     **{k: t[k] for k in ("step_ms", "host_issue_ms",
+                                          "tokens_per_s", "mfu",
+                                          "peak_bytes")},
+                     **{f"one_card_{k}": one[k] for k in
+                        ("step_ms", "host_issue_ms", "tokens_per_s",
+                         "mfu")},
+                     "remat_none": {"step_ms": t_none["step_ms"],
+                                    "host_issue_ms": t_none["host_issue_ms"],
+                                    "one_card_step_ms": one_none["step_ms"],
+                                    "one_card_host_issue_ms":
+                                        one_none["host_issue_ms"]}})
+    return rows
+
+
+def multi_card_worker(rank: int, world: int, init_method: str,
                       card: str) -> None:
-    """One rank of phase 9 run alone: an NCCL world of ``world``
-    processes, one card each, R = 8 rank rows over them."""
+    """One rank of the multi-card run: an NCCL world of ``world``
+    processes, one card each.  Phase 9 (R = 8 rank rows over the cards),
+    then phase 10c, the mesh step across them."""
     import numpy as np
     import torch
     from ompi_tpu_torch.models import transformer as tfm
     from ompi_tpu_torch import optim
     from ompi_tpu_torch.parallel import DeviceComm, init_device_plane
     from ompi_tpu_torch.parallel import make_mesh
-    init_device_plane(rank=rank, world_size=world, init_method=init_method)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_device_plane(rank=rank, world_size=world, init_method=init_method,
+                      timeout_s=600)
     params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
                              tfm.flagship_config())
     grad_numel = sum(p.numel() for p in optim.tree_leaves(params))
@@ -1421,17 +1811,20 @@ def coll_only_worker(rank: int, world: int, init_method: str,
     torch.cuda.empty_cache()
     dc = DeviceComm(make_mesh({"x": world}), "x")
     out = log if rank == 0 else (lambda obj: None)
-    # the staged arm is single-controller code: one process only
-    rows = device_coll(torch, np, dc, card, grad_numel, out,
-                       staged=world == 1)
+    # the staged arm is single-controller code: phase 9 on one card runs it
+    rows = device_coll(torch, np, dc, card, grad_numel, out, staged=False)
+    torch.cuda.empty_cache()
+    mesh_rows = mesh_multi_card(torch, np, tfm, optim, world, card, out)
     out({"collectives": rows})
+    out({"mesh": mesh_rows})
     torch.distributed.destroy_process_group()
 
 
-def coll_only_main() -> int:
-    """Phase 9 alone across every visible card of the host, one spawned
-    process a card: the check, the timed sweep (its staged arm with one
-    process only) and the gradient allreduce."""
+def multi_card_main() -> int:
+    """Phases 9 and 10c across the host's MULTI_CARDS cards, one spawned
+    process a card: the collectives' check, the timed sweep (without its
+    staged arm) and the gradient allreduce, then the flagship's mesh
+    step."""
     import os
     import tempfile
     import torch
@@ -1441,12 +1834,17 @@ def coll_only_main() -> int:
               "runs only on a CUDA device", file=sys.stderr)
         return 1
     world = torch.cuda.device_count()
+    if world != MULTI_CARDS:
+        print(f"chip_smoke: --multi-card runs on {MULTI_CARDS} cards; "
+              f"{world} visible", file=sys.stderr)
+        return 1
     card = card_line()
     log({"phase": "device", "card": card, "cards": world,
          "torch": torch.__version__, "cuda": torch.version.cuda})
     with tempfile.TemporaryDirectory() as tmp:
         init = "file://" + os.path.join(tmp, "store")
-        mp.spawn(coll_only_worker, args=(world, init, card), nprocs=world)
+        mp.spawn(multi_card_worker, args=(world, init, card),
+                 nprocs=world)
     log(card)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
@@ -1698,7 +2096,6 @@ def main() -> int:
     time_train(torch, tfm, optim, dataclasses.replace(cfg, attn="dense"),
                pristine, train_tokens, card)
     grad_numel = sum(p.numel() for p in optim.tree_leaves(pristine))
-    del pristine, train_tokens
     torch.cuda.empty_cache()
 
     # 9. device collectives: DeviceComm in a one-process NCCL world, R = 8
@@ -1709,7 +2106,18 @@ def main() -> int:
                       store=torch.distributed.HashStore())
     dc = DeviceComm(make_mesh({"x": 1}), "x")
     coll_rows = device_coll(torch, np, dc, card, grad_numel, log)
+    del dc
+    torch.cuda.empty_cache()
+
+    # 10. the flagship on a mesh, in the same world: K1 on every ring hop,
+    # then the mesh step at dp·sp·tp = 1·1·1
+    ring_row = ring_hops(torch, attention, ring, cfg, card)
+    torch.cuda.empty_cache()
+    mesh_rows = mesh_world_of_one(torch, tfm, optim, attention, cfg,
+                                  pristine, train_tokens, card)
     torch.distributed.destroy_process_group()
+    del pristine, train_tokens
+    torch.cuda.empty_cache()
 
     # K2: q, k, v, dO, lse, delta in; dk, dv out; 4 causal products
     k2_flops, k3_flops = 8 * d * pairs, 6 * d * pairs
@@ -1734,6 +2142,7 @@ def main() -> int:
          "ratio": mha_bwd_ms / sdpa_bwd_ms, "card": card})
 
     log({"collectives": coll_rows})
+    log({"mesh": mesh_rows})
     log({"kernels": [
         {"name": "flash_partials", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_partials.cu",
@@ -1741,7 +2150,7 @@ def main() -> int:
          "launches": per_step[0], "max_abs_err": path_err, "ms": k1_ms,
          "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": sdpa_ms, "tflops": flops / k1_ms / 1e9,
-         "bound_share": k1_bound / k1_ms},
+         "bound_share": k1_bound / k1_ms, **ring_row},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ompi_tpu/ops/attention.py:381",
@@ -1783,7 +2192,8 @@ def main() -> int:
 if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--coll-only", action="store_true",
-                    help="run only phase 9, across every visible card")
+    ap.add_argument("--multi-card", action="store_true",
+                    help="run only phases 9 and 10c, across every visible "
+                         "card")
     ns = ap.parse_args()
-    sys.exit(coll_only_main() if ns.coll_only else main())
+    sys.exit(multi_card_main() if ns.multi_card else main())

@@ -17,9 +17,26 @@ layer in ``torch.utils.checkpoint``: ``"full"`` recomputes the layer,
 ``"dots"`` saves the weight products' outputs and recomputes the rest, K1
 included.  ``loss_chunk`` runs the chunked cross-entropy.
 
+On a mesh (a ``DeviceMesh`` with axes among dp, sp and tp; one process a
+rank) the reference's GSPMD collectives are written out.  ``shard_params``
+gives each rank its Megatron shard (``param_specs``): ``wqkv``, ``w_gate``
+and ``w_up`` column-parallel, ``wo`` and ``w_down`` row-parallel, ``embed``
+vocab-parallel, norms replicated; ``wqkv``'s columns are cut by heads, so
+tp rank t holds heads [t·h/tp, (t+1)·h/tp) of each of q, k and v.  Each
+column-parallel product takes its input through *f* and each row-parallel
+one ends in *g* (``parallel.collectives``); the lookup and the
+cross-entropy are vocab-parallel; ``attn="ring"`` runs ``ring_attention``
+over sp with global RoPE positions; tokens are cut over dp (batch) and sp
+(sequence); the gradients sum over dp × sp (``grad_sync="native"``).
+``attn="ring"`` without a mesh is ``attention_reference``, as in the
+reference.
+
 Not yet ported, each refused with the ROADMAP slice that brings it:
-``attn="ring"`` (P5), ``mlp="moe"`` (P12), ``tp_overlap="fused"`` (P9)
-and training on a mesh (P6).
+``mlp="moe"`` (P12), ``tp_overlap="fused"`` (P9), and on a mesh
+``grad_sync`` quant (P8) and perleaf/bucketed/unsynced (P9).  The port's
+own refusal: ``attn="flash"`` or ``"dense"`` on a mesh whose sp axis is
+larger than 1 (the reference replicates them over sp under GSPMD; the port
+shards the sequence over sp).
 """
 
 from __future__ import annotations
@@ -31,6 +48,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
@@ -38,10 +57,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .. import optim
 from ..device import DeviceLike, check_on, resolve_device
 from ..ops.attention import flash_mha
-from ..parallel.ring import attention_reference
+from ..parallel.collectives import copy_to, pmax, reduce_from
+from ..parallel.mesh import axes_group, axis_rank, axis_size, sharded
+from ..parallel.ring import attention_reference, ring_attention
 
 _NOT_YET = {
-    ("attn", "ring"): "ring attention comes with ROADMAP slice P5",
     ("mlp", "moe"): "the MoE block comes with ROADMAP slice P12",
     ("tp_overlap", "fused"): "fused tp overlap comes with ROADMAP slice P9",
 }
@@ -62,7 +82,7 @@ class Config:
     d_ff: int = 512
     seq: int = 128
     dtype: torch.dtype = torch.bfloat16   # activation/compute dtype
-    attn: str = "dense"                   # "dense" | "flash" (K1)
+    attn: str = "dense"                   # "dense" | "flash" (K1) | "ring"
     rope_base: float = 10000.0
     mlp: str = "dense"
     tp_overlap: str = "none"
@@ -73,7 +93,7 @@ class Config:
     attn_bwd_block: Optional[int] = None
     loss_chunk: Optional[int] = None      # chunked cross-entropy slice
     opt_moment_dtype: str = "float32"     # AdamW first moment: or bfloat16
-    grad_sync: str = "native"             # others need a mesh (P6)
+    grad_sync: str = "native"             # others need a mesh (P8, P9)
 
     def __post_init__(self):
         for name, allowed in _CHOICES.items():
@@ -166,6 +186,192 @@ def params_from_numpy(tree: Dict[str, Any],
             "layers": layers}
 
 
+# -- the Megatron layout over a mesh ------------------------------------------
+
+def param_specs(cfg: Config) -> Dict[str, Any]:
+    """Megatron-style tp layout, the reference's: one axis name (or None)
+    per dim of each leaf.  qkv/gate/up column-parallel (their output
+    features over tp), wo/down row-parallel (their input features), the
+    embedding vocab-parallel, the norms replicated."""
+    layer = {"attn_norm": (), "wqkv": (None, "tp"), "wo": ("tp", None),
+             "mlp_norm": (), "w_gate": (None, "tp"), "w_up": (None, "tp"),
+             "w_down": ("tp", None)}
+    return {"embed": ("tp", None), "final_norm": (),
+            "layers": [dict(layer) for _ in range(cfg.n_layers)]}
+
+
+def _qkv_by_heads(w: torch.Tensor, tp: int,
+                  inverse: bool = False) -> torch.Tensor:
+    """wqkv's [q|k|v] columns, reordered so that the column cut over tp
+    gives rank t heads [t·h/tp, (t+1)·h/tp) of each of q, k and v:
+    (d, 3, tp, cols) → (d, tp, 3, cols).  ``inverse`` undoes it.  (The
+    reference's P(None, "tp") on the fused matrix would give rank 0 all of
+    q; GSPMD computes the same either way, explicit Megatron cannot.)"""
+    d = w.shape[0]
+    shape = (d, tp, 3, -1) if inverse else (d, 3, tp, -1)
+    return w.reshape(shape).transpose(1, 2).reshape(d, -1)
+
+
+def _map_specs(fn: Callable, params: Dict[str, Any],
+               cfg: Config) -> Dict[str, Any]:
+    """``fn(leaf, spec, name)`` over the parameter tree, beside its
+    ``param_specs``."""
+    specs = param_specs(cfg)
+    if len(params["layers"]) != cfg.n_layers:
+        raise ValueError(f"{len(params['layers'])} layers, Config has "
+                         f"{cfg.n_layers}")
+    return {"embed": fn(params["embed"], specs["embed"], "embed"),
+            "final_norm": fn(params["final_norm"], specs["final_norm"],
+                             "final_norm"),
+            "layers": [{k: fn(layer[k], spec[k], k) for k in _LAYER_KEYS}
+                       for layer, spec in zip(params["layers"],
+                                              specs["layers"])]}
+
+
+def _fit(mesh: DeviceMesh, spec) -> Tuple[Optional[str], ...]:
+    # an axis the mesh lacks: that dimension is simply replicated
+    return tuple(a if a in mesh.mesh_dim_names else None for a in spec)
+
+
+def shard_params(params: Dict[str, Any], mesh: DeviceMesh,
+                 cfg: Config) -> Dict[str, Any]:
+    """The full parameter tree → this rank's shards, fresh tensors on the
+    parameters' device (the reference's ``shard_params``; see
+    ``_qkv_by_heads`` for the one leaf cut otherwise)."""
+    tp = axis_size(mesh, "tp")
+
+    def one(x, spec, name):
+        if name == "wqkv":
+            x = _qkv_by_heads(x, tp)
+        return sharded(mesh, *_fit(mesh, spec)).local(x)
+
+    _check_tp(cfg, tp)
+    return _map_specs(one, params, cfg)
+
+
+def gather_params(params: Dict[str, Any], mesh: DeviceMesh,
+                  cfg: Config) -> Dict[str, Any]:
+    """``shard_params``' inverse: every rank's shards → the full tree on
+    every rank (collective over tp)."""
+    tp = axis_size(mesh, "tp")
+
+    def one(x, spec, name):
+        full = sharded(mesh, *_fit(mesh, spec)).gather(x)
+        return _qkv_by_heads(full, tp, inverse=True) if name == "wqkv" \
+            else full
+
+    _check_tp(cfg, tp)
+    return _map_specs(one, params, cfg)
+
+
+class _Plan:
+    """What the layers need of a dp×sp×tp mesh, read once a call: each
+    axis's size and this rank's position on it (an axis the mesh lacks
+    has one member), and the collectives the reference's GSPMD inserted."""
+
+    def __init__(self, mesh: DeviceMesh, cfg: Config) -> None:
+        self.mesh = mesh
+        self.dp, self.sp, self.tp = (axis_size(mesh, a)
+                                     for a in ("dp", "sp", "tp"))
+        self.dp_rank, self.sp_rank, self.tp_rank = (
+            axis_rank(mesh, a) for a in ("dp", "sp", "tp"))
+        self.ring = cfg.attn == "ring" and "sp" in mesh.mesh_dim_names
+        # every leaf is replicated over dp and sp: its gradient sums there
+        self.data = (axes_group(mesh, ("dp", "sp"))
+                     if self.dp * self.sp > 1 else None)
+
+    def axis(self, name: str) -> Optional[str]:
+        return name if name in self.mesh.mesh_dim_names else None
+
+    def to_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """*f*, before a column-parallel product."""
+        return copy_to(x, "tp", self.mesh) if self.tp > 1 else x
+
+    def from_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """*g*, after a row-parallel product."""
+        return reduce_from(x, "tp", self.mesh) if self.tp > 1 else x
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """(B, S) over the whole batch → this rank's (B/dp, S/sp) block."""
+        B, S = t.shape
+        if B % self.dp or S % self.sp:
+            raise ValueError(f"tokens ({B}, {S}) do not divide over "
+                             f"dp={self.dp} and sp={self.sp}")
+        b, s = B // self.dp, S // self.sp
+        return t[self.dp_rank * b:(self.dp_rank + 1) * b,
+                 self.sp_rank * s:(self.sp_rank + 1) * s]
+
+    def lookup(self, embed: torch.Tensor, tokens: torch.Tensor):
+        """The vocab-parallel lookup: this rank's rows, zeros for tokens
+        another rank holds, summed over tp."""
+        if self.tp == 1:
+            return embed[tokens]
+        rows = embed.shape[0]
+        idx = tokens - self.tp_rank * rows
+        inside = (idx >= 0) & (idx < rows)
+        x = embed[idx.clamp(0, rows - 1)]
+        return self.from_tp(torch.where(inside[..., None], x, 0.0))
+
+    def cross_entropy(self, logits: torch.Tensor,
+                      targets: torch.Tensor) -> torch.Tensor:
+        """Per-token logsumexp − gold over this rank's vocab columns
+        (b, s, V/tp), summed over tp.  Every tp rank holds the same
+        result, so the sums are *g*: backward, each rank's cotangent is
+        its own columns' (no all-gather of the logits, whose backward
+        would sum tp copies)."""
+        if self.tp == 1:
+            lse = torch.logsumexp(logits, dim=-1)
+            return lse - torch.gather(logits, -1, targets[..., None])[..., 0]
+        m = pmax(logits.detach().amax(dim=-1), "tp", self.mesh)
+        total = self.from_tp(torch.exp(logits - m[..., None]).sum(dim=-1))
+        cols = logits.shape[-1]
+        idx = targets - self.tp_rank * cols
+        inside = (idx >= 0) & (idx < cols)
+        gold = torch.gather(logits, -1, idx.clamp(0, cols - 1)[..., None])
+        gold = self.from_tp(torch.where(inside, gold[..., 0], 0.0))
+        return torch.log(total) + m - gold
+
+    def data_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """*g* over dp × sp: the global loss from each rank's part."""
+        return reduce_from(x, self.data) if self.data is not None else x
+
+    def sync(self, grads: Sequence[torch.Tensor]) -> None:
+        """The native gradient sync, in place: a sum over dp × sp."""
+        if self.data is None:
+            return
+        for g in grads:
+            dist.all_reduce(g, group=self.data)
+
+
+def _plan(mesh: Optional[DeviceMesh], cfg: Config) -> Optional[_Plan]:
+    """None without a mesh; else the mesh's plan, after the refusals."""
+    if mesh is None:
+        return None
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh: a torch.distributed DeviceMesh (make_mesh), "
+                        f"not {type(mesh).__name__}")
+    if cfg.loss_chunk:
+        # the reference's refusal: the seq slicing would cross sp shards
+        raise ValueError("loss_chunk is only supported single-controller "
+                         "with mlp='dense' (got mesh=set); unset loss_chunk "
+                         "for this path")
+    sp, tp = axis_size(mesh, "sp"), axis_size(mesh, "tp")
+    if cfg.attn != "ring" and sp > 1:
+        raise NotImplementedError(
+            f"attn={cfg.attn!r} on a mesh with sp={sp}: the port shards the "
+            f"sequence over sp, where only attn='ring' runs (the reference "
+            f"replicates it over sp; still to port, ROADMAP Queue 1)")
+    _check_tp(cfg, tp)
+    return _Plan(mesh, cfg)
+
+
+def _check_tp(cfg: Config, tp: int) -> None:
+    for name in ("n_heads", "d_ff", "vocab"):
+        if getattr(cfg, name) % tp:
+            raise ValueError(f"Config.{name}={getattr(cfg, name)} does not "
+                             f"divide over tp={tp}")
+
+
 # -- model --------------------------------------------------------------------
 
 def _rms_norm(x, w):
@@ -187,32 +393,47 @@ def _rope(x, positions, base):
     return torch.cat([rot1, rot2], dim=-1).to(x.dtype)
 
 
-def _attn_apply(x, layer, cfg: Config):
-    """Attention half of the decoder layer, residual included."""
+def _attn_apply(x, layer, cfg: Config, mesh: Optional[_Plan] = None):
+    """Attention half of the decoder layer, residual included.  On a mesh
+    x is this rank's (b/dp, s/sp, d), replicated over tp, and the layer
+    holds its tp shards."""
     b, s = x.shape[0], x.shape[1]
+    heads = cfg.n_heads
     positions = torch.arange(s, device=x.device)
     h = _rms_norm(x, layer["attn_norm"])
+    if mesh is not None:
+        heads //= mesh.tp
+        positions = positions + mesh.sp_rank * s       # global positions
+        h = mesh.to_tp(h)
     qkv = h @ layer["wqkv"].to(cfg.dtype)            # (b, s, 3*heads*hd)
-    q, k, v = (t.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    q, k, v = (t.reshape(b, s, heads, cfg.head_dim)
                for t in qkv.chunk(3, dim=-1))
     q = _rope(q, positions, cfg.rope_base)
     k = _rope(k, positions, cfg.rope_base)
-    if cfg.attn == "flash":
+    if mesh is not None and mesh.ring:
+        att = ring_attention(q, k, v, mesh.mesh, "sp", causal=True,
+                             batch_axis=mesh.axis("dp"),
+                             head_axis=mesh.axis("tp"))
+    elif cfg.attn == "flash":
         att = flash_mha(q, k, v, True, None, cfg.attn_block, cfg.attn_block,
                         None, cfg.attn_bwd_block, cfg.attn_bwd_block)
     else:
         att = attention_reference(q, k, v, causal=True)
-    att = att.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return x + att @ layer["wo"].to(cfg.dtype)
+    att = att.reshape(b, s, heads * cfg.head_dim)
+    out = att @ layer["wo"].to(cfg.dtype)
+    return x + (out if mesh is None else mesh.from_tp(out))
 
 
-def _layer_apply(x, layer, cfg: Config):
+def _layer_apply(x, layer, cfg: Config, mesh: Optional[_Plan] = None):
     """One decoder layer with the dense (SwiGLU) MLP."""
-    x = _attn_apply(x, layer, cfg)
+    x = _attn_apply(x, layer, cfg, mesh)
     h = _rms_norm(x, layer["mlp_norm"])
+    if mesh is not None:
+        h = mesh.to_tp(h)
     gate = torch.nn.functional.silu(h @ layer["w_gate"].to(cfg.dtype))
     up = h @ layer["w_up"].to(cfg.dtype)
-    return x + (gate * up) @ layer["w_down"].to(cfg.dtype)
+    out = (gate * up) @ layer["w_down"].to(cfg.dtype)
+    return x + (out if mesh is None else mesh.from_tp(out))
 
 
 def _checkpointed(fn: Callable, context_fn=noop_context_fn) -> Callable:
@@ -246,10 +467,11 @@ def _remat_wrap(fn: Callable, mode: str) -> Callable:
     return fn
 
 
-def _backbone(params, tokens, cfg: Config, embed):
+def _backbone(params, tokens, cfg: Config, embed,
+              mesh: Optional[_Plan] = None):
     """tokens (b, s) → hidden (b, s, d) after the final norm."""
-    x = embed[tokens]                                 # (b, s, d)
-    layer_fn = _remat_wrap(lambda x, layer: _layer_apply(x, layer, cfg),
+    x = embed[tokens] if mesh is None else mesh.lookup(embed, tokens)
+    layer_fn = _remat_wrap(lambda x, layer: _layer_apply(x, layer, cfg, mesh),
                            cfg.remat)
     for layer in params["layers"]:
         x = layer_fn(x, layer)
@@ -263,12 +485,21 @@ def _prepare(params, tokens, device: DeviceLike) -> torch.Tensor:
 
 
 def forward(params: Dict[str, Any], tokens, cfg: Config,
-            device: DeviceLike = None) -> torch.Tensor:
+            device: DeviceLike = None,
+            mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
     """tokens (batch, seq) → logits (batch, seq, vocab) float32.  Runs on
-    ``device`` (``None`` = cuda), where ``params`` must already lie."""
+    ``device`` (``None`` = cuda), where ``params`` must already lie.  On a
+    ``mesh`` every rank passes the whole batch and its ``shard_params``
+    shards, and gets its block of the logits: (batch/dp, seq/sp,
+    vocab/tp)."""
     tokens = _prepare(params, tokens, device)
+    plan = _plan(mesh, cfg)
     embed = params["embed"].to(cfg.dtype)
-    x = _backbone(params, tokens, cfg, embed)
+    if plan is not None:
+        tokens = plan.local(tokens)
+    x = _backbone(params, tokens, cfg, embed, plan)
+    if plan is not None:
+        x = plan.to_tp(x)
     return (x @ embed.T).float()                      # tied embedding
 
 
@@ -293,11 +524,15 @@ def _chunked_ce(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
 
 
 def loss_fn(params: Dict[str, Any], tokens, cfg: Config,
-            device: DeviceLike = None) -> torch.Tensor:
+            device: DeviceLike = None,
+            mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
     """Mean next-token cross-entropy in logsumexp form; with
     ``cfg.loss_chunk`` the chunked form, which never holds the whole
-    logits."""
+    logits.  On a ``mesh`` every rank passes the whole (batch, seq + 1)
+    batch and gets the global mean; backward, each rank's graph carries
+    its own tokens' share (``reduce_from`` over dp × sp)."""
     tokens = _prepare(params, tokens, device)
+    plan = _plan(mesh, cfg)
     targets = tokens[:, 1:]
     if cfg.loss_chunk:
         # the reference's refusal; Config refuses mlp="moe" before it here
@@ -307,7 +542,10 @@ def loss_fn(params: Dict[str, Any], tokens, cfg: Config,
         embed = params["embed"].to(cfg.dtype)
         x = _backbone(params, tokens[:, :-1], cfg, embed)
         return _chunked_ce(x, embed, targets, int(cfg.loss_chunk))
-    logits = forward(params, tokens[:, :-1], cfg, tokens.device)
+    logits = forward(params, tokens[:, :-1], cfg, tokens.device, mesh)
+    if plan is not None:
+        ce = plan.cross_entropy(logits, plan.local(targets))
+        return plan.data_sum(ce.sum() / targets.numel())
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     return (lse - gold).mean()
@@ -338,49 +576,62 @@ def greedy(params: Dict[str, Any], prompts: Sequence[Sequence[int]],
 
 def value_and_grad(params: Dict[str, Any], tokens: torch.Tensor, cfg: Config,
                    device: DeviceLike = None,
+                   mesh: Optional[DeviceMesh] = None,
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """``(loss, grads)`` of ``loss_fn`` over the f32 master leaves, the
     grads in the order of ``optim.tree_leaves(params)``; the leaves leave
-    with ``requires_grad`` off, as they came."""
+    with ``requires_grad`` off, as they came.  On a ``mesh``: the global
+    loss and the gradients of this rank's shards, summed over dp × sp."""
     dev = resolve_device(device)
+    plan = _plan(mesh, cfg)
     leaves = optim.tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
         with torch.enable_grad():
-            loss = loss_fn(params, tokens, cfg, dev)
+            loss = loss_fn(params, tokens, cfg, dev, mesh)
             grads = torch.autograd.grad(loss, leaves)
     finally:
         for p in leaves:
             p.requires_grad_(False)
+    if plan is not None:
+        plan.sync(grads)
     return loss.detach(), grads
 
 
 def make_train_step(cfg: Config, mesh: Any = None,
                     learning_rate: float = 1e-3, device: DeviceLike = None,
                     ) -> Tuple[Callable, Callable]:
-    """Returns ``(init_opt, step)``, the single-device counterpart of the
-    JAX package's ``make_train_step`` (``optax.adamw(learning_rate,
+    """Returns ``(init_opt, step)``, the counterpart of the JAX package's
+    ``make_train_step`` (``optax.adamw(learning_rate,
     mu_dtype=cfg.opt_moment_dtype)``).  ``step(params, opt_state, tokens)``
     takes value-and-grad of ``loss_fn`` over the f32 master leaves on
     ``device`` (``None`` = cuda, where ``params`` must lie) and applies
-    AdamW in place; it returns ``(params, opt_state, loss)``."""
+    AdamW in place; it returns ``(params, opt_state, loss)``.
+
+    With a ``mesh`` every rank of it calls ``step`` with its
+    ``shard_params`` shards and the whole (batch, seq + 1) batch, and gets
+    the global mean loss; the gradients sum over dp × sp
+    (``grad_sync="native"``) and AdamW, elementwise, runs on each rank's
+    shards.  Making the step is collective (the dp × sp group)."""
     if cfg.grad_sync not in _GRAD_SYNC:
         raise ValueError(f"unknown grad_sync {cfg.grad_sync!r} "
                          f"(expected one of {_GRAD_SYNC})")
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step on a mesh comes with ROADMAP slice P6")
-    if cfg.grad_sync != "native":
+    if mesh is None and cfg.grad_sync != "native":
         raise ValueError(f"grad_sync={cfg.grad_sync!r} requires a mesh "
                          "(single-controller has no dp axis to sync)")
+    if mesh is not None and cfg.grad_sync != "native":
+        slice_ = "P8" if cfg.grad_sync == "quant" else "P9"
+        raise NotImplementedError(f"grad_sync={cfg.grad_sync!r} on a mesh "
+                                  f"comes with ROADMAP slice {slice_}")
+    _plan(mesh, cfg)
     dev = resolve_device(device)
 
     def init_opt(params):
         return optim.adamw_init(params, cfg.opt_moment_dtype)
 
     def step(params, opt_state, tokens):
-        loss, grads = value_and_grad(params, tokens, cfg, dev)
+        loss, grads = value_and_grad(params, tokens, cfg, dev, mesh)
         optim.adamw_update(params, list(grads), opt_state, learning_rate)
         return params, opt_state, loss
 

@@ -11,7 +11,9 @@ index maps) is PyTorch.
 Two levels, as in the reference:
   * free functions (``psum``, ``all_gather_axis``, ``ppermute``, ...) on
     this process's tensor, over a process group or a mesh axis — where the
-    reference names an axis inside ``shard_map``;
+    reference names an axis inside ``shard_map``; ``ring_hop``,
+    ``reduce_from`` and ``copy_to`` are the differentiable ones the mesh
+    train step needs (a ring hop, Megatron's *g* and *f*);
   * ``DeviceComm`` — MPI-shaped collectives over one mesh axis.
 
 Layout of DeviceComm.  The reference holds one global (R, *elem) array,
@@ -292,6 +294,81 @@ def pbcast(x: torch.Tensor, axis, root: int = 0, mesh=None) -> torch.Tensor:
     dist.broadcast(_wire(out), src=dist.get_global_rank(group, int(root)),
                    group=group)
     return out
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives: the transposes lax gives the reference for
+# free, written out for the mesh train step.  Each takes the trivial path
+# (no collective) on a group of one member.
+# ---------------------------------------------------------------------------
+
+
+def _ring_perm(n: int, shift: int):
+    return [(i, (i + shift) % n) for i in range(n)]
+
+
+class _RingHop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return ppermute(x, group, _ring_perm(dist.get_world_size(group), 1))
+
+    @staticmethod
+    def backward(ctx, g):
+        # the inverse permutation carries each cotangent home
+        n = dist.get_world_size(ctx.group)
+        return ppermute(g, ctx.group, _ring_perm(n, -1)), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return psum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.group), None
+
+
+def ring_hop(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
+    """Member i's tensor moves to member (i + 1) % n; the backward moves
+    each cotangent back by the inverse permutation (the transpose of
+    ``lax.ppermute``)."""
+    group = _group_of(axis, mesh)
+    if dist.get_world_size(group) == 1:
+        return x
+    return _RingHop.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
+    """Megatron's *g*: sum over the group forward, identity backward.  It
+    follows a row-parallel product (partial sums in, the replicated total
+    out) and the vocab-parallel lookup and loss terms."""
+    group = _group_of(axis, mesh)
+    if dist.get_world_size(group) == 1:
+        return x
+    return _ReduceFrom.apply(x, group)
+
+
+def copy_to(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
+    """Megatron's *f*: identity forward, sum over the group backward.  It
+    precedes a column-parallel product, whose members each send back a
+    partial cotangent of their common input."""
+    group = _group_of(axis, mesh)
+    if dist.get_world_size(group) == 1:
+        return x
+    return _CopyTo.apply(x, group)
 
 
 # ---------------------------------------------------------------------------
@@ -1075,4 +1152,5 @@ class DeviceComm:
 
 __all__ = ["DeviceComm", "psum", "pmax", "pmin", "preduce",
            "all_gather_axis", "reduce_scatter_axis", "all_to_all_axis",
-           "ppermute", "ring_shift", "pbcast"]
+           "ppermute", "ring_shift", "pbcast", "ring_hop", "reduce_from",
+           "copy_to"]

@@ -7,20 +7,26 @@ the world's ranks.  ``make_mesh`` builds a ``torch.distributed``
 group (``mesh.get_group(name)``): the group a ``DeviceComm`` on that axis
 talks over.
 
-The GSPMD shardings of the reference (``replicated``, ``sharded``,
-``shard_leading``) have no counterpart yet; they come with the flagship on
-a mesh (ROADMAP P6).
+The GSPMD sharding of the reference that ``shard_params`` uses
+(``sharded``) becomes ``Sharding``: where the reference places a global
+array and lets XLA address its blocks, each process here holds its own
+block, cut from the whole tensor (``local``) or put back together from
+every member's block (``gather``).
 """
 
 from __future__ import annotations
 
 import os
 import socket
-from typing import Dict, FrozenSet
+import weakref
+from typing import Dict, FrozenSet, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from .collectives import all_gather_axis
 
 # The simulated slow plane, read from the JAX package's variable: axis
 # names listed here classify as 'dcn' whatever the hosts say.
@@ -63,6 +69,46 @@ def axis_index_of(mesh: DeviceMesh, axis: str, rank: int) -> int:
     return int(coords[0][mesh.mesh_dim_names.index(axis)])
 
 
+def axis_size(mesh: DeviceMesh, axis: str) -> int:
+    """Members along ``axis``; 1 for an axis the mesh lacks (the reference
+    replicates over it: ``shard_params``' ``fit``)."""
+    names = mesh.mesh_dim_names
+    return int(mesh.mesh.shape[names.index(axis)]) if axis in names else 1
+
+
+def axis_rank(mesh: DeviceMesh, axis: str) -> int:
+    """This process's position along ``axis``; 0 for an axis it lacks."""
+    if axis not in mesh.mesh_dim_names:
+        return 0
+    return mesh.get_local_rank(axis)
+
+
+# One group per (mesh, axes): made collectively on first use, reused after.
+_AXES_GROUPS: "weakref.WeakKeyDictionary[DeviceMesh, dict]" = \
+    weakref.WeakKeyDictionary()
+
+
+def axes_group(mesh: DeviceMesh, axes: Sequence[str]):
+    """The process group over the product of ``axes``: the ranks that
+    differ from this one only along them.  The first call for a mesh and a
+    set of axes makes every such group of the mesh, so every rank makes
+    that call, in the same order."""
+    names = mesh.mesh_dim_names
+    key = tuple(a for a in names if a in axes)
+    groups = _AXES_GROUPS.setdefault(mesh, {})
+    if key not in groups:
+        keep = [names.index(a) for a in key]
+        rest = [i for i in range(len(names)) if i not in keep]
+        width = int(np.prod([mesh.mesh.shape[i] for i in keep]))
+        ranks = np.transpose(mesh.mesh.numpy(), rest + keep)
+        me = dist.get_rank()
+        for row in ranks.reshape(-1, width):
+            group = dist.new_group(row.tolist())
+            if me in row:
+                groups[key] = group
+    return groups[key]
+
+
 def classify_axes(mesh: DeviceMesh) -> Dict[str, str]:
     """Classify each axis as 'ici' (its ranks share a host) or 'dcn' (it
     crosses hosts), the han intra/inter split.  Every rank here is its own
@@ -86,5 +132,49 @@ def classify_axes(mesh: DeviceMesh) -> Dict[str, str]:
     return out
 
 
-__all__ = ["make_mesh", "axis_index_of", "classify_axes",
-           "sim_dcn_axes"]
+class Sharding:
+    """A tensor laid out over a mesh as ``NamedSharding(mesh, P(*spec))``
+    lays it out: dim i is cut into equal blocks over the axis ``spec[i]``
+    names (None or past the spec: whole), and this process holds the
+    block at its position on each named axis."""
+
+    def __init__(self, mesh: DeviceMesh, spec: Tuple[Optional[str], ...]):
+        for axis in spec:
+            if axis is not None and axis not in mesh.mesh_dim_names:
+                raise ValueError(f"axis {axis!r} is not one of the mesh's "
+                                 f"{mesh.mesh_dim_names}")
+        self.mesh, self.spec = mesh, tuple(spec)
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """This process's block of the whole tensor, as a tensor of its
+        own."""
+        for dim, axis in enumerate(self.spec):
+            if axis is None:
+                continue
+            n = axis_size(self.mesh, axis)
+            if full.shape[dim] % n:
+                raise ValueError(f"dim {dim} ({full.shape[dim]}) does not "
+                                 f"divide over the {n} members of {axis!r}")
+            size = full.shape[dim] // n
+            full = full.narrow(dim, axis_rank(self.mesh, axis) * size, size)
+        return full.clone(memory_format=torch.contiguous_format)
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from every member's block (collective over the
+        named axes)."""
+        for dim, axis in enumerate(self.spec):
+            if axis is None or axis_size(self.mesh, axis) == 1:
+                continue
+            moved = local.movedim(dim, 0).contiguous()
+            local = all_gather_axis(moved, axis, mesh=self.mesh).movedim(
+                0, dim)
+        return local.clone(memory_format=torch.contiguous_format)
+
+
+def sharded(mesh: DeviceMesh, *spec: Optional[str]) -> Sharding:
+    return Sharding(mesh, spec)
+
+
+__all__ = ["make_mesh", "axis_index_of", "axis_size", "axis_rank",
+           "axes_group", "classify_axes", "sim_dcn_axes", "Sharding",
+           "sharded"]

@@ -3,8 +3,9 @@
 ``Pool(world)`` spawns ``world`` processes that join one gloo world through
 the port's ``init_device_plane(device="cpu")`` and build a
 ``DeviceComm`` over a one-axis mesh; ``pool.run(name, ...)`` runs the
-function ``name`` of this module in every process (each gets the comm as
-its first argument) and returns their results in rank order.  The module
+function ``name`` of this module, or ``"module:function"`` of another
+test helper module, in every process (each gets the comm as its first
+argument) and returns their results in rank order.  The module
 imports torch, numpy and the port only, so the spawned children never
 load JAX; the pytest process that drives them has it loaded, so they are
 started with ``spawn``, never ``fork``.
@@ -12,6 +13,7 @@ started with ``spawn``, never ``fork``.
 
 from __future__ import annotations
 
+import importlib
 import os
 import shutil
 import tempfile
@@ -47,10 +49,17 @@ def _serve(rank: int, world: int, init_method: str, conn) -> None:
             break
         name, args, kwargs = msg
         try:
-            conn.send(("ok", globals()[name](dc, *args, **kwargs)))
+            conn.send(("ok", _function(name)(dc, *args, **kwargs)))
         except Exception:                     # reported to the parent
             conn.send(("err", traceback.format_exc()))
     torch.distributed.destroy_process_group()
+
+
+def _function(name: str):
+    if ":" not in name:
+        return globals()[name]
+    module, attr = name.split(":")
+    return getattr(importlib.import_module(module), attr)
 
 
 class Pool:

@@ -84,3 +84,20 @@ for call in (lambda: tfm.forward(params, [[1, 2, 3]], cfg),
 print(refused)
 """
     assert _run(code).strip() == "[True, True, True, True, True, True]"
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py, which drives the port on the card, names neither JAX
+    nor the JAX package in any import, at any depth of the script."""
+    import ast
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    assert "ompi_tpu_torch.parallel" in names
+    bad = {n for n in names
+           if n.split(".")[0] in ("jax", "jaxlib", "ompi_tpu")}
+    assert bad == set()

@@ -16,11 +16,15 @@ differ in the last f32 bit and one flipped bf16 rounding moves an update
 by up to 2^-8 of it.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ompi_tpu.models import transformer as jax_tfm
 from ompi_tpu_torch import optim
@@ -141,11 +145,20 @@ def test_greedy_stream_matches_jax(weights):
 
 
 @pytest.mark.parametrize("field,value,slice_", [
-    ("attn", "ring", "P5"), ("mlp", "moe", "P12"),
-    ("tp_overlap", "fused", "P9")])
+    ("mlp", "moe", "P12"), ("tp_overlap", "fused", "P9")])
 def test_unported_options_refuse(field, value, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         tfm.Config(**{field: value})
+
+
+def test_ring_without_a_mesh_is_dense(weights):
+    """attn="ring" with no mesh falls through to attention_reference, as
+    the reference's _attn_apply does."""
+    _, params = weights
+    tokens = _tokens((2, KW["seq"]), seed=6)
+    ring = tfm.forward(params, tokens, _configs("ring")[1], device="cpu")
+    dense = tfm.forward(params, tokens, _configs("dense")[1], device="cpu")
+    assert torch.equal(ring, dense)
 
 
 def test_params_on_another_device_refused(weights):
@@ -328,5 +341,30 @@ def test_train_step_refusals():
             tfm.make_train_step(tfm.Config(grad_sync=mode), device="cpu")
     with pytest.raises(ValueError, match="unknown grad_sync"):
         tfm.make_train_step(tfm.Config(grad_sync="ring"), device="cpu")
-    with pytest.raises(NotImplementedError, match="P6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tfm.make_train_step(cfg, mesh=object(), device="cpu")
+    # the refusals on a mesh, in a gloo world of one (this process)
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.HashStore())
+    try:
+        mesh = init_device_mesh("cpu", (1, 1, 1),
+                                mesh_dim_names=("dp", "sp", "tp"))
+        on_mesh = lambda **kw: tfm.make_train_step(
+            dataclasses.replace(cfg, **kw), mesh, device="cpu")
+        with pytest.raises(NotImplementedError, match="P8"):
+            on_mesh(grad_sync="quant")
+        for mode in ("perleaf", "bucketed", "unsynced"):
+            with pytest.raises(NotImplementedError, match="P9"):
+                on_mesh(grad_sync=mode)
+        with pytest.raises(ValueError, match="loss_chunk"):
+            on_mesh(loss_chunk=8)
+        # sp = 2: the mesh's layout only, no process group behind it
+        sp2 = DeviceMesh("cpu", torch.arange(2).reshape(1, 2, 1),
+                         mesh_dim_names=("dp", "sp", "tp"),
+                         _init_backend=False)
+        for attn in ("flash", "dense"):
+            with pytest.raises(NotImplementedError, match="sp=2"):
+                tfm.make_train_step(dataclasses.replace(cfg, attn=attn),
+                                    sp2, device="cpu")
+    finally:
+        dist.destroy_process_group()
