@@ -73,9 +73,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                launches per step exactly 0/0/0/0 (ring) and 12/6/6/0
                (flash); step ms, tokens/s and MFU beside the mesh-free
                step's.
-The last lines are the collectives, mesh and kernels JSON objects, the
-nvidia-smi line and {"ok": true, "device": {...}}.  Without CUDA it exits
-1 and prints no result.
+ 11. mpi     — the MPI surface under the port's launcher (a subprocess,
+               the rank program written to a temporary file): (a) tpurun
+               -np 1 runs runtime.init(), init_device_plane(ctx) (NCCL),
+               make_mesh and attach_mesh, checks that coll/nccl serves
+               every ported entry, holds comm.coll's allreduce (f32, bf16),
+               bcast, allgather, reduce_scatter_block (f32, bf16),
+               alltoall, allgatherv and alltoallv on R = 8 rows to numpy
+               (phase 9's tolerances, each rejecting one planted wrong
+               row) with exactly one native arm count a call and no
+               staging, the forced staged arm (same result, R·b bytes
+               staged out), a numpy buffer on the host path and a forced
+               quant refused naming P8; then times comm.coll.allreduce
+               beside DeviceComm.allreduce, the staged arm and the HBM
+               bound at bench.py's sizes (mpi_numbers lines); (b) tpurun
+               -np 4 runs the ring program of examples/ring.py on the
+               host plane (tcp): "done: 10 laps", then the µs a hop.
+The last lines are the collectives, mesh, mpi and kernels JSON objects,
+the nvidia-smi line and {"ok": true, "device": {...}}.  Without CUDA it
+exits 1 and prints no result.
 
     python3 chip_smoke.py --multi-card
 
@@ -85,7 +101,11 @@ flagship's mesh train step, attn="ring", at full width at (dp, sp, tp) =
 (1, 2, 2) and (2, 2, 1), its gathered gradients and losses held to the
 one-card step from the same weights and tokens as in 10b (planted faults:
 the gradient sum over dp × sp skipped, the last hop dropped), and its
-step ms, tokens/s and MFU beside that step's.
+step ms, tokens/s and MFU beside that step's; then phase 11 across the
+cards: tpurun -np 4 --gpus-per-rank 1, one rank bound to each card with
+one row (R = 4), the 11a checks, comm.coll's allreduce, bcast, allgather
+and alltoall beside DeviceComm's, and coll/tuned's host allreduce of the
+same bytes up to 4 MB.
 """
 
 from __future__ import annotations
@@ -1790,6 +1810,347 @@ def mesh_multi_card(torch, np, tfm, optim, world: int, card: str,
     return rows
 
 
+# -- 11. the MPI surface: runtime, comm and coll/nccl under tpurun ----------
+
+# the entries coll/nccl serves (every one must be its provider)
+MPI_ENTRIES = ("allreduce", "reduce", "bcast", "allgather", "alltoall",
+               "reduce_scatter_block", "scan", "exscan", "barrier",
+               "allgatherv", "gather", "gatherv", "scatter", "scatterv",
+               "alltoallv", "reduce_scatter")
+# coll/tuned's host allreduce is timed up to 4 MB a rank (f32 counts)
+HOST_SIZES = [2, 256, 16 * 1024, 262_144, 1 << 20]
+RING_LAPS = 200          # the timed ring, after the example's 10 laps
+
+
+def mpi_cases(torch, np, comm, dc, R: int, lo: int, hi: int):
+    """(entry, run, want, rtol) for comm.coll on this process's rows
+    [lo, hi) of R: run() gives the local result as numpy (bf16 as f32),
+    want the MPI result's same rows from numpy; rtol None = bitwise."""
+    rng = np.random.default_rng(0)
+    ints = lambda *s: rng.integers(-8, 9, s).astype(np.float32)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(
+        dc.device)
+    host = lambda t: (t.float() if t.dtype == torch.bfloat16 else t
+                      ).cpu().numpy()
+    rep = lambda row: np.broadcast_to(row, (R,) + row.shape)[lo:hi]
+    bf16 = lambda a: dev(a).to(torch.bfloat16)
+    cc, cases = comm.coll, []
+    add = lambda name, run, want, rtol=None: cases.append(
+        (name, run, want, rtol))
+    x = ints(R, 64)
+    add("allreduce f32", lambda: host(cc.allreduce(comm, dev(x))),
+        rep(x.sum(0)), COLL_RTOL["float32"])
+    add("allreduce bf16", lambda: host(cc.allreduce(comm, bf16(x))),
+        rep(x.sum(0)), COLL_RTOL["bfloat16"])
+    root = R - 1
+    add("bcast", lambda: host(cc.bcast(comm, dev(x), root=root)),
+        rep(x[root]))
+    x3 = ints(R, 4, 2)
+    add("allgather", lambda: host(cc.allgather(comm, dev(x3))),
+        rep(x3.reshape(R * 4, 2)))
+    xs = ints(R, R * 6)
+    add("reduce_scatter_block f32",
+        lambda: host(cc.reduce_scatter_block(comm, dev(xs))),
+        xs.sum(0).reshape(R, 6)[lo:hi], COLL_RTOL["float32"])
+    add("reduce_scatter_block bf16",
+        lambda: host(cc.reduce_scatter_block(comm, bf16(xs))),
+        xs.sum(0).reshape(R, 6)[lo:hi], COLL_RTOL["bfloat16"])
+    xa = ints(R, R, 3)
+    add("alltoall", lambda: host(cc.alltoall(comm, dev(xa))),
+        np.swapaxes(xa, 0, 1)[lo:hi])
+    counts = [int(c) for c in rng.integers(1, 6, R)]
+    cap = dc._bucket(max(counts))
+    padded = np.zeros((R, cap), np.float32)
+    for i, c in enumerate(counts):
+        padded[i, :c] = ints(c)
+    cat = np.concatenate([padded[i, :c] for i, c in enumerate(counts)])
+    add("allgatherv", lambda: host(cc.allgatherv(comm, dev(padded),
+                                                 counts=counts)), rep(cat))
+    C = rng.integers(0, 4, (R, R))
+    dense = ints(R, int(C.sum(1).max()) + 1)
+    out_cap = dc._bucket(max(1, int(C.sum(0).max())))
+    # destination j receives, source by source, source i's C[i, j] values
+    # that follow what i sends to destinations before j
+    end = np.cumsum(C, axis=1)
+    recv = np.zeros((R, out_cap), np.float32)
+    for j in range(R):
+        got = np.concatenate([dense[i, end[i, j] - C[i, j]:end[i, j]]
+                              for i in range(R)])
+        recv[j, :got.size] = got
+    add("alltoallv", lambda: host(cc.alltoallv(comm, dev(dense), None, C,
+                                               C.sum(0))), recv[lo:hi])
+    return cases, x, dev, host
+
+
+def mpi_rank(torch, np, r_per: int, timed, host_timed: bool) -> None:
+    """One rank of phase 11's device program (under the port's tpurun):
+    runtime.init(), init_device_plane(ctx) on NCCL, attach_mesh, then
+    comm.coll on CUDA tensors — coll/nccl's checks and its times beside
+    DeviceComm's.  Every rank checks; rank 0 prints."""
+    from ompi_tpu_torch import runtime
+    from ompi_tpu_torch.core import var
+    from ompi_tpu_torch.parallel import (attach_mesh, init_device_plane,
+                                         make_mesh)
+    import os
+    ctx = runtime.init()
+    out = log if ctx.rank == 0 else (lambda obj: None)
+    dev0 = init_device_plane(ctx)
+    # NCCL on the card; gloo only when the launcher asked for the CPU
+    # plane (a rehearsal on a machine without a card)
+    want = (("cpu", "gloo") if os.environ.get("OMPI_TPU_DEVICE_PLANE")
+            == "cpu" else ("cuda", "nccl"))
+    if (dev0.type, torch.distributed.get_backend()) != want:
+        raise AssertionError(f"device plane on {dev0}, "
+                             f"{torch.distributed.get_backend()}")
+    comm = ctx.comm_world
+    attach_mesh(comm, make_mesh({"x": ctx.size}), "x")
+    dc = comm.device_comm
+    providers = {e: comm.coll.provider(e) for e in MPI_ENTRIES}
+    if set(providers.values()) != {"nccl"}:
+        raise AssertionError(f"providers {providers}")
+    R, lo, hi = r_per * ctx.size, ctx.rank * r_per, (ctx.rank + 1) * r_per
+    spc = ctx.spc._v
+    arm = lambda: (spc.get("coll_arm_native_count", 0),
+                   spc.get("coll_arm_staged_count", 0),
+                   spc.get("device_stage_out_bytes", 0))
+    cases, x, dev, host = mpi_cases(torch, np, comm, dc, R, lo, hi)
+    checked = []
+    for name, run, want, rtol in cases:
+        before = arm()
+        got = run()
+        after = arm()
+        ok = coll_agree(np, got, want, rtol)
+        bad = got.copy()
+        last = bad.reshape(bad.shape[0], -1)[-1]
+        last[:] = last * 1.1 + 1                   # one row 10% and 1 off
+        planted = coll_agree(np, bad, want, rtol)
+        err = float(np.abs(got.astype(np.float64) - want).max())
+        delta = [a - b for a, b in zip(after, before)]
+        # one native call, nothing staged; only the CPU plane's own
+        # default (the JAX package's) stages a dense alltoall
+        want_delta = [1, 0, 0]
+        if dc.device.type == "cpu" and name == "alltoall":
+            want_delta = [0, 1, int(want.nbytes)]
+        out({"phase": "mpi_check", "entry": name, "rows": [lo, hi, R],
+             "rtol": rtol, "max_abs_err": err, "planted_row_passes": planted,
+             "native_staged_stageout_delta": delta,
+             "ok": ok and not planted and delta == want_delta})
+        if not ok or planted:
+            raise AssertionError(f"comm.coll {name}: ok={ok}, a planted "
+                                 f"wrong row passes={planted} (err {err})")
+        if delta != want_delta:
+            raise AssertionError(f"comm.coll {name}: arm counts moved by "
+                                 f"{delta}, want {want_delta} (native, "
+                                 f"staged, bytes staged out)")
+        checked.append(name)
+    # the staged arm, forced: the same result, this process's rows counted
+    var.registry.set_override("coll_nccl_allreduce_mode", "staged")
+    before = arm()
+    got = host(comm.coll.allreduce(comm, dev(x)))
+    staged_delta = [a - b for a, b in zip(arm(), before)]
+    var.registry.set_override("coll_nccl_allreduce_mode", "")
+    want = np.broadcast_to(x.sum(0), x.shape)[lo:hi]
+    if not coll_agree(np, got, want, COLL_RTOL["float32"]) or \
+            staged_delta != [0, 1, (hi - lo) * x[0].nbytes]:
+        raise AssertionError(f"forced staged allreduce: counts "
+                             f"{staged_delta}")
+    out({"phase": "mpi_check", "entry": "allreduce forced staged",
+         "native_staged_stageout_delta": staged_delta, "ok": True})
+    # a numpy buffer on the same communicator: the host algorithms
+    before = arm()
+    got = comm.coll.allreduce(comm, np.full(16, ctx.rank + 1.0, np.float32))
+    if arm() != before or not np.all(got == ctx.size * (ctx.size + 1) / 2):
+        raise AssertionError("a numpy buffer did not take the host path")
+    out({"phase": "mpi_check", "entry": "allreduce numpy (host path)",
+         "provider": "tuned", "ok": True})
+    # an arm the port lacks is refused by name
+    var.registry.set_override("coll_nccl_allreduce_mode", "quant")
+    try:
+        comm.coll.allreduce(comm, dev(x))
+        raise AssertionError("a forced quant arm ran")
+    except NotImplementedError as exc:
+        if "P8" not in str(exc):
+            raise
+        out({"phase": "mpi_check", "entry": "allreduce forced quant",
+             "refused": str(exc), "ok": True})
+    var.registry.set_override("coll_nccl_allreduce_mode", "")
+    comm.barrier()
+
+    # times: comm.coll beside DeviceComm called directly, the staged arm,
+    # the HBM bound; bench.py's sizes
+    card = card_line()
+    rows = []
+    rng = np.random.default_rng(1)
+    for count in COLL_SIZES:
+        nbytes, big = count * 4, count * 4 >= 1 << 24
+        t = torch.from_numpy(rng.standard_normal(
+            (r_per, count), dtype=np.float32)).to(dc.device)
+        for coll in timed:
+            if coll == "alltoall" and count % R:
+                continue
+            arg = t.reshape(r_per, R, count // R) if coll == "alltoall" \
+                else t
+            comp = getattr(comm.coll, coll)
+            direct = {"allreduce": dc.allreduce, "bcast": dc.bcast,
+                      "allgather": dc.allgather,
+                      "alltoall": dc.alltoall}[coll]
+            kw = dict(n=10 if big else 20, warmup=10, reps=KERNEL_REPS)
+            comm_ms = median_ms(lambda: comp(comm, arg), **kw)
+            dc_ms = median_ms(lambda: direct(arg), **kw)
+            staged_ms = None
+            if coll == "allreduce":
+                var.registry.set_override("coll_nccl_allreduce_mode",
+                                          "staged")
+                staged_ms = median_ms(lambda: comp(comm, arg),
+                                      n=1 if big else 3,
+                                      warmup=0 if big else 1)
+                var.registry.set_override("coll_nccl_allreduce_mode", "")
+            bound_b = coll_bytes(coll, R, ctx.size, nbytes, count, 0)
+            hbm_ms = bound_b / PEAK_BYTES * 1e3
+            # across cards the data crosses NVLink, which has no bound
+            # here yet: the HBM time is given as such, and bound_ms only
+            # on one card, where HBM is the limit
+            row = {"phase": "mpi_numbers", "collective": coll,
+                   "bytes_per_rank": nbytes, "ranks": R, "cards": ctx.size,
+                   "comm_coll_ms": comm_ms, "device_comm_ms": dc_ms,
+                   "dispatch_ratio": comm_ms / dc_ms,
+                   "staged_ms": staged_ms, "bound_bytes": bound_b,
+                   "hbm_only_bound_ms": hbm_ms,
+                   "bound_ms": hbm_ms if ctx.size == 1 else None,
+                   "card": card}
+            out(row)
+            rows.append(row)
+        del t
+        torch.cuda.empty_cache()
+    host_rows = []
+    if host_timed:
+        # coll/tuned's host allreduce of the same bytes (host clock)
+        for count in HOST_SIZES:
+            h = rng.standard_normal(count).astype(np.float32)
+            comm.barrier()
+            times = []
+            for i in range(12):
+                t0 = time.perf_counter()
+                comm.coll.allreduce(comm, h)
+                if i >= 2:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            row = {"phase": "mpi_numbers", "collective": "allreduce",
+                   "arm": "tuned (host, tcp)", "bytes_per_rank": count * 4,
+                   "ranks": ctx.size, "host_ms": statistics.median(times),
+                   "card": card}
+            out(row)
+            host_rows.append(row)
+    comm.barrier()
+    out({"mpi_rank0": {"ranks": R, "processes": ctx.size,
+                       "providers": sorted(set(providers.values())),
+                       "checked": checked, "staged_delta": staged_delta,
+                       "numbers": rows, "host_numbers": host_rows}})
+    torch.distributed.destroy_process_group()
+    runtime.finalize()
+
+
+def ring_rank(np, laps: int) -> None:
+    """The ring program of examples/ring.py on the port (host p2p, tcp),
+    then ``laps`` more laps timed for the µs a hop."""
+    from ompi_tpu_torch import runtime
+    ctx = runtime.init()
+    me, n = ctx.rank, ctx.size
+    nxt, prv = (me + 1) % n, (me - 1) % n
+    for total in (10, laps):
+        buf = np.zeros(1, np.int32)
+        t0 = time.perf_counter()
+        if me == 0:
+            buf[0] = total
+            ctx.p2p.send(buf, dst=nxt, tag=201)
+        while True:
+            ctx.p2p.recv(buf, src=prv, tag=201)
+            if me == 0:
+                buf[0] -= 1
+            ctx.p2p.send(buf, dst=nxt, tag=201)
+            if buf[0] == 0:
+                break
+        if me == 0:
+            ctx.p2p.recv(buf, src=prv, tag=201)
+            dt = time.perf_counter() - t0
+            print(f"rank 0 done: {total} laps x {n} hops in "
+                  f"{dt * 1e3:.2f} ms ({dt * 1e6 / (total * n):.1f} us/hop)",
+                  flush=True)
+            if total == laps:
+                log({"phase": "mpi_ring", "ranks": n, "laps": laps,
+                     "us_per_hop": dt * 1e6 / (laps * n)})
+    runtime.finalize()
+
+
+RANK_SCRIPT = """import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+sys.exit(chip_smoke.rank_main(sys.argv[1:]))
+"""
+
+
+def rank_main(argv) -> int:
+    """Entry of phase 11's rank programs: ``device R_PER TIMED HOST`` or
+    ``ring LAPS``."""
+    import numpy as np
+    if argv[0] == "ring":
+        ring_rank(np, int(argv[1]))
+        return 0
+    import torch
+    mpi_rank(torch, np, int(argv[1]), argv[2].split(","), argv[3] == "1")
+    return 0
+
+
+def tpurun(np_: int, args, extra=(), timeout: int = 900) -> list:
+    """Run this file's rank program under the port's tpurun (the script
+    written to a temporary file); pass its lines through and return them.
+    A failed rank fails the phase."""
+    import os
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        script = os.path.join(tmp, "rank.py")
+        with open(script, "w") as fh:
+            fh.write(RANK_SCRIPT.format(root=root))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        r = subprocess.run(
+            [sys.executable, "-m", "ompi_tpu_torch.tools.tpurun", "-np",
+             str(np_), "--timeout", str(timeout - 30), *extra, script,
+             *args], env=env, capture_output=True, text=True,
+            timeout=timeout, cwd=root)
+    lines = r.stdout.splitlines()
+    for line in lines:
+        print(line, flush=True)
+    if r.returncode != 0:
+        print(r.stderr[-4000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"tpurun -np {np_} {' '.join(args)}: exit "
+                             f"{r.returncode}")
+    return lines
+
+
+def last_json(lines, key: str):
+    for line in reversed(lines):
+        if line.startswith("{") and key in line:
+            return json.loads(line)[key]
+    raise AssertionError(f"no {key!r} line")
+
+
+def mpi_phase(r_per: int, np_: int, timed, host_timed: bool,
+              extra=()) -> dict:
+    """Phase 11: the device program under tpurun, then (one card) the
+    ring program on the host plane."""
+    lines = tpurun(np_, ["device", str(r_per), ",".join(timed),
+                         "1" if host_timed else "0"], extra)
+    row = {"device": last_json(lines, "mpi_rank0")}
+    if np_ == 1:
+        lines = tpurun(4, ["ring", str(RING_LAPS)])
+        if not any("done: 10 laps" in line for line in lines):
+            raise AssertionError("the ring did not finish its 10 laps")
+        row["ring"] = next(json.loads(line) for line in lines
+                           if line.startswith("{") and "mpi_ring" in line)
+    return row
+
+
 def multi_card_worker(rank: int, world: int, init_method: str,
                       card: str) -> None:
     """One rank of the multi-card run: an NCCL world of ``world``
@@ -1845,6 +2206,10 @@ def multi_card_main() -> int:
         init = "file://" + os.path.join(tmp, "store")
         mp.spawn(multi_card_worker, args=(world, init, card),
                  nprocs=world)
+    # 11. the MPI surface across the cards, one rank bound to each
+    log({"mpi": mpi_phase(1, world, ["allreduce", "bcast", "allgather",
+                                     "alltoall"], True,
+                          extra=("--gpus-per-rank", "1"))})
     log(card)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
@@ -2119,6 +2484,10 @@ def main() -> int:
     del pristine, train_tokens
     torch.cuda.empty_cache()
 
+    # 11. the MPI surface under the port's tpurun: the device program on
+    # this card, R = 8 rows in one rank; the ring on the host plane
+    mpi_row = mpi_phase(COLL_ROWS, 1, ["allreduce"], False)
+
     # K2: q, k, v, dO, lse, delta in; dk, dv out; 4 causal products
     k2_flops, k3_flops = 8 * d * pairs, 6 * d * pairs
     k2_bound, k2_by = bound(k2_flops, 6 * tile + 2 * vec)
@@ -2143,6 +2512,7 @@ def main() -> int:
 
     log({"collectives": coll_rows})
     log({"mesh": mesh_rows})
+    log({"mpi": mpi_row})
     log({"kernels": [
         {"name": "flash_partials", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_partials.cu",
@@ -2193,7 +2563,7 @@ if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multi-card", action="store_true",
-                    help="run only phases 9 and 10c, across every visible "
-                         "card")
+                    help="run only phases 9, 10c and 11, across every "
+                         "visible card")
     ns = ap.parse_args()
     sys.exit(multi_card_main() if ns.multi_card else main())

@@ -10,6 +10,12 @@ bitwise reduction.  ``dist_op`` takes the place of the JAX package's
 
 MAXLOC and MINLOC fold (value, index) pairs given as tuples of tensors;
 torch has no structured dtype for them.
+
+``host_fn`` is the same fold on numpy arrays, the body of the JAX package's
+``op.py``: the host collective algorithms (coll/basic, coll/tuned) fold
+numpy buffers through ``Op.host``, where MAXLOC and MINLOC pairs are
+structured arrays of ``loc_dtype``.  A user op (``Op.create``) has one
+``fn``, used on whatever buffers it is given.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -27,9 +34,14 @@ class Op:
     fn: Callable[[Any, Any], Any]        # (in, inout) → result
     commutative: bool = True
     dist_op: Optional[Any] = None        # torch.distributed.ReduceOp
+    host_fn: Optional[Callable[[Any, Any], Any]] = None   # numpy body
 
     def __call__(self, invec, inoutvec):
         return self.fn(invec, inoutvec)
+
+    def host(self, invec: np.ndarray, inoutvec: np.ndarray) -> np.ndarray:
+        """The fold on numpy buffers (the host algorithms' entry)."""
+        return (self.host_fn or self.fn)(invec, inoutvec)
 
     @staticmethod
     def create(fn: Callable[[Any, Any], Any], commutative: bool = True,
@@ -41,16 +53,27 @@ def _logical(tfn):
     return lambda a, b: tfn(a.bool(), b.bool()).to(a.dtype)
 
 
+def _np_logical(npfn):
+    return lambda a, b: npfn(a.astype(bool), b.astype(bool)).astype(a.dtype)
+
+
 SUM = Op("sum", lambda a, b: b + a, dist_op=dist.ReduceOp.SUM)
 PROD = Op("prod", lambda a, b: b * a, dist_op=dist.ReduceOp.PRODUCT)
-MAX = Op("max", torch.maximum, dist_op=dist.ReduceOp.MAX)
-MIN = Op("min", torch.minimum, dist_op=dist.ReduceOp.MIN)
-LAND = Op("land", _logical(torch.logical_and))
-LOR = Op("lor", _logical(torch.logical_or))
-LXOR = Op("lxor", _logical(torch.logical_xor))
-BAND = Op("band", torch.bitwise_and)
-BOR = Op("bor", torch.bitwise_or)
-BXOR = Op("bxor", torch.bitwise_xor)
+MAX = Op("max", torch.maximum, dist_op=dist.ReduceOp.MAX,
+         host_fn=lambda a, b: np.maximum(a, b))
+MIN = Op("min", torch.minimum, dist_op=dist.ReduceOp.MIN,
+         host_fn=lambda a, b: np.minimum(a, b))
+LAND = Op("land", _logical(torch.logical_and),
+          host_fn=_np_logical(np.logical_and))
+LOR = Op("lor", _logical(torch.logical_or),
+         host_fn=_np_logical(np.logical_or))
+LXOR = Op("lxor", _logical(torch.logical_xor),
+          host_fn=_np_logical(np.logical_xor))
+BAND = Op("band", torch.bitwise_and,
+          host_fn=lambda a, b: np.bitwise_and(a, b))
+BOR = Op("bor", torch.bitwise_or, host_fn=lambda a, b: np.bitwise_or(a, b))
+BXOR = Op("bxor", torch.bitwise_xor,
+          host_fn=lambda a, b: np.bitwise_xor(a, b))
 REPLACE = Op("replace", lambda a, b: a)        # MPI_REPLACE (for one-sided)
 NO_OP = Op("no_op", lambda a, b: b)            # MPI_NO_OP  (for one-sided)
 
@@ -63,8 +86,19 @@ def _loc(better):
     return fold
 
 
-MAXLOC = Op("maxloc", _loc(torch.gt))
-MINLOC = Op("minloc", _loc(torch.lt))
+def _np_maxloc(a, b):
+    # value/index pairs as structured arrays with fields 'v' and 'i'
+    take_a = (a["v"] > b["v"]) | ((a["v"] == b["v"]) & (a["i"] < b["i"]))
+    return np.where(take_a, a, b)
+
+
+def _np_minloc(a, b):
+    take_a = (a["v"] < b["v"]) | ((a["v"] == b["v"]) & (a["i"] < b["i"]))
+    return np.where(take_a, a, b)
+
+
+MAXLOC = Op("maxloc", _loc(torch.gt), host_fn=_np_maxloc)
+MINLOC = Op("minloc", _loc(torch.lt), host_fn=_np_minloc)
 
 
 def _avg_pairwise(a, b):
@@ -78,11 +112,23 @@ def _avg_pairwise(a, b):
 AVG = Op("avg", _avg_pairwise)
 
 
+def loc_dtype(value_dtype) -> np.dtype:
+    """Structured dtype for MAXLOC/MINLOC pairs on the host
+    (≙ MPI_DOUBLE_INT etc.)."""
+    return np.dtype([("v", np.dtype(value_dtype)), ("i", np.int64)])
+
+
 def reduce_local(op: Op, invec: torch.Tensor, inoutvec: torch.Tensor) -> None:
     """In place, inoutvec = op(invec, inoutvec) (MPI_Reduce_local)."""
     inoutvec.copy_(op(invec, inoutvec))
 
 
+def reduce_local_host(op: Op, invec: np.ndarray,
+                      inoutvec: np.ndarray) -> None:
+    """``reduce_local`` on numpy buffers, through the op's host body."""
+    np.copyto(inoutvec, op.host(invec, inoutvec))
+
+
 __all__ = ["Op", "SUM", "PROD", "MAX", "MIN", "LAND", "LOR", "LXOR", "BAND",
            "BOR", "BXOR", "REPLACE", "NO_OP", "MAXLOC", "MINLOC", "AVG",
-           "reduce_local"]
+           "loc_dtype", "reduce_local", "reduce_local_host"]

@@ -109,7 +109,8 @@ def axes_group(mesh: DeviceMesh, axes: Sequence[str]):
     return groups[key]
 
 
-def classify_axes(mesh: DeviceMesh) -> Dict[str, str]:
+def classify_axes(mesh: DeviceMesh,
+                  axis: Optional[str] = None) -> Dict[str, str]:
     """Classify each axis as 'ici' (its ranks share a host) or 'dcn' (it
     crosses hosts), the han intra/inter split.  Every rank here is its own
     process, so the reference's test, whether an axis crosses a process,
@@ -117,13 +118,23 @@ def classify_axes(mesh: DeviceMesh) -> Dict[str, str]:
     all-gather of every rank's host name.  An axis is 'dcn' when moving
     along it changes the host on ANY line of the mesh.  The
     ``OMPI_TPU_topo_sim_dcn_axes`` override names simulated slow axes.
-    Collective: every rank of the world calls it."""
+    Collective: every rank of the world calls it.
+
+    With ``axis``, only that axis is classified, from a gather over its
+    own group (this rank's line of it): the form ``attach_mesh`` uses,
+    where only the communicator's ranks take part."""
+    sim = sim_dcn_axes()
+    if axis is not None:
+        group = mesh.get_group(axis)
+        hosts = [None] * dist.get_world_size(group)
+        dist.all_gather_object(hosts, socket.gethostname(), group=group)
+        crosses = axis in sim or len(set(hosts)) > 1
+        return {axis: "dcn" if crosses else "ici"}
     hosts = [None] * dist.get_world_size()
     dist.all_gather_object(hosts, socket.gethostname())
     ids = {h: i for i, h in enumerate(dict.fromkeys(hosts))}
     ranks = mesh.mesh.numpy()
     host_of = np.vectorize(lambda r: ids[hosts[r]])(ranks)
-    sim = sim_dcn_axes()
     out = {}
     for i, name in enumerate(mesh.mesh_dim_names):
         moved = np.moveaxis(host_of, i, 0)

@@ -1,0 +1,75 @@
+"""Software performance counters (SPC).
+
+≙ ompi/runtime/ompi_spc.c (≈100 counters exported as MPI_T pvars, dumped at
+finalize). One Counters instance per Context; the p2p engine and coll
+framework increment them; ``dump()`` prints at finalize when
+``spc_dump_enabled`` is set.
+
+The port's copy of ``ompi_tpu/spc.py``: ``Counters`` and the counters the
+MPI surface and the device component feed.  The reads of the later planes
+(trace, health, perf, traffic, numerics, reshard, elastic, MoE, policy,
+serving, history) come with their slices (ROADMAP P16), as do the MPI_T
+and Prometheus export and the per-peer monitoring matrices.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from .core import var as _var
+
+_var.register("spc", "", "dump_enabled", False, type=bool, level=3,
+              help="Print the SPC counter table at finalize "
+                   "(≙ mpi_spc_dump_enabled).")
+
+COUNTERS = [
+    ("sends", "point-to-point sends posted"),
+    ("isends", "nonblocking sends posted"),
+    ("recvs", "receives posted"),
+    ("bytes_sent", "payload bytes sent"),
+    ("bytes_recvd", "payload bytes received"),
+    ("eager_sends", "sends using the eager protocol"),
+    ("rndv_sends", "sends using the rendezvous protocol"),
+    ("matches_posted", "messages matched against posted receives"),
+    ("matches_unexpected", "messages matched from the unexpected queue"),
+    ("unexpected_arrivals", "frames arriving with no posted receive"),
+    ("probes", "probe/iprobe calls"),
+    ("collectives", "collective operations started"),
+    ("device_stage_out_bytes", "device bytes staged to the host (D2H)"),
+    ("device_stage_in_bytes", "host bytes staged onto the device (H2D)"),
+    ("coll_staged_fallbacks", "device collectives run on the staged arm"),
+    ("barriers", "barrier operations"),
+    ("comm_splits", "communicators created by split/dup"),
+    ("progress_polls", "progress engine passes"),
+    ("time_in_wait", "seconds spent waiting for completions"),
+    # decision-audit pvars (fed by the coll/nccl audit)
+    ("coll_arm_native_count", "device collectives decided onto the native arm"),
+    ("coll_arm_staged_count", "device collectives decided onto the staged arm"),
+    ("coll_arm_quant_count", "device collectives decided onto the quant arm"),
+    ("coll_wire_bytes", "modeled per-rank wire bytes for device collectives"),
+]
+
+
+class Counters:
+    def __init__(self) -> None:
+        self._v: Dict[str, float] = {name: 0 for name, _ in COUNTERS}
+
+    def inc(self, name: str, delta: float = 1) -> None:
+        self._v[name] = self._v.get(name, 0) + delta
+
+    def get(self, name: str) -> float:
+        return self._v.get(name, 0)
+
+    def snapshot(self) -> Dict[str, float]:
+        return dict(self._v)
+
+    def dump(self, rank: int) -> str:
+        lines = [f"SPC counters (rank {rank}):"]
+        for name, help_ in COUNTERS:
+            val = self._v.get(name, 0)
+            if val:
+                lines.append(f"  {name:24s} {val:>14.6g}  {help_}")
+        text = "\n".join(lines)
+        print(text, flush=True)
+        return text
+

@@ -1,7 +1,9 @@
 """Process topologies (the port's copy of the descriptors of
 ``ompi_tpu/topo.py``): what the device neighbourhood collectives read —
 dims, periods and neighbour lists.  The communicator-level constructors
-(``cart_create`` and the rest) come with the MPI surface, ROADMAP P7."""
+(``cart_create`` and the rest) are not ported yet: the MPI surface came
+without them, and coll/nccl's neighbourhood entries refuse device tensors
+until they come (ROADMAP P7, what waits)."""
 
 from __future__ import annotations
 
