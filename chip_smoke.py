@@ -89,7 +89,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                bound at bench.py's sizes (mpi_numbers lines); (b) tpurun
                -np 4 runs the ring program of examples/ring.py on the
                host plane (tcp): "done: 10 laps", then the µs a hop.
-The last lines are the collectives, mesh, mpi and kernels JSON objects,
+               The forced quant arm (12c) runs: one quant arm count,
+               exact with R = 8 rows in one process (folded in f32).
+ 12. grad sync — in phase 9's world: (a) the quant codec on all
+               469,788,672 gradient elements (f32) on the card, a 2^24
+               slice bitwise against the CPU, the whole against the
+               reference's error model (a block planted 10% off
+               rejected), timed beside its bytes bound (codec line); (b)
+               every grad_sync arm (native, perleaf, bucketed 4 and 64
+               MiB, quant, unsynced) on a {"dp": 1} mesh at full width:
+               the loss and gradients of native's, no collective issued,
+               step ms beside native's (grad_sync_dp1 lines).
+The last lines are the collectives, mesh, mpi, grad_sync and kernels
+JSON objects,
 the nvidia-smi line and {"ok": true, "device": {...}}.  Without CUDA it
 exits 1 and prints no result.
 
@@ -105,7 +117,19 @@ step ms, tokens/s and MFU beside that step's; then phase 11 across the
 cards: tpurun -np 4 --gpus-per-rank 1, one rank bound to each card with
 one row (R = 4), the 11a checks, comm.coll's allreduce, bcast, allgather
 and alltoall beside DeviceComm's, and coll/tuned's host allreduce of the
-same bytes up to 4 MB.
+same bytes up to 4 MB.  Phase 12 across the cards: (d) the flagship step,
+attn "flash", on a {"dp": 4} mesh with every grad_sync arm, each arm's
+gradients held to native's (perleaf and bucketed to SYNC_GRAD_RMS, quant
+to the codec's error model, unsynced to this rank's own), a skipped
+bucket and a zeroed scale block rejected, three losses held to one
+card's, K1-K3 launches counted, each arm timed under remat "dots" and
+"none" with bench.py's overlap efficiency and busbw (grad_sync_check and
+grad_sync_numbers lines); (e) tp_overlap="fused" at (1, 1, 4), attn
+"dense", against the unfused tp step, as decided and with the rings
+forced bidirectional, a dropped partial rejected, timed (fused_step
+lines); (f) in phase 11, comm.coll.allreduce forced onto the quant arm
+at 1 and 64 MB a rank, within the error model, wire bytes <= 0.3 x
+native's, timed beside native (mpi_numbers lines).
 """
 
 from __future__ import annotations
@@ -1667,11 +1691,7 @@ def mesh_faults(torch, tfm, cfg, mesh) -> dict:
 def mesh_grads(tfm, optim, cfg, mesh, pristine, tokens) -> list:
     """The mesh's gradients at ``pristine`` and ``tokens``, gathered from
     every rank's shards into the full tree's leaves."""
-    params = tfm.shard_params(pristine, mesh, cfg)
-    grads = tfm.value_and_grad(params, tokens, cfg, mesh=mesh)[1]
-    of = dict(zip(map(id, optim.tree_leaves(params)), grads))
-    tree = optim.tree_map(lambda p: of[id(p)], params)
-    return optim.tree_leaves(tfm.gather_params(tree, mesh, cfg))
+    return mesh_value_grads(tfm, optim, cfg, mesh, pristine, tokens)[1]
 
 
 def mesh_losses(torch, tfm, optim, attention, cfg, mesh, pristine, tokens,
@@ -1807,6 +1827,472 @@ def mesh_multi_card(torch, np, tfm, optim, world: int, card: str,
                                     "one_card_step_ms": one_none["step_ms"],
                                     "one_card_host_issue_ms":
                                         one_none["host_issue_ms"]}})
+    return rows
+
+
+# -- 12. the gradient-sync arms and comm/compute overlap (P8, P9) -----------
+
+# 12a: the codec on the flagship's gradient elements (f32): a CODEC_SLICE
+# slice held bitwise to the same function on CPU tensors, the whole tensor
+# to the reference's error model (|x - deq(q(x))| <= amax/250 + 1e-7 a
+# block, tests/test_quant_coll.py::test_quantize_roundtrip_error_model),
+# which a block planted 10% off must fail.
+QUANT_BLOCK = 256
+CODEC_SLICE = 1 << 24
+# 12b, 12d: the grad_sync arms, (mode, bucket bytes); native first
+SYNC_ARMS = [("native", None), ("perleaf", None), ("bucketed", 4 << 20),
+             ("bucketed", 64 << 20), ("quant", None), ("unsynced", None)]
+SYNC_STEPS = 3
+# 12d: perleaf and bucketed against native's gradients, relative RMS over
+# all leaves: the same f32 sums of four contributions, in another order
+# (NCCL's ring adds them in an order set by an element's place in the
+# buffer, and a bucket moves it)
+SYNC_GRAD_RMS = 1e-5
+# the collectives a step may issue, counted by name while it runs
+DIST_CALLS = ("all_reduce", "all_to_all_single", "all_gather_into_tensor",
+              "reduce_scatter_tensor", "batch_isend_irecv", "broadcast")
+
+
+@contextlib.contextmanager
+def counting_collectives(torch):
+    """The torch.distributed collective calls made while the block runs,
+    by name (the port calls them through the module)."""
+    dist = torch.distributed
+    counts = dict.fromkeys(DIST_CALLS, 0)
+    saved = {name: getattr(dist, name) for name in DIST_CALLS}
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in DIST_CALLS:
+        setattr(dist, name, wrap(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def codec_check(torch, numel: int, card: str, log_fn=log) -> dict:
+    """12a: quantize_blocks -> dequantize_blocks on ``numel`` f32 elements
+    on the card: bitwise against the CPU on a slice, the error model on
+    the whole, timed beside the bytes bound."""
+    from ompi_tpu_torch.coll import quant
+    b = QUANT_BLOCK
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(numel, generator=gen, device="cuda")
+    q, sc = quant.quantize_blocks(x, b)
+    back = quant.dequantize_blocks(q, sc, b)
+    cq, cs = quant.quantize_blocks(x[:CODEC_SLICE].cpu(), b)
+    cb = quant.dequantize_blocks(cq, cs, b)
+    bits = lambda t: t.view(torch.int32)
+    same = {"q": torch.equal(q[:CODEC_SLICE].cpu(), cq),
+            "scales": torch.equal(bits(sc[:CODEC_SLICE // b].cpu()),
+                                  bits(cs)),
+            "values": torch.equal(bits(back[:CODEC_SLICE].cpu()), bits(cb))}
+    bitwise = all(same.values())
+    del cq, cs, cb
+
+    def model_use(y) -> float:
+        err = (y - x).abs().view(-1, b).amax(dim=-1)
+        allow = x.abs().view(-1, b).amax(dim=-1) / 250.0 + 1e-7
+        return float((err / allow).max())
+
+    use = model_use(back)
+    mid = (numel // b // 2) * b
+    back[mid:mid + b] *= 1.1                     # one block 10% off
+    planted = model_use(back)
+    del back
+    torch.cuda.empty_cache()
+    q_ms = median_ms(lambda: quant.quantize_blocks(x, b), n=5, warmup=1)
+    d_ms = median_ms(lambda: quant.dequantize_blocks(q, sc, b), n=5,
+                     warmup=1)
+    rt_ms = median_ms(lambda: quant.dequantize_blocks(
+        *quant.quantize_blocks(x, b), b), n=5, warmup=1)
+    # quantize reads x and writes q and the scales; dequantize the reverse
+    one_way = numel * 4 + numel + numel // b * 4
+    bound_ms = 2 * one_way / PEAK_BYTES * 1e3
+    row = {"phase": "codec", "elements": numel, "block": b,
+           "bitwise_slice_elements": CODEC_SLICE, "bitwise": same,
+           "error_model_use": use, "planted_error_model_use": planted,
+           "quantize_ms": q_ms, "dequantize_ms": d_ms,
+           "round_trip_ms": rt_ms, "bound_bytes": 2 * one_way,
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "bound_share": bound_ms / rt_ms, "card": card}
+    log_fn(row)
+    del x, q, sc
+    torch.cuda.empty_cache()
+    if not (bitwise and use <= 1.0 and planted > 1.0):
+        raise AssertionError(f"codec: {row}")
+    return row
+
+
+def _sync_cfg(cfg, mode, bucket_bytes):
+    return dataclasses.replace(cfg, grad_sync=mode,
+                               grad_bucket_bytes=bucket_bytes)
+
+
+def _arm_name(mode, bucket_bytes) -> str:
+    return mode if bucket_bytes is None else f"{mode} {bucket_bytes >> 20} MiB"
+
+
+def grad_sync_one_card(torch, tfm, optim, cfg, pristine, tokens, card,
+                       log_fn=log) -> list:
+    """12b: each grad_sync arm on a {"dp": 1} mesh at full width: the loss
+    and gradients of native's, no collective (the n = 1 short cuts), and
+    the step timed beside native's (the host cost of the hooks)."""
+    from ompi_tpu_torch.parallel import make_mesh
+    mesh = make_mesh({"dp": 1})
+    rows, native = [], None
+    for mode, nb in SYNC_ARMS:
+        c = _sync_cfg(cfg, mode, nb)
+        vg = tfm.make_value_and_grad(c, mesh)
+        params = clone_tree(optim, pristine)
+        with counting_collectives(torch) as calls:
+            loss, grads = vg(params, tokens)
+            torch.cuda.synchronize()
+        del params
+        if native is None:
+            native = (float(loss), grads)
+        rel = grads_rel_rms(grads, native[1])
+        del grads
+        torch.cuda.empty_cache()
+        t = time_train(torch, tfm, optim, c, pristine, tokens, card,
+                       mesh=mesh, log_fn=log_fn)
+        torch.cuda.empty_cache()
+        row = {"phase": "grad_sync_dp1", "arm": _arm_name(mode, nb),
+               "loss": float(loss), "native_loss": native[0],
+               "loss_equal": float(loss) == native[0],
+               "grad_rel_rms_vs_native": rel,
+               "collective_calls": sum(calls.values()),
+               "step_ms": t["step_ms"], "host_issue_ms": t["host_issue_ms"],
+               "native_step_ms": rows[0]["step_ms"] if rows else
+               t["step_ms"], "card": card}
+        log_fn(row)
+        rows.append(row)
+        if not (row["loss_equal"] and rel == 0.0
+                and row["collective_calls"] == 0):
+            raise AssertionError(f"grad_sync at dp 1: {row}")
+    return rows
+
+
+class _DoneWork:
+    """A completed collective's handle (the planted skipped bucket)."""
+
+    def wait(self):
+        return True
+
+
+@contextlib.contextmanager
+def bucket_skipped(torch, which: int):
+    """Planted: the ``which``-th asynchronous allreduce (a bucket's) is not
+    issued, on every rank alike (no rank waits on another)."""
+    dist = torch.distributed
+    real, seen = dist.all_reduce, [0]
+
+    def all_reduce(t, *args, async_op=False, **kwargs):
+        if async_op:
+            seen[0] += 1
+            if seen[0] == which + 1:
+                return _DoneWork()
+        return real(t, *args, async_op=async_op, **kwargs)
+
+    dist.all_reduce = all_reduce
+    try:
+        yield
+    finally:
+        dist.all_reduce = real
+
+
+@contextlib.contextmanager
+def scale_block_zeroed():
+    """Planted: every quantization's first scale block set to 0."""
+    from ompi_tpu_torch.coll import quant
+    real = quant.quantize_blocks
+
+    def zeroed(x, block, scale_dtype=None):
+        q, sc = real(x, block, scale_dtype)
+        sc = sc.clone()
+        sc[..., 0] = 0
+        return q, sc
+
+    quant.quantize_blocks = zeroed
+    try:
+        yield
+    finally:
+        quant.quantize_blocks = real
+
+
+def quant_model_use(torch, grads, local, group, n: int, block: int) -> float:
+    """The quant arm's gradients against the codec's error model, leaf by
+    leaf: every element within half a step of each contribution's block
+    (averaged over the n contributions, all-gathered from every rank) and
+    half a step of the output's block, from the exact mean.  Returns the
+    largest error over its allowance (<= 1 passes).  Collective."""
+    from ompi_tpu_torch.coll import quant
+    worst = 0.0
+    for got, mine in zip(grads, local):
+        parts = torch.empty((n,) + tuple(mine.shape), dtype=mine.dtype,
+                            device=mine.device)
+        torch.distributed.all_gather_into_tensor(parts.view(-1),
+                                                 mine.contiguous().view(-1),
+                                                 group=group)
+        L = mine.numel()
+        pad = quant.padded_len(L, n, block) - L
+        blocks = lambda t: torch.nn.functional.pad(
+            t.reshape(t.shape[0], -1).float(), (0, pad)).view(
+                t.shape[0], -1, block)
+        contrib = blocks(parts)
+        exact = contrib.mean(dim=0)
+        out = blocks(got[None])[0]
+        allow = (contrib.abs().amax(dim=-1).mean(dim=0) / 254.0
+                 + out.abs().amax(dim=-1) / 254.0)
+        err = (out - exact).abs().amax(dim=-1)
+        worst = max(worst, float((err / (allow * (1 + 1e-4) + 1e-12))
+                                 .max()))
+        del parts, contrib, exact, out
+    return worst
+
+
+def grad_sync_multi_card(torch, np, tfm, optim, world: int, card: str,
+                         log_fn) -> dict:
+    """12d: the flagship train step at full width on a {"dp": world} mesh,
+    one sequence a card, attn "flash", with every grad_sync arm: each
+    arm's gradients held to native's (perleaf and bucketed within
+    SYNC_GRAD_RMS, quant within the codec's error model, unsynced equal to
+    this rank's own gradient), each planted fault rejected, SYNC_STEPS
+    losses held to the one-card step's, then every arm timed under remat
+    "dots" and "none" with bench.py's overlap efficiency and busbw."""
+    from ompi_tpu_torch.coll import quant
+    from ompi_tpu_torch.ops import attention
+    from ompi_tpu_torch.parallel import make_mesh, overlap
+    cfg = tfm.flagship_config()
+    pristine = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (BATCH, cfg.seq + 1))).cuda()
+    mesh = make_mesh({"dp": world})
+    group = mesh.get_group("dp")
+    leaves = optim.tree_leaves(pristine)
+    total_bytes = sum(p.numel() * 4 for p in leaves)
+    ref = run_steps(tfm, cfg, clone_tree(optim, pristine), tokens,
+                    SYNC_STEPS)
+    torch.cuda.empty_cache()
+    native = tfm.make_value_and_grad(cfg, mesh)(clone_tree(optim, pristine),
+                                                tokens)[1]
+    local = tfm.value_and_grad(clone_tree(optim, pristine),
+                               overlap.dp_batch(tokens, mesh), cfg)[1]
+    f32 = torch.float32
+    native_wire = sum(quant.wire_bytes("allreduce", p.numel(), world,
+                                       f32)["native_bytes"] for p in leaves)
+
+    def wire(mode, nb) -> int:
+        if mode == "unsynced":
+            return 0
+        if mode in ("native", "perleaf"):
+            return native_wire
+        if mode == "quant":
+            return sum(quant.wire_bytes("allreduce", p.numel(), world, f32,
+                                        cfg.grad_sync_block)["quant_bytes"]
+                       for p in leaves)
+        plan = overlap.bucket_plan(leaves, nb)
+        arms = overlap._decide_buckets(plan, world, "cuda")
+        return sum(quant.wire_bytes("allreduce", b.nbytes // 4, world, f32,
+                                    cfg.grad_sync_block)[f"{a}_bytes"]
+                   for b, a in zip(plan.buckets, arms))
+
+    checks = []
+    for mode, nb in SYNC_ARMS:
+        c = _sync_cfg(cfg, mode, nb)
+        vg = tfm.make_value_and_grad(c, mesh)
+        zero_counts(attention)
+        with counting_collectives(torch) as calls:
+            loss, grads = vg(clone_tree(optim, pristine), tokens)
+            torch.cuda.synchronize()
+        launches = launch_counts(attention)
+        row = {"phase": "grad_sync_check", "arm": _arm_name(mode, nb),
+               "cards": world, "loss": float(loss),
+               "collective_calls": {k: v for k, v in calls.items() if v},
+               "buckets": (overlap.pvar_value("grad_bucket_count")
+                           if mode == "bucketed" else None),
+               "k1_k2_k3_k4_launches_per_step": list(launches),
+               "wire_bytes": wire(mode, nb), "native_wire_bytes":
+               native_wire}
+        row["wire_ratio"] = row["wire_bytes"] / native_wire
+        if mode in ("native", "perleaf", "bucketed"):
+            row["grad_rel_rms_vs_native"] = grads_rel_rms(grads, native)
+            ok = row["grad_rel_rms_vs_native"] <= SYNC_GRAD_RMS
+            if mode == "bucketed":
+                plan = overlap.bucket_plan(leaves, nb)
+                with bucket_skipped(torch, plan.n_buckets // 2):
+                    bad = vg(clone_tree(optim, pristine), tokens)[1]
+                row["planted_bucket_skipped_rel_rms"] = grads_rel_rms(
+                    bad, native)
+                ok = ok and (row["planted_bucket_skipped_rel_rms"]
+                             > SYNC_GRAD_RMS)
+                del bad
+        elif mode == "quant":
+            row["grad_rel_rms_vs_native"] = grads_rel_rms(grads, native)
+            row["error_model_use"] = quant_model_use(
+                torch, grads, local, group, world, cfg.grad_sync_block)
+            with scale_block_zeroed():
+                bad = vg(clone_tree(optim, pristine), tokens)[1]
+            row["planted_scale_zeroed_use"] = quant_model_use(
+                torch, bad, local, group, world, cfg.grad_sync_block)
+            ok = (row["error_model_use"] <= 1.0
+                  and row["planted_scale_zeroed_use"] > 1.0)
+            del bad
+        else:
+            row["grad_rel_rms_vs_local"] = grads_rel_rms(grads, local)
+            ok = row["grad_rel_rms_vs_local"] == 0.0
+        del grads
+        torch.cuda.empty_cache()
+        init_opt, step = tfm.make_train_step(c, mesh, learning_rate=1e-3)
+        params = clone_tree(optim, pristine)
+        state, losses = init_opt(params), []
+        for _ in range(SYNC_STEPS):
+            params, state, loss = step(params, state, tokens)
+            losses.append(float(loss))
+        del params, state
+        torch.cuda.empty_cache()
+        row["losses"], row["one_card_losses"] = losses, ref
+        row["loss_max_rel_diff"] = max(abs(a - b) / abs(b)
+                                       for a, b in zip(losses, ref))
+        # unsynced trains each replica on its own rows: its losses are
+        # shown, not held
+        if mode != "unsynced":
+            ok = ok and row["loss_max_rel_diff"] < TRAIN_LOSS_REL
+        n = cfg.n_layers
+        ok = ok and launches == (2 * n, n, n, 0)
+        row["ok"] = ok
+        log_fn(row)
+        checks.append(row)
+        if not ok:
+            raise AssertionError(f"grad_sync {row['arm']}: {row}")
+    del native, local
+    torch.cuda.empty_cache()
+    numbers = {}
+    for remat in ("dots", "none"):
+        times = {}
+        for mode, nb in SYNC_ARMS:
+            c = dataclasses.replace(_sync_cfg(cfg, mode, nb), remat=remat)
+            arm = _arm_name(mode, nb)
+            profile = remat == "none" and mode in ("native", "perleaf",
+                                                   "bucketed") \
+                and nb != 64 << 20
+            t = time_train(torch, tfm, optim, c, pristine, tokens, card,
+                           profile=profile, mesh=mesh, log_fn=log_fn)
+            torch.cuda.empty_cache()
+            times[arm] = {k: t[k] for k in ("step_ms", "host_issue_ms",
+                                            "tokens_per_s", "mfu")}
+        floor = times["unsynced"]["step_ms"]
+        span = times["perleaf"]["step_ms"] - floor
+        for arm, t in times.items():
+            sync = t["step_ms"] - floor
+            t["overlap_efficiency"] = (1 - sync / span if span > 0
+                                       and arm != "unsynced" else None)
+            t["busbw_GBps"] = (2 * (world - 1) / world * total_bytes
+                               / (sync * 1e-3) / 1e9
+                               if sync > 0 and arm != "unsynced" else None)
+        numbers[remat] = times
+        log_fn({"phase": "grad_sync_numbers", "remat": remat,
+                "cards": world, "arms": times, "card": card})
+    return {"checks": [{k: v for k, v in r.items() if k != "phase"}
+                       for r in checks], "numbers": numbers}
+
+
+def mesh_value_grads(tfm, optim, cfg, mesh, pristine, tokens):
+    """The mesh's loss and gradients at ``pristine`` and ``tokens``, the
+    gradients gathered from every rank's shards into the full tree's
+    leaves."""
+    params = tfm.shard_params(pristine, mesh, cfg)
+    loss, grads = tfm.value_and_grad(params, tokens, cfg, mesh=mesh)
+    of = dict(zip(map(id, optim.tree_leaves(params)), grads))
+    tree = optim.tree_map(lambda p: of[id(p)], params)
+    return float(loss), optim.tree_leaves(tfm.gather_params(tree, mesh,
+                                                            cfg))
+
+
+@contextlib.contextmanager
+def rs_ring_last_partial_dropped():
+    """Planted: matmul_reduce_scatter's ring adds no partial at its last
+    hop (one rank's share of every row-parallel product lost)."""
+    from ompi_tpu_torch.ops import collective_matmul as cm
+    real = cm._rs_ring
+
+    def dropped(x, w, group, bidir):
+        import torch.distributed as dist
+        mb = x.shape[-2] // dist.get_world_size(group)
+        own = x.narrow(-2, dist.get_rank(group) * mb, mb)
+        out = real(x, w, group, bidir)
+        return out - (own @ w).to(out.dtype)
+
+    cm._rs_ring = dropped
+    try:
+        yield
+    finally:
+        cm._rs_ring = real
+
+
+def fused_multi_card(torch, np, tfm, optim, world: int, card: str,
+                     log_fn) -> list:
+    """12e: tp_overlap="fused" at (dp, sp, tp) = (1, 1, world), attn
+    "dense", full width: the loss and gathered gradients against the
+    unfused tp step's (phase 7's bf16 bounds), as decided and with the
+    collmm rings forced bidirectional, a planted dropped partial rejected;
+    each step timed beside the unfused one."""
+    from ompi_tpu_torch.core import var
+    from ompi_tpu_torch.parallel import make_mesh
+    base = dataclasses.replace(tfm.flagship_config(), attn="dense")
+    fused = dataclasses.replace(base, tp_overlap="fused")
+    pristine = tfm.init_params(torch.Generator().manual_seed(0), base)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, base.vocab, (BATCH, base.seq + 1))).cuda()
+    mesh = make_mesh({"dp": 1, "sp": 1, "tp": world})
+    want_loss, want = mesh_value_grads(tfm, optim, base, mesh, pristine,
+                                       tokens)
+    unfused_t = time_train(torch, tfm, optim, base, pristine, tokens, card,
+                           mesh=mesh, log_fn=log_fn)
+    torch.cuda.empty_cache()
+    rows = []
+    for ring in ("", "bidir"):
+        var.registry.set_override("coll_nccl_collmm_mode", ring)
+        try:
+            loss, got = mesh_value_grads(tfm, optim, fused, mesh, pristine,
+                                         tokens)
+            rel = grads_rel_rms(got, want)
+            del got
+            planted = None
+            if not ring:
+                with rs_ring_last_partial_dropped():
+                    planted = grads_rel_rms(mesh_value_grads(
+                        tfm, optim, fused, mesh, pristine, tokens)[1], want)
+            torch.cuda.empty_cache()
+            t = time_train(torch, tfm, optim, fused, pristine, tokens, card,
+                           profile=not ring, mesh=mesh, log_fn=log_fn)
+        finally:
+            var.registry.set_override("coll_nccl_collmm_mode", "")
+        torch.cuda.empty_cache()
+        row = {"phase": "fused_step", "rings": ring or "decided",
+               "mesh": {"dp": 1, "sp": 1, "tp": world}, "loss": loss,
+               "unfused_loss": want_loss,
+               "loss_rel_diff": abs(loss - want_loss) / abs(want_loss),
+               "loss_bound": TRAIN_LOSS_REL, "grad_rel_rms": rel,
+               "grad_bound": TRAIN_GRAD_RMS,
+               "planted_partial_dropped_rel_rms": planted,
+               "step_ms": t["step_ms"], "host_issue_ms": t["host_issue_ms"],
+               "tokens_per_s": t["tokens_per_s"], "mfu": t["mfu"],
+               "unfused_step_ms": unfused_t["step_ms"],
+               "unfused_host_issue_ms": unfused_t["host_issue_ms"],
+               "card": card}
+        log_fn(row)
+        rows.append({k: v for k, v in row.items() if k != "phase"})
+        if not (row["loss_rel_diff"] < TRAIN_LOSS_REL
+                and rel < TRAIN_GRAD_RMS
+                and (planted is None or planted > TRAIN_GRAD_RMS)):
+            raise AssertionError(f"fused step: {row}")
     return rows
 
 
@@ -1963,17 +2449,11 @@ def mpi_rank(torch, np, r_per: int, timed, host_timed: bool) -> None:
         raise AssertionError("a numpy buffer did not take the host path")
     out({"phase": "mpi_check", "entry": "allreduce numpy (host path)",
          "provider": "tuned", "ok": True})
-    # an arm the port lacks is refused by name
-    var.registry.set_override("coll_nccl_allreduce_mode", "quant")
-    try:
-        comm.coll.allreduce(comm, dev(x))
-        raise AssertionError("a forced quant arm ran")
-    except NotImplementedError as exc:
-        if "P8" not in str(exc):
-            raise
-        out({"phase": "mpi_check", "entry": "allreduce forced quant",
-             "refused": str(exc), "ok": True})
-    var.registry.set_override("coll_nccl_allreduce_mode", "")
+    # 12c: the quant arm, forced: one quant count; exact in one process
+    # (the rows fold in f32, nothing is quantized), else within the
+    # reference's error model
+    quant_rows = mpi_quant(torch, np, comm, dc, x, dev, host, R, lo, hi,
+                           out)
     comm.barrier()
 
     # times: comm.coll beside DeviceComm called directly, the staged arm,
@@ -2040,13 +2520,126 @@ def mpi_rank(torch, np, r_per: int, timed, host_timed: bool) -> None:
                    "card": card}
             out(row)
             host_rows.append(row)
+    if ctx.size > 1:
+        # 12f: the quant arm across the cards, timed beside native
+        quant_rows += mpi_quant_numbers(torch, np, comm, dc, R, lo, hi,
+                                        card, out)
     comm.barrier()
     out({"mpi_rank0": {"ranks": R, "processes": ctx.size,
                        "providers": sorted(set(providers.values())),
                        "checked": checked, "staged_delta": staged_delta,
-                       "numbers": rows, "host_numbers": host_rows}})
+                       "numbers": rows, "host_numbers": host_rows,
+                       "quant": quant_rows}})
     torch.distributed.destroy_process_group()
     runtime.finalize()
+
+
+# 12c, 12f: the forced quant allreduce is held to the reference's bounds
+# against the exact sum (tests/test_quant_coll.py: 1e-2 of the largest
+# value, SNR >= 30 dB), and moves at most QUANT_WIRE_RATIO of the native
+# arm's modeled wire bytes (its 1 MiB contract, test_wire_ratio_at_1mib)
+QUANT_REL = 1e-2
+QUANT_SNR_DB = 30.0
+QUANT_WIRE_RATIO = 0.3
+QUANT_SIZES = [1 << 20, 64 << 20]       # bytes a rank, f32
+
+
+def quant_errors(np, got, want):
+    """(largest error over the largest value, SNR in dB)."""
+    diff = got.astype(np.float64) - want
+    rel = float(np.abs(diff).max()) / (float(np.abs(want).max()) or 1.0)
+    noise = max(float(np.square(diff).sum()), 1e-30)
+    return rel, 10 * math.log10(float(np.square(want.astype(
+        np.float64)).sum()) / noise)
+
+
+def quant_ok(np, got, want, exact: bool) -> bool:
+    if exact:
+        return coll_agree(np, got, want, COLL_RTOL["float32"])
+    rel, snr = quant_errors(np, got, want)
+    return rel <= QUANT_REL and snr >= QUANT_SNR_DB
+
+
+def mpi_quant(torch, np, comm, dc, x, dev, host, R, lo, hi, out) -> list:
+    """comm.coll.allreduce forced onto the quant arm on phase 11's rows:
+    one quant arm count, nothing native; exact with one process, else
+    within the error model; a planted wrong row rejected."""
+    from ompi_tpu_torch.core import var
+    spc = comm.ctx.spc._v
+    keys = ("coll_arm_quant_count", "coll_arm_native_count",
+            "device_quant_collectives")
+    before = [spc.get(k, 0) for k in keys]
+    var.registry.set_override("coll_nccl_allreduce_mode", "quant")
+    got = host(comm.coll.allreduce(comm, dev(x)))
+    var.registry.set_override("coll_nccl_allreduce_mode", "")
+    delta = [spc.get(k, 0) - b for k, b in zip(keys, before)]
+    want = np.broadcast_to(x.sum(0), x.shape)[lo:hi]
+    exact = dc.n == 1
+    ok = quant_ok(np, got, want, exact)
+    bad = got.copy()
+    bad[-1] = bad[-1] * 1.1 + 1
+    planted = quant_ok(np, bad, want, exact)
+    row = {"phase": "mpi_check", "entry": "allreduce forced quant",
+           "processes": dc.n, "exact": exact,
+           "quant_native_quantcoll_delta": delta,
+           "errors": quant_errors(np, got, want),
+           "planted_row_passes": planted,
+           "ok": ok and not planted and delta == [1, 0, 1]}
+    out(row)
+    if not row["ok"]:
+        raise AssertionError(f"forced quant allreduce: {row}")
+    return [row]
+
+
+def mpi_quant_numbers(torch, np, comm, dc, R, lo, hi, card, out) -> list:
+    """12f: f32 allreduce forced onto the quant arm at QUANT_SIZES a rank,
+    against numpy (every rank draws all R rows from one seed) within the
+    error model, its audited wire bytes against the native arm's, and both
+    arms timed by CUDA events."""
+    from ompi_tpu_torch.core import var
+    spc = comm.ctx.spc._v
+    rows = []
+    for nbytes in QUANT_SIZES:
+        count = nbytes // 4
+        full = np.random.default_rng(nbytes).standard_normal(
+            (R, count), dtype=np.float32)
+        t = torch.from_numpy(full[lo:hi]).to(dc.device)
+        want = full.sum(0)
+        del full
+        wire = {}
+        for arm in ("native", "quant"):
+            var.registry.set_override("coll_nccl_allreduce_mode", arm)
+            w0 = spc.get("coll_wire_bytes", 0)
+            res = comm.coll.allreduce(comm, t)
+            wire[arm] = spc.get("coll_wire_bytes", 0) - w0
+            if arm == "quant":
+                got = res[0].cpu().numpy()
+            del res
+            wire[arm + "_ms"] = median_ms(
+                lambda: comm.coll.allreduce(comm, t), n=10, warmup=3)
+        var.registry.set_override("coll_nccl_allreduce_mode", "")
+        rel, snr = quant_errors(np, got, want)
+        bad = got.copy()
+        bad[: count // 64] *= 1.1                # one slice 10% off
+        planted = quant_ok(np, bad, want, False)
+        row = {"phase": "mpi_numbers", "collective": "allreduce",
+               "arm": "quant (forced)", "bytes_per_rank": nbytes,
+               "ranks": R, "cards": dc.n, "quant_ms": wire["quant_ms"],
+               "native_ms": wire["native_ms"],
+               "quant_over_native": wire["quant_ms"] / wire["native_ms"],
+               "wire_bytes_quant": wire["quant"],
+               "wire_bytes_native": wire["native"],
+               "wire_ratio": wire["quant"] / wire["native"],
+               "max_rel_err": rel, "snr_db": snr,
+               "planted_passes": planted, "card": card}
+        out(row)
+        rows.append(row)
+        del t, got, want, bad
+        torch.cuda.empty_cache()
+        if not (rel <= QUANT_REL and snr >= QUANT_SNR_DB and not planted
+                and row["wire_ratio"] <= QUANT_WIRE_RATIO):
+            raise AssertionError(f"quant allreduce across cards: {row}")
+    return rows
 
 
 def ring_rank(np, laps: int) -> None:
@@ -2176,8 +2769,15 @@ def multi_card_worker(rank: int, world: int, init_method: str,
     rows = device_coll(torch, np, dc, card, grad_numel, out, staged=False)
     torch.cuda.empty_cache()
     mesh_rows = mesh_multi_card(torch, np, tfm, optim, world, card, out)
+    torch.cuda.empty_cache()
+    # 12d, 12e: the grad-sync arms on a dp mesh, the fused tp step
+    sync = grad_sync_multi_card(torch, np, tfm, optim, world, card, out)
+    torch.cuda.empty_cache()
+    fused = fused_multi_card(torch, np, tfm, optim, world, card, out)
     out({"collectives": rows})
     out({"mesh": mesh_rows})
+    out({"grad_sync": sync})
+    out({"fused": fused})
     torch.distributed.destroy_process_group()
 
 
@@ -2480,6 +3080,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_rows = mesh_world_of_one(torch, tfm, optim, attention, cfg,
                                   pristine, train_tokens, card)
+    torch.cuda.empty_cache()
+
+    # 12. the grad-sync arms in the same world: the codec at the
+    # gradients' size, then every arm on a {"dp": 1} mesh
+    sync_row = {"codec": codec_check(torch, grad_numel, card),
+                "dp1": grad_sync_one_card(torch, tfm, optim, cfg, pristine,
+                                          train_tokens, card)}
     torch.distributed.destroy_process_group()
     del pristine, train_tokens
     torch.cuda.empty_cache()
@@ -2513,6 +3120,7 @@ def main() -> int:
     log({"collectives": coll_rows})
     log({"mesh": mesh_rows})
     log({"mpi": mpi_row})
+    log({"grad_sync": sync_row})
     log({"kernels": [
         {"name": "flash_partials", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_partials.cu",

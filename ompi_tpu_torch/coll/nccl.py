@@ -25,12 +25,14 @@ CPU tests' plane); ``staged`` is an explicit D2H of this process's rows,
 the rows of the other processes over the host algorithms (tuned's
 allgather on the same communicator; nothing crosses in a world of one),
 the numpy fold and an H2D — counted in ``device_stage_out_bytes``,
-``device_stage_in_bytes`` and ``coll_staged_fallbacks``.  The quantized
-(P8), hierarchical (P13) and bidirectional (P9) arms and the learned rules
-source (P18) are later slices: where the JAX package would run them, the
-port raises ``NotImplementedError`` naming the slice.  Each dispatch leaves
-one audit record, ``coll_arm_<arm>_count`` and ``coll_wire_bytes``, in the
-context's spc; the ``decide:`` trace event comes with P16.
+``device_stage_in_bytes`` and ``coll_staged_fallbacks``; ``quant`` is the
+block-quantized tier (``coll/quant``, ``DeviceComm.quant``) for float
+SUM/AVG reductions and allgather.  The hierarchical arms (P13) and the
+learned rules source (P18) are later slices: where the JAX package would
+run them, the port raises ``NotImplementedError`` naming the slice.  Each
+dispatch leaves one audit record, ``coll_arm_<arm>_count`` and
+``coll_wire_bytes``, in the context's spc; the ``decide:`` trace event
+comes with P16.
 
 The port of ``ompi_tpu/coll/xla.py`` (decision layer, native and staged
 arms, audit).  The neighbourhood entries raise until communicator
@@ -39,7 +41,6 @@ topologies come (``topo.cart_create``, ROADMAP P7, what waits).
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import numpy as np
@@ -49,8 +50,9 @@ from .. import accelerator
 from ..analysis import rules as _rules_grammar
 from ..core import var as _var
 from ..core.component import Component, component
-from ..op import SUM, Op
+from ..op import SUM, Op, quantizable
 from .framework import CollModule
+from .quant import _itemsize, check_quantizable, wire_bytes
 from .tuned import TunedModule
 
 
@@ -106,17 +108,34 @@ for _c in _DECIDED:
                   help=f"Force the {_c} device mode (native|staged"
                        + ("|quant" if _c in _QUANT_COLLS else "")
                        + "; empty = auto).")
+# the overlap tier's decision points (not NcclModule entries): the bucketed
+# gradient sync (parallel/overlap) and the collective-matmul ring direction
+# (ops/collective_matmul via Config(tp_overlap="fused"))
+_var.register("coll", "nccl", "grad_bucket_bytes", 4 << 20, type=int,
+              level=3,
+              help="Target bytes per gradient-sync bucket for the "
+                   "bucketed overlap tier (parallel/overlap): grads are "
+                   "flattened into fixed-byte buckets in reverse-layer "
+                   "order and each bucket allreduces as soon as its "
+                   "leaves are produced in the backward pass.")
+_var.register("coll", "nccl", "grad_sync_mode", "", type=str, level=3,
+              help="Force the gradient-sync bucket arm (native|quant|"
+                   "hier|hier+quant; empty = auto via DEVICE_RULES "
+                   "grad_sync rows).")
+_var.register("coll", "nccl", "collmm_mode", "", type=str, level=3,
+              help="Force the collective-matmul ring schedule "
+                   "(native = unidirectional ring | bidir = two "
+                   "half-rings in both ring directions; empty = auto "
+                   "via DEVICE_RULES collmm rows).")
 
 _MODES = _rules_grammar.MODES
 _PLANES = _rules_grammar.PLANES
 
 # the arms (and the rules source) a later slice brings, by name
 _LACKING = {
-    "quant": "the quantized arm (coll/quant) comes with ROADMAP P8",
     "hier": "the hierarchical arm comes with ROADMAP P13 (tuple axes)",
     "hier+quant": "the hierarchical quantized arm comes with ROADMAP P13 "
-                  "and P8",
-    "bidir": "the bidirectional ring arm comes with ROADMAP P9",
+                  "(tuple axes)",
     "learned": "coll_nccl_rules=learned reads the perf cost model, which "
                "comes with ROADMAP P18",
 }
@@ -154,35 +173,23 @@ def _load_device_rules(path: Optional[str] = None):
 
 def _quant_pads_past_native(coll: str, nbytes: int, ndev: int,
                             dtype) -> bool:
-    """The JAX package's padding veto reads coll/quant's wire model, which
-    comes with the quantized arm (P8): with no dtype it never vetoes, as
-    there."""
+    """True when the quantized arm's block padding pushes its wire bytes
+    past the native arm's for this payload (the per-rank shard pads up to
+    ``coll_quant_block`` elements before the int8 cast): the decision
+    records ``ineligible:quant:pad-past-native`` instead of shipping more
+    bytes than native would.  With no dtype it never vetoes."""
     if dtype is None:
         return False
-    raise NotImplementedError(_LACKING["quant"])
-
-
-def check_quantizable(op: Op, dtype) -> None:
-    """Reject (op, dtype) combos the quantized tier cannot carry (the JAX
-    package's ``coll/quant.check_quantizable``, on op names)."""
-    if op.name in ("sum", "avg"):
-        return
-    if op.name in ("maxloc", "minloc"):
-        why = "MAXLOC/MINLOC pairs carry exact indices"
-    else:
-        why = f"op {op.name!r} does not commute with per-block rescaling"
-    raise ValueError(
-        f"quantized collectives support SUM/AVG over float operands only: "
-        f"{why} (op={op.name!r})")
-
-
-def native_wire_bytes(coll: str, count: int, n: int, esize: int) -> int:
-    """Per-rank wire bytes of the native ring: 2(n-1) chunk transfers for
-    allreduce, n-1 for reduce_scatter/allgather (coll/quant.wire_bytes'
-    native figure)."""
-    hops = {"allreduce": 2 * (n - 1), "reduce_scatter": n - 1,
-            "allgather": n - 1}[coll]
-    return int(hops * math.ceil(int(count) / n) * esize)
+    try:
+        count = max(int(nbytes) // _itemsize(dtype), 1)
+        qcoll = ("allreduce" if coll == "allreduce" else
+                 "reduce_scatter" if ("reduce_scatter" in coll
+                                      or coll.endswith("_rs"))
+                 else "allgather")
+        wb = wire_bytes(qcoll, count, max(int(ndev), 1), dtype)
+    except (ValueError, TypeError, KeyError):
+        return False     # no quant wire model for this coll/dtype
+    return wb["quant_bytes"] > wb["native_bytes"]
 
 
 def decide_mode(coll: str, nbytes: int, ndev: int, platform: str,
@@ -381,15 +388,10 @@ def _staged_allgatherv(h: np.ndarray, counts) -> np.ndarray:
     return np.broadcast_to(cat[None], (h.shape[0],) + cat.shape)
 
 
-def _quantizable(op: Op, dtype: torch.dtype) -> bool:
-    """The JAX package's ``op.quantizable`` on a torch dtype: float
-    operands under SUM/AVG."""
-    return op.name in ("sum", "avg") and dtype.is_floating_point
-
-
 class NcclModule(CollModule):
     def __init__(self, comm) -> None:
         self.dc = comm.device_comm
+        self.dc.spc = getattr(comm.ctx, "spc", None)
         self.host = TunedModule(comm)   # fallback for host buffers
         self._comm = comm
         self._rules = _load_device_rules()
@@ -412,7 +414,7 @@ class NcclModule(CollModule):
         here exactly once: one audit record per collective."""
         rows = max(x.shape[0], 1)
         nbytes = x.numel() * x.element_size() // rows
-        quant_ok = coll in _QUANT_COLLS and _quantizable(op or SUM, x.dtype)
+        quant_ok = coll in _QUANT_COLLS and quantizable(op or SUM, x.dtype)
         # the hierarchical arm needs two levels, so tuple axes (P13): the
         # JAX package's ineligibility reasons for a one-axis comm
         hier_why = ("entry has no hierarchical kernel"
@@ -421,8 +423,8 @@ class NcclModule(CollModule):
                          "axes come with ROADMAP P13)")
         pick, _reason, _chain = decide_mode(
             coll, nbytes, self.dc.n, self._platform, self._rules, allowed,
-            quant_ok=quant_ok, op=op, plane=self._plane, hier_ok=False,
-            hier_why=hier_why)
+            quant_ok=quant_ok, dtype=x.dtype, op=op, plane=self._plane,
+            hier_ok=False, hier_why=hier_why)
         check_runnable(coll, pick)
         self._audit(coll, x, pick, nbytes)
         return pick
@@ -435,14 +437,19 @@ class NcclModule(CollModule):
 
     def _audit(self, coll: str, x, arm: str, nbytes: int) -> None:
         """ONE audit record per device-dispatched collective: the arm count
-        and the per-rank wire bytes (the native ring model where there is
-        one, else the per-rank payload)."""
+        and the per-rank wire bytes (coll/quant's ring model of the native
+        or quantized arm where there is one, else the per-rank payload)."""
         wire = nbytes
         model = self._WIRE_MODEL.get(coll)
-        if model is not None and arm == "native":
+        if model is not None and arm in ("native", "quant"):
             rows = max(x.shape[0], 1)
-            wire = native_wire_bytes(model, max(x.numel() // rows, 1),
-                                     self.dc.n, x.element_size())
+            try:
+                wb = wire_bytes(model, max(x.numel() // rows, 1),
+                                self.dc.n, x.dtype)
+            except ValueError:
+                wb = None
+            if wb is not None:
+                wire = wb[f"{arm}_bytes"]
         spc = self.spc
         if spc is not None:
             spc.inc(f"coll_arm_{arm}_count")
@@ -504,6 +511,8 @@ class NcclModule(CollModule):
                           allowed=self._ALL_ARMS
                           if op.name in _NP_FOLD
                           else ("native", "quant"))
+        if mode == "quant":
+            return self.dc.quant.allreduce(sendbuf, op)
         if mode == "staged":
             h = self._stage_all(sendbuf)
             red = _NP_FOLD[op.name](h, axis=0)
@@ -538,6 +547,8 @@ class NcclModule(CollModule):
         mode = self._mode("allgather", sendbuf,
                           allowed=self._ALL_ARMS if sendbuf.dim() >= 2
                           else ("native", "staged"))
+        if mode == "quant":
+            return self.dc.quant.allgather(sendbuf)
         if mode == "staged":
             return self._stage_in(
                 _staged_allgather(self._stage_all(sendbuf)), sendbuf)
@@ -560,6 +571,8 @@ class NcclModule(CollModule):
                           allowed=self._ALL_ARMS
                           if op.name in _NP_FOLD
                           else ("native", "quant"))
+        if mode == "quant":
+            return self.dc.quant.reduce_scatter(sendbuf, op)
         if mode == "staged":
             h = self._stage_all(sendbuf)            # (R, R*b, *e)
             R = h.shape[0]
@@ -757,6 +770,13 @@ class NcclModule(CollModule):
                 allowed.append("quant")   # ragged counts: no quant layout
             mode = self._mode("reduce_scatter", sendbuf, op,
                               allowed=tuple(allowed))
+            if mode == "quant":
+                out = self.dc.quant.reduce_scatter(sendbuf, op)
+                cap = self.dc._bucket(cs[0])
+                if cap != cs[0]:   # reduce_scatter_v's padded cap
+                    pad = [0, 0] * (out.dim() - 2) + [0, cap - cs[0]]
+                    out = torch.nn.functional.pad(out, pad)
+                return out
             if mode == "staged":
                 h = self._stage_all(sendbuf)       # (R, total, *e)
                 red = _NP_FOLD[op.name](h, axis=0)

@@ -31,12 +31,26 @@ over sp with global RoPE positions; tokens are cut over dp (batch) and sp
 ``attn="ring"`` without a mesh is ``attention_reference``, as in the
 reference.
 
-Not yet ported, each refused with the ROADMAP slice that brings it:
-``mlp="moe"`` (P12), ``tp_overlap="fused"`` (P9), and on a mesh
-``grad_sync`` quant (P8) and perleaf/bucketed/unsynced (P9).  The port's
-own refusal: ``attn="flash"`` or ``"dense"`` on a mesh whose sp axis is
-larger than 1 (the reference replicates them over sp under GSPMD; the port
-shards the sequence over sp).
+``tp_overlap="fused"`` is Megatron sequence parallelism with the tp
+collectives fused into the products (``_layer_apply_fused``): the residual
+stream is cut over tp by sequence, qkv, gate and up are
+``allgather_matmul`` and wo and down ``matmul_reduce_scatter``
+(``ops/collective_matmul``), the ring direction of each call site decided
+under the coll name ``collmm``.
+
+``grad_sync`` other than native is dp-only, as in the reference: each rank
+takes its dp rows of the batch, the loss on them with no mesh inside, and
+the gradients are averaged over dp by the chosen scheduler: ``quant`` one
+``psum_quant`` per leaf after the backward (``coll/quant``), ``perleaf``
+one native mean per leaf after the backward, ``bucketed`` fixed-byte
+buckets issued from autograd hooks during the backward
+(``parallel/overlap``), ``unsynced`` none (a measurement floor).
+
+Not yet ported, refused with the ROADMAP slice that brings it:
+``mlp="moe"`` (P12) and the reference's two-tier ``dpo`` axis (P13).  The
+port's own refusal: ``attn="flash"`` or ``"dense"`` on a mesh whose sp
+axis is larger than 1 (the reference replicates them over sp under GSPMD;
+the port shards the sequence over sp).
 """
 
 from __future__ import annotations
@@ -57,13 +71,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .. import optim
 from ..device import DeviceLike, check_on, resolve_device
 from ..ops.attention import flash_mha
-from ..parallel.collectives import copy_to, pmax, reduce_from
+from ..ops.collective_matmul import allgather_matmul, matmul_reduce_scatter
+from ..parallel import overlap
+from ..parallel.collectives import (copy_to, gather_from, pmax, reduce_from,
+                                    split_to)
 from ..parallel.mesh import axes_group, axis_rank, axis_size, sharded
 from ..parallel.ring import attention_reference, ring_attention
 
 _NOT_YET = {
     ("mlp", "moe"): "the MoE block comes with ROADMAP slice P12",
-    ("tp_overlap", "fused"): "fused tp overlap comes with ROADMAP slice P9",
 }
 _CHOICES = {"attn": ("dense", "flash", "ring"), "mlp": ("dense", "moe"),
             "tp_overlap": ("none", "fused"),
@@ -93,7 +109,13 @@ class Config:
     attn_bwd_block: Optional[int] = None
     loss_chunk: Optional[int] = None      # chunked cross-entropy slice
     opt_moment_dtype: str = "float32"     # AdamW first moment: or bfloat16
-    grad_sync: str = "native"             # others need a mesh (P8, P9)
+    # how the dp gradient sum moves: "native" (exact, over dp × sp) or, on
+    # a dp-only mesh, "quant" | "perleaf" | "bucketed" | "unsynced"
+    grad_sync: str = "native"
+    grad_sync_block: int = 256            # quantization block, "quant"
+    # "bucketed" bucket target; None = the coll_nccl_grad_bucket_bytes
+    # variable (4 MiB)
+    grad_bucket_bytes: Optional[int] = None
 
     def __post_init__(self):
         for name, allowed in _CHOICES.items():
@@ -276,6 +298,7 @@ class _Plan:
         self.dp_rank, self.sp_rank, self.tp_rank = (
             axis_rank(mesh, a) for a in ("dp", "sp", "tp"))
         self.ring = cfg.attn == "ring" and "sp" in mesh.mesh_dim_names
+        self.fused = cfg.tp_overlap == "fused"
         # every leaf is replicated over dp and sp: its gradient sums there
         self.data = (axes_group(mesh, ("dp", "sp"))
                      if self.dp * self.sp > 1 else None)
@@ -356,6 +379,8 @@ def _plan(mesh: Optional[DeviceMesh], cfg: Config) -> Optional[_Plan]:
                          "with mlp='dense' (got mesh=set); unset loss_chunk "
                          "for this path")
     sp, tp = axis_size(mesh, "sp"), axis_size(mesh, "tp")
+    if cfg.tp_overlap == "fused":
+        _check_fused(cfg, mesh)
     if cfg.attn != "ring" and sp > 1:
         raise NotImplementedError(
             f"attn={cfg.attn!r} on a mesh with sp={sp}: the port shards the "
@@ -363,6 +388,28 @@ def _plan(mesh: Optional[DeviceMesh], cfg: Config) -> Optional[_Plan]:
             f"replicates it over sp; still to port, ROADMAP Queue 1)")
     _check_tp(cfg, tp)
     return _Plan(mesh, cfg)
+
+
+def _check_fused(cfg: Config, mesh: Optional[DeviceMesh]) -> None:
+    """The reference's refusals of tp_overlap='fused' that the mesh and
+    the config decide (the sequence's is checked per call)."""
+    if mesh is None or "tp" not in mesh.mesh_dim_names:
+        raise ValueError(
+            "tp_overlap='fused' needs a mesh with a tp axis "
+            f"(got mesh={'set' if mesh is not None else None})")
+    tp = axis_size(mesh, "tp")
+    dims = {a: axis_size(mesh, a) for a in mesh.mesh_dim_names}
+    if tp < 2:
+        raise ValueError("tp_overlap='fused' needs a tp mesh axis of "
+                         f"size >= 2 (mesh axes: {dims})")
+    if cfg.attn != "dense" or cfg.mlp != "dense":
+        raise ValueError(
+            "tp_overlap='fused' supports dense attention + dense MLP "
+            f"only (got attn={cfg.attn!r}, mlp={cfg.mlp!r})")
+    if cfg.n_heads % tp or cfg.d_ff % tp:
+        raise ValueError(
+            f"tp_overlap='fused' needs n_heads ({cfg.n_heads}) and d_ff "
+            f"({cfg.d_ff}) divisible by tp={tp}")
 
 
 def _check_tp(cfg: Config, tp: int) -> None:
@@ -424,8 +471,64 @@ def _attn_apply(x, layer, cfg: Config, mesh: Optional[_Plan] = None):
     return x + (out if mesh is None else mesh.from_tp(out))
 
 
+def _layer_apply_fused(x, layer, cfg: Config, mesh: _Plan):
+    """The tp_overlap='fused' decoder layer: Megatron sequence parallelism
+    with the collectives fused into the products.  x is this rank's
+    (b/dp, s/tp, d) rows of the residual stream.  Each column-parallel
+    product (qkv, gate, up) is an ``allgather_matmul`` (the ring gather
+    overlaps the products) and each row-parallel one (wo, down) a
+    ``matmul_reduce_scatter`` (partial sums ride the ring), so no
+    standalone all-gather or sum waits on the products.  The norms run on
+    the rank's rows, so their weights' gradients sum over tp (*f*).  Ring
+    direction per call site (native | bidir) comes from the decision layer
+    under the coll name ``collmm``."""
+    tp = mesh.tp
+    b, s_local = x.shape[0], x.shape[1]
+    s = s_local * tp
+    heads = cfg.n_heads // tp
+    positions = torch.arange(s, device=x.device)
+    # per-rank ring payload of the sequence-cut activations: the byte
+    # count DEVICE_RULES rows for `collmm` match against
+    shard_bytes = b * s_local * cfg.d_model * cfg.dtype.itemsize
+    bidir_ok = s_local % 2 == 0
+
+    def bidir(kind: str) -> bool:
+        return overlap.decide_collmm(kind, shard_bytes, mesh.mesh, "tp",
+                                     bidir_ok) == "bidir"
+
+    def norm(x, w):
+        return _rms_norm(x, mesh.to_tp(w))
+
+    def ag(h, w, kind):
+        return allgather_matmul(h, w.to(cfg.dtype), "tp", mesh.mesh,
+                                bidirectional=bidir(kind))
+
+    def rs(h, w, kind):
+        return matmul_reduce_scatter(h, w.to(cfg.dtype), "tp", mesh.mesh,
+                                     bidirectional=bidir(kind))
+
+    h = norm(x, layer["attn_norm"])
+    qkv = ag(h, layer["wqkv"], "qkv")                   # (b, s, 3·hl·hd)
+    q, k, v = (t.reshape(b, s, heads, cfg.head_dim)
+               for t in qkv.chunk(3, dim=-1))
+    q = _rope(q, positions, cfg.rope_base)
+    k = _rope(k, positions, cfg.rope_base)
+    # full-sequence attention on this rank's heads: the fused products
+    # bracket it
+    att = attention_reference(q, k, v, causal=True)
+    x = x + rs(att.reshape(b, s, heads * cfg.head_dim), layer["wo"], "wo")
+    h = norm(x, layer["mlp_norm"])
+    gate = torch.nn.functional.silu(ag(h, layer["w_gate"], "gate"))
+    up = ag(h, layer["w_up"], "up")
+    return x + rs(gate * up, layer["w_down"], "down")
+
+
 def _layer_apply(x, layer, cfg: Config, mesh: Optional[_Plan] = None):
     """One decoder layer with the dense (SwiGLU) MLP."""
+    if cfg.tp_overlap == "fused":
+        if mesh is None:
+            _check_fused(cfg, None)
+        return _layer_apply_fused(x, layer, cfg, mesh)
     x = _attn_apply(x, layer, cfg, mesh)
     h = _rms_norm(x, layer["mlp_norm"])
     if mesh is not None:
@@ -469,12 +572,25 @@ def _remat_wrap(fn: Callable, mode: str) -> Callable:
 
 def _backbone(params, tokens, cfg: Config, embed,
               mesh: Optional[_Plan] = None):
-    """tokens (b, s) → hidden (b, s, d) after the final norm."""
+    """tokens (b, s) → hidden (b, s, d) after the final norm.  Under
+    tp_overlap='fused' the layers run on this rank's rows of the sequence,
+    cut after the lookup and gathered before the final norm."""
     x = embed[tokens] if mesh is None else mesh.lookup(embed, tokens)
+    fused = mesh is not None and mesh.fused
+    if fused:
+        if x.shape[1] % mesh.tp:
+            raise ValueError(
+                f"tp_overlap='fused' sequence-shards the residual over tp: "
+                f"running seq {x.shape[1]} must be divisible by "
+                f"tp={mesh.tp} (the training loss drops one position — "
+                f"pick cfg.seq = k*tp + 1)")
+        x = split_to(x, 1, "tp", mesh.mesh)
     layer_fn = _remat_wrap(lambda x, layer: _layer_apply(x, layer, cfg, mesh),
                            cfg.remat)
     for layer in params["layers"]:
         x = layer_fn(x, layer)
+    if fused:
+        x = gather_from(x, 1, "tp", mesh.mesh)
     return _rms_norm(x, params["final_norm"])
 
 
@@ -599,6 +715,63 @@ def value_and_grad(params: Dict[str, Any], tokens: torch.Tensor, cfg: Config,
     return loss.detach(), grads
 
 
+def _quant_grad_sync(cfg: Config, mesh: DeviceMesh,
+                     dev: torch.device) -> Callable:
+    """value-and-grad with the dp sum carried by the block-quantized tier:
+    this rank's loss on its dp rows (no mesh inside), each leaf's gradient
+    averaged over dp by ``coll/quant.psum_quant`` after the backward, the
+    loss averaged exactly (a scalar).  dp-only, as the reference."""
+    from ..coll.quant import psum_quant
+
+    n = overlap.check_dp_mesh(mesh, "grad_sync='quant'")
+    group = mesh.get_group("dp")
+
+    def vg(params, tokens):
+        local = overlap.dp_batch(torch.as_tensor(tokens), mesh)
+        loss, grads = value_and_grad(params, local, cfg, dev)
+        grads = tuple(psum_quant(g, group, n, avg=True,
+                                 block=cfg.grad_sync_block) for g in grads)
+        return overlap.pmean(loss, group, n), grads
+
+    return vg
+
+
+def make_value_and_grad(cfg: Config, mesh: Any = None,
+                        device: DeviceLike = None) -> Callable:
+    """``vg(params, tokens) -> (loss, grads)`` as the train step takes it
+    for ``cfg.grad_sync``, the grads in ``optim.tree_leaves`` order:
+    "native" is ``value_and_grad`` (on a mesh the exact sum over dp × sp);
+    the others need a dp-only mesh (see the module docstring), where every
+    rank passes the whole batch.  Making it is collective on a mesh."""
+    if cfg.grad_sync not in _GRAD_SYNC:
+        raise ValueError(f"unknown grad_sync {cfg.grad_sync!r} "
+                         f"(expected one of {_GRAD_SYNC})")
+    if cfg.tp_overlap == "fused" and cfg.grad_sync != "native":
+        # the explicit grad-sync schedulers run the loss with no mesh
+        # inside: the fused layer cannot run there
+        raise ValueError(
+            f"tp_overlap='fused' requires grad_sync='native' "
+            f"(got {cfg.grad_sync!r}): the dp-only grad sync runs the "
+            "loss without the fused layer's mesh")
+    dev = resolve_device(device)
+    if cfg.grad_sync == "native":
+        _plan(mesh, cfg)
+        return lambda params, tokens: value_and_grad(params, tokens, cfg,
+                                                     dev, mesh)
+    if mesh is None:
+        raise ValueError(f"grad_sync={cfg.grad_sync!r} requires a mesh "
+                         "(single-controller has no dp axis to sync)")
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh: a torch.distributed DeviceMesh (make_mesh), "
+                        f"not {type(mesh).__name__}")
+    if cfg.grad_sync == "quant":
+        return _quant_grad_sync(cfg, mesh, dev)
+    return overlap.make_grad_sync(
+        cfg.grad_sync, mesh,
+        lambda params, tokens: loss_fn(params, tokens, cfg, dev),
+        bucket_bytes=cfg.grad_bucket_bytes, quant_block=cfg.grad_sync_block)
+
+
 def make_train_step(cfg: Config, mesh: Any = None,
                     learning_rate: float = 1e-3, device: DeviceLike = None,
                     ) -> Tuple[Callable, Callable]:
@@ -611,27 +784,16 @@ def make_train_step(cfg: Config, mesh: Any = None,
 
     With a ``mesh`` every rank of it calls ``step`` with its
     ``shard_params`` shards and the whole (batch, seq + 1) batch, and gets
-    the global mean loss; the gradients sum over dp × sp
-    (``grad_sync="native"``) and AdamW, elementwise, runs on each rank's
-    shards.  Making the step is collective (the dp × sp group)."""
-    if cfg.grad_sync not in _GRAD_SYNC:
-        raise ValueError(f"unknown grad_sync {cfg.grad_sync!r} "
-                         f"(expected one of {_GRAD_SYNC})")
-    if mesh is None and cfg.grad_sync != "native":
-        raise ValueError(f"grad_sync={cfg.grad_sync!r} requires a mesh "
-                         "(single-controller has no dp axis to sync)")
-    if mesh is not None and cfg.grad_sync != "native":
-        slice_ = "P8" if cfg.grad_sync == "quant" else "P9"
-        raise NotImplementedError(f"grad_sync={cfg.grad_sync!r} on a mesh "
-                                  f"comes with ROADMAP slice {slice_}")
-    _plan(mesh, cfg)
-    dev = resolve_device(device)
+    the global mean loss; the gradients move as ``cfg.grad_sync`` says
+    (``make_value_and_grad``) and AdamW, elementwise, runs on each rank's
+    shards.  Making the step is collective."""
+    vg = make_value_and_grad(cfg, mesh, device)
 
     def init_opt(params):
         return optim.adamw_init(params, cfg.opt_moment_dtype)
 
     def step(params, opt_state, tokens):
-        loss, grads = value_and_grad(params, tokens, cfg, dev, mesh)
+        loss, grads = vg(params, tokens)
         optim.adamw_update(params, list(grads), opt_state, learning_rate)
         return params, opt_state, loss
 

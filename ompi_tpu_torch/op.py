@@ -112,6 +112,21 @@ def _avg_pairwise(a, b):
 AVG = Op("avg", _avg_pairwise)
 
 
+def quantizable(op: Op, dtype) -> bool:
+    """Whether the block-quantized device tier may carry (op, dtype): float
+    operands (a torch or numpy dtype) under SUM/AVG only.  Integer and bool
+    operands have no scale to quantize against, MAX/MIN/PROD do not
+    commute with per-block rescaling, and MAXLOC/MINLOC pairs carry exact
+    indices."""
+    if op.name not in ("sum", "avg"):
+        return False
+    if isinstance(dtype, torch.dtype):
+        return dtype.is_floating_point
+    dt = np.dtype(dtype)
+    return dt.names is None and (np.issubdtype(dt, np.floating)
+                                 or dt.name == "bfloat16")
+
+
 def loc_dtype(value_dtype) -> np.dtype:
     """Structured dtype for MAXLOC/MINLOC pairs on the host
     (≙ MPI_DOUBLE_INT etc.)."""
@@ -131,4 +146,4 @@ def reduce_local_host(op: Op, invec: np.ndarray,
 
 __all__ = ["Op", "SUM", "PROD", "MAX", "MIN", "LAND", "LOR", "LXOR", "BAND",
            "BOR", "BXOR", "REPLACE", "NO_OP", "MAXLOC", "MINLOC", "AVG",
-           "loc_dtype", "reduce_local", "reduce_local_host"]
+           "loc_dtype", "quantizable", "reduce_local", "reduce_local_host"]

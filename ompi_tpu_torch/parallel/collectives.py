@@ -341,6 +341,34 @@ class _CopyTo(torch.autograd.Function):
         return psum(g, ctx.group), None
 
 
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n, me = dist.get_world_size(group), dist.get_rank(group)
+        size = x.shape[dim] // n
+        return x.narrow(dim, me * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        full = all_gather_axis(g.movedim(ctx.dim, 0).contiguous(), ctx.group)
+        return full.movedim(0, ctx.dim), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        full = all_gather_axis(x.movedim(dim, 0).contiguous(), group)
+        return full.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        n, me = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        size = g.shape[ctx.dim] // n
+        return g.narrow(ctx.dim, me * size, size), None, None
+
+
 def ring_hop(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
     """Member i's tensor moves to member (i + 1) % n; the backward moves
     each cotangent back by the inverse permutation (the transpose of
@@ -369,6 +397,30 @@ def copy_to(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
         return x
     return _CopyTo.apply(x, group)
+
+
+def split_to(x: torch.Tensor, dim: int, axis, mesh=None) -> torch.Tensor:
+    """Megatron sequence parallelism's scatter: this member's block of a
+    value replicated over the group, cut on ``dim``; backward, the
+    members' cotangent blocks all-gathered (the value's cotangent is
+    replicated again)."""
+    group = _group_of(axis, mesh)
+    if dist.get_world_size(group) == 1:
+        return x
+    if x.shape[dim] % dist.get_world_size(group):
+        raise ValueError(f"dim {dim} ({x.shape[dim]}) does not divide over "
+                         f"the {dist.get_world_size(group)}-member group")
+    return _SplitTo.apply(x, group, dim)
+
+
+def gather_from(x: torch.Tensor, dim: int, axis, mesh=None) -> torch.Tensor:
+    """``split_to``'s inverse: the members' blocks all-gathered on ``dim``,
+    a value replicated over the group whose cotangent is replicated too;
+    backward, this member's block of it."""
+    group = _group_of(axis, mesh)
+    if dist.get_world_size(group) == 1:
+        return x
+    return _GatherFrom.apply(x, group, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +492,8 @@ class DeviceComm:
         self._idx_cache: "collections.OrderedDict[tuple, Any]" = \
             collections.OrderedDict()
         self._idx_cache_cap = 64
+        self.spc = None          # the context's counters, set by coll/nccl
+        self._quant = None
 
     def _idx_cached(self, key: tuple, build: Callable) -> Any:
         hit = self._idx_cache.get(key)
@@ -454,6 +508,14 @@ class DeviceComm:
 
     def cache_info(self) -> Dict[str, int]:
         return {"entries": len(self._idx_cache)}
+
+    @property
+    def quant(self):
+        """The block-quantized tier over the same axis (coll/quant)."""
+        if self._quant is None:
+            from ..coll.quant import QuantDeviceComm
+            self._quant = QuantDeviceComm(self)
+        return self._quant
 
     def _rows(self, x: torch.Tensor) -> int:
         """Check x lies on this comm's device; return its local rows r."""

@@ -47,7 +47,13 @@ COUNTERS = [
     ("coll_arm_staged_count", "device collectives decided onto the staged arm"),
     ("coll_arm_quant_count", "device collectives decided onto the quant arm"),
     ("coll_wire_bytes", "modeled per-rank wire bytes for device collectives"),
+    ("device_quant_collectives", "device collectives run block-quantized"),
+    ("grad_bucket_count", "bucket exchanges in the last grad-sync plan"),
+    ("grad_bucket_bytes", "total gradient bytes in the last grad-sync plan"),
 ]
+# the grad_bucket_* pair lives in the overlap scheduler (one state per
+# process, not per Context): every read goes through to it
+_READ_THROUGH = ("grad_bucket_count", "grad_bucket_bytes")
 
 
 class Counters:
@@ -58,15 +64,21 @@ class Counters:
         self._v[name] = self._v.get(name, 0) + delta
 
     def get(self, name: str) -> float:
+        if name in _READ_THROUGH:
+            from .parallel import overlap
+            return overlap.pvar_value(name)
         return self._v.get(name, 0)
 
     def snapshot(self) -> Dict[str, float]:
-        return dict(self._v)
+        out = dict(self._v)
+        for name in _READ_THROUGH:
+            out[name] = self.get(name)
+        return out
 
     def dump(self, rank: int) -> str:
         lines = [f"SPC counters (rank {rank}):"]
         for name, help_ in COUNTERS:
-            val = self._v.get(name, 0)
+            val = self.get(name)
             if val:
                 lines.append(f"  {name:24s} {val:>14.6g}  {help_}")
         text = "\n".join(lines)

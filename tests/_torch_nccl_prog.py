@@ -33,7 +33,7 @@ def canonical(R: int, seed: int = 11) -> dict:
     return {"x": f32(R, 16), "ag": f32(R, 2, 4), "a2a": f32(R, R, 3),
             "rsb": f32(R, 2 * R), "agv": agv, "counts": counts,
             "sc": f32(R, R, 2), "scv": f32(R, R, 4), "a2av": f32(R, L),
-            "C": C, "rs": f32(R, 2 * R)}
+            "C": C, "rs": f32(R, 2 * R), "q": f32(R, 1000)}
 
 
 def run(comm, ops, data: dict, lo: int, hi: int, dev_in, dev_out) -> dict:

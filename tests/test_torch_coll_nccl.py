@@ -6,7 +6,8 @@ package's ``coll/xla``.
   planes × force variables × rules files (``DEVICE_RULES.txt`` and
   temporary ones with plane rows), ``"cuda"`` standing for the JAX
   package's non-CPU platform and ``coll_nccl_*`` for ``coll_xla_*``.
-* The arms and the rules source the port lacks raise, naming their slice.
+* The arms and the rules source the port lacks raise, naming their slice;
+  the quant and bidir arms run, decided as the JAX package decides them.
 * ``tpurun -np 2 --device-plane cpu``: ``comm.coll.<entry>`` on device
   rows selects ``nccl`` (``xla`` there) and gives the JAX package's
   per-rank results and arm counts; the staged arm runs across processes.
@@ -144,30 +145,41 @@ def test_rules_files_parse_alike(rules_files, tmp_path):
     ("bidir", "P9")])
 def test_lacking_arms_raise_naming_their_slice(arm, slice_):
     """Where the JAX package would run an arm the port lacks (a force or a
-    rules row that survives its gates), the module refuses it by name."""
-    with pytest.raises(NotImplementedError, match=slice_):
-        t_nccl.check_runnable("allreduce", arm)
+    rules row that survives its gates), the module refuses it by name.
+    The arms the slice named by ``slice_`` brought (quant with P8, bidir
+    with P9) now run: the force gives the JAX package's decision and the
+    module accepts the arm."""
     t_nccl.check_runnable("allreduce", "native")
     t_nccl.check_runnable("allreduce", "staged")
-    # the decision the module makes for a forced quant on f32 sum names it
-    t_var.registry.set_cli("coll_nccl_allreduce_mode", arm)
+    if arm in ("hier", "hier+quant"):
+        with pytest.raises(NotImplementedError, match=slice_):
+            t_nccl.check_runnable("allreduce", arm)
+    else:
+        t_nccl.check_runnable("allreduce", arm)
+    coll = "collmm" if arm == "bidir" else "allreduce"
+    allowed = (("native", "bidir") if arm == "bidir"
+               else ("native", "staged", "quant"))
+    _set(f"{coll}_mode", arm)
     try:
         if arm in ("hier", "hier+quant"):
             # a per-entry force of hier on a one-axis comm: the JAX
             # package's own ValueError (ineligible), never native
             with pytest.raises(ValueError, match="ineligible"):
                 t_nccl.decide_mode("allreduce", 4096, 2, "cuda", [],
-                                   ("native", "staged", "quant"),
-                                   quant_ok=True, hier_ok=False,
+                                   allowed, quant_ok=True, hier_ok=False,
                                    hier_why="single-axis comm")
-        elif arm == "quant":
-            pick = t_nccl.decide_mode("allreduce", 4096, 2, "cuda", [],
-                                      ("native", "staged", "quant"),
-                                      quant_ok=True)[0]
-            with pytest.raises(NotImplementedError, match="P8"):
-                t_nccl.check_runnable("allreduce", pick)
+        else:
+            want = j_xla.decide_mode(coll, 4096, 2, "tpu", [], allowed,
+                                     quant_ok=arm == "quant",
+                                     dtype=np.float32)
+            got = t_nccl.decide_mode(coll, 4096, 2, "cuda", [], allowed,
+                                     quant_ok=arm == "quant",
+                                     dtype=np.float32)
+            assert got == (want[0], _map(want[1]), want[2])
+            assert got[0] == arm
+            t_nccl.check_runnable(coll, got[0])
     finally:
-        t_var.registry.clear_cli("coll_nccl_allreduce_mode")
+        _clear([f"{coll}_mode"])
 
 
 def test_learned_rules_raise_naming_p18():
@@ -276,21 +288,29 @@ PROGRAM = """
         info["p2p_staged"] = {{k: ctx.spc._v.get(k, 0) - before.get(k, 0)
                               for k in ("device_stage_out_bytes",
                                         "device_stage_in_bytes")}}
+    # the quant arm, forced: both packages run it on the same rows
+    force = "coll_nccl_" if PKG == "port" else "coll_xla_"
+    before = dict(ctx.spc._v)
+    var.registry.set_override(force + "allreduce_mode", "quant")
+    res["allreduce_quant"] = dev_out(comm.coll.allreduce(
+        comm, dev_in(data["q"][lo:hi])))
+    var.registry.reset_cache()
+    info["quant_counts"] = {{k: ctx.spc._v.get(k, 0) - before.get(k, 0)
+                            for k in KEYS + ("coll_wire_bytes",)}}
     if PKG == "port":
-        for mode, slice_ in (("quant", "P8"), ("hier", "P13")):
-            var.registry.set_override("coll_nccl_allreduce_mode", mode)
-            try:
-                comm.coll.allreduce(comm, dev_in(data["x"][lo:hi]))
-                raise SystemExit(f"a forced {{mode}} ran")
-            except (NotImplementedError, ValueError) as exc:
-                assert slice_ in str(exc), exc
+        var.registry.set_override("coll_nccl_allreduce_mode", "hier")
+        try:
+            comm.coll.allreduce(comm, dev_in(data["x"][lo:hi]))
+            raise SystemExit("a forced hier ran")
+        except ValueError as exc:
+            assert "P13" in str(exc), exc
         var.registry.reset_cache()
     if R_PER > 1:
         # the single-card regime: every entry again on the staged arm
-        var.registry.set_override(
-            "coll_nccl_mode" if PKG == "port" else "coll_xla_mode", "staged")
+        before = dict(ctx.spc._v)
+        var.registry.set_override(force + "mode", "staged")
         staged = prog.run(comm, ops, data, lo, hi, dev_in, dev_out)
-        info["staged_counts"] = {{k: ctx.spc._v.get(k, 0) - counts[k]
+        info["staged_counts"] = {{k: ctx.spc._v.get(k, 0) - before.get(k, 0)
                                   for k in KEYS}}
         res.update({{"staged_" + k: v for k, v in staged.items()}})
     np.savez(f"{{OUT}}/{{PKG}}_{{ctx.rank}}.npz", **res)
@@ -357,6 +377,9 @@ def test_two_process_component_matches_jax(tmp_path):
         assert tinfo["providers"] == ["nccl"]
         assert jinfo["counts"] == tinfo["counts"]
         assert tinfo["counts"]["coll_arm_native_count"] == len(prog.ENTRIES)
+        # the forced quant arm: one count and the same modeled wire bytes
+        assert jinfo["quant_counts"] == tinfo["quant_counts"]
+        assert tinfo["quant_counts"]["coll_arm_quant_count"] == 1
         assert tinfo["staged_a2a"]["coll_arm_staged_count"] == 1
         assert tinfo["staged_a2a"]["device_stage_out_bytes"] == 2 * 3 * 4
         # one 16-float row, then 8 floats of the strided type, each way
@@ -387,11 +410,19 @@ def test_single_card_regime_matches_single_controller(tmp_path):
         dev_out = lambda a: np.asarray(jax.device_get(a))
         res = prog.run(comm, j_ops, data, 0, R, dc.from_local, dev_out)
         counts = {k: ctx.spc._v.get(k, 0) for k in keys}
+        before = dict(ctx.spc._v)
+        j_var.registry.set_override("coll_xla_allreduce_mode", "quant")
+        res["allreduce_quant"] = dev_out(comm.coll.allreduce(
+            comm, dc.from_local(data["q"])))
+        j_var.registry.reset_cache()
+        quant = {k: ctx.spc._v.get(k, 0) - before.get(k, 0)
+                 for k in keys + ("coll_wire_bytes",)}
+        before = dict(ctx.spc._v)
         j_var.registry.set_override("coll_xla_mode", "staged")
         staged = prog.run(comm, j_ops, data, 0, R, dc.from_local, dev_out)
         res.update({"staged_" + k: v for k, v in staged.items()})
-        return res, {"counts": counts,
-                     "staged_counts": {k: ctx.spc._v.get(k, 0) - counts[k]
+        return res, {"counts": counts, "quant_counts": quant,
+                     "staged_counts": {k: ctx.spc._v.get(k, 0) - before.get(k, 0)
                                        for k in keys}}
 
     try:
@@ -399,11 +430,22 @@ def test_single_card_regime_matches_single_controller(tmp_path):
     finally:
         j_var.registry.reset_cache()
     (tres, tinfo), = _tpurun(tmp_path, "port", 1, R)
+    # forced quant: the single controller quantizes across its 8 devices,
+    # the single card folds its 8 rows in f32 and quantizes nothing
+    want = np.broadcast_to(data["q"].sum(0, dtype=np.float32), (R, 1000))
+    np.testing.assert_allclose(tres.pop("allreduce_quant"), want, rtol=1e-6,
+                               atol=1e-6)
+    got = jres.pop("allreduce_quant")
+    assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
     _hold(jres, tres)
     assert tinfo["providers"] == ["nccl"]
     assert jinfo["counts"] == tinfo["counts"]
     assert tinfo["counts"]["coll_arm_staged_count"] == 1        # alltoall
     assert jinfo["staged_counts"] == tinfo["staged_counts"]
+    for info in (jinfo, tinfo):
+        assert info["quant_counts"]["coll_arm_quant_count"] == 1
+        assert info["quant_counts"]["coll_arm_native_count"] == 0
+    assert tinfo["quant_counts"]["coll_wire_bytes"] == 0     # n = 1
     assert tinfo["staged_counts"]["coll_arm_native_count"] == 0
     assert tinfo["staged_counts"]["device_stage_out_bytes"] > 0
 

@@ -49,7 +49,8 @@ def test_every_module_is_listed():
     assert "ompi_tpu_torch.models.transformer" in MODULES
     assert "ompi_tpu_torch.optim" in MODULES
     for name in ("op", "topo", "parallel.device_plane", "parallel.mesh",
-                 "parallel.collectives"):
+                 "parallel.collectives", "coll.quant", "parallel.overlap",
+                 "ops.collective_matmul"):
         assert f"ompi_tpu_torch.{name}" in MODULES
 
 

@@ -147,6 +147,21 @@ def test_greedy_stream_matches_jax(weights):
 @pytest.mark.parametrize("field,value,slice_", [
     ("mlp", "moe", "P12"), ("tp_overlap", "fused", "P9")])
 def test_unported_options_refuse(field, value, slice_):
+    """An option still to port is refused by its slice's name.  Slice P9
+    brought tp_overlap="fused": the Config takes it, and without a mesh the
+    forward raises the reference's ValueError (it needs a tp axis)."""
+    if slice_ == "P9":
+        jcfg = jax_tfm.Config(**KW, dtype=jnp.float32, tp_overlap=value)
+        cfg = tfm.Config(**KW, dtype=torch.float32, tp_overlap=value)
+        tokens = _tokens((2, KW["seq"]), seed=7)
+        with pytest.raises(ValueError, match="needs a mesh with a tp axis"):
+            jax_tfm.forward(jax_tfm.init_params(jax.random.key(0), jcfg),
+                            jnp.asarray(tokens), jcfg)
+        params = tfm.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+        with pytest.raises(ValueError, match="needs a mesh with a tp axis"):
+            tfm.forward(params, tokens, cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=slice_):
         tfm.Config(**{field: value})
 
@@ -351,11 +366,25 @@ def test_train_step_refusals():
                                 mesh_dim_names=("dp", "sp", "tp"))
         on_mesh = lambda **kw: tfm.make_train_step(
             dataclasses.replace(cfg, **kw), mesh, device="cpu")
-        with pytest.raises(NotImplementedError, match="P8"):
-            on_mesh(grad_sync="quant")
-        for mode in ("perleaf", "bucketed", "unsynced"):
-            with pytest.raises(NotImplementedError, match="P9"):
-                on_mesh(grad_sync=mode)
+        # P8 (quant) and P9 (perleaf, bucketed, unsynced) run on a dp-only
+        # mesh and refuse others with the reference's ValueErrors: a mesh
+        # without dp, a tp or sp axis larger than 1 (layouts only, no
+        # process group behind them), and fused tp overlap beside them
+        no_dp = DeviceMesh("cpu", torch.arange(1).reshape(1),
+                           mesh_dim_names=("tp",), _init_backend=False)
+        tp2 = DeviceMesh("cpu", torch.arange(2).reshape(1, 1, 2),
+                         mesh_dim_names=("dp", "sp", "tp"),
+                         _init_backend=False)
+        for mode in ("quant", "perleaf", "bucketed", "unsynced"):
+            c = dataclasses.replace(cfg, grad_sync=mode)
+            on_mesh(grad_sync=mode)
+            with pytest.raises(ValueError, match="'dp' mesh axis"):
+                tfm.make_train_step(c, no_dp, device="cpu")
+            with pytest.raises(ValueError, match="dp-only"):
+                tfm.make_train_step(c, tp2, device="cpu")
+            with pytest.raises(ValueError, match="grad_sync='native'"):
+                tfm.make_train_step(dataclasses.replace(
+                    c, attn="dense", tp_overlap="fused"), tp2, device="cpu")
         with pytest.raises(ValueError, match="loss_chunk"):
             on_mesh(loss_chunk=8)
         # sp = 2: the mesh's layout only, no process group behind it
