@@ -100,8 +100,30 @@ Phases, in order; any failure raises and the script exits non-zero:
                MiB, quant, unsynced) on a {"dp": 1} mesh at full width:
                the loss and gradients of native's, no collective issued,
                step ms beside native's (grad_sync_dp1 lines).
-The last lines are the collectives, mesh, mpi, grad_sync and kernels
-JSON objects,
+ 13. serve   — in phase 9's world, after phase 12, weights from
+               torch.Generator().manual_seed(0) on a {"tp": 1} mesh, the
+               train shards through convert_params: (a) f32, four
+               requests of 7-64 tokens answered 16 tokens each together by
+               the ServingEngine (max_seqs 8, pages of 16): the streams
+               equal tfm.greedy's (attn="flash", K1 launches counted) and
+               every step's logits are within 1e-4 relative of forward's;
+               one decode step issues 27 audited decode collectives
+               (serve_f32 line); (b) bf16, teacher-forced along (a)'s
+               streams: each step's logits within phase 5's bound of
+               forward's (serve_bf16 line); against both checks three
+               planted faults (a page write one offset late, a block table
+               pointing at another live slot's page, decode attention
+               without the last page) must fail; (c) the scheduler on
+               poisson_stream(32, 50 qps, prompts 64-512, 16-64 new):
+               continuous and static give the same streams, continuous
+               fewer decode steps and higher occupancy, the cache drains
+               (serve_scheduler line); (d) prefill ms at 128/512/2048
+               tokens, decode_step ms at max_seqs 8 and 32 with every slot
+               at 512 and 2048 context beside its bytes bound, tokens/s,
+               the scheduler's tokens/s, one profiled decode step
+               (serve_numbers and profile lines).
+The last lines are the collectives, mesh, mpi, grad_sync, serve and
+kernels JSON objects,
 the nvidia-smi line and {"ok": true, "device": {...}}.  Without CUDA it
 exits 1 and prints no result.
 
@@ -129,7 +151,14 @@ grad_sync_numbers lines); (e) tp_overlap="fused" at (1, 1, 4), attn
 forced bidirectional, a dropped partial rejected, timed (fused_step
 lines); (f) in phase 11, comm.coll.allreduce forced onto the quant arm
 at 1 and 64 MB a rank, within the error model, wire bytes <= 0.3 x
-native's, timed beside native (mpi_numbers lines).
+native's, timed beside native (mpi_numbers lines).  Phase 13e on a
+{"tp": 4} mesh: convert_params on the flagship's train shards bitwise
+against the decode layout cut from the whole tree, and back; the three
+all_to_all plans timed; the f32 engine's streams equal one card's greedy
+and its logits within 1e-4, 27 audited dispatches a step, the decode
+collectives forced onto quant within 0.05 (>= 75% of the tokens), one
+decode_ag returning only this rank's shard rejected; the bf16 decode step
+on four cards beside one card's (serve_multi_card, serve_numbers lines).
 """
 
 from __future__ import annotations
@@ -2296,6 +2325,549 @@ def fused_multi_card(torch, np, tfm, optim, world: int, card: str,
     return rows
 
 
+# -- 13. serving: convert_params, the paged-KV engine, the scheduler --------
+
+SERVE_PROMPT_LENS = (7, 23, 41, 64)      # four requests, 7-64 tokens
+SERVE_NEW = 16                           # tokens answered a request
+SERVE_PAGE = 16
+SERVE_SEQS = 8
+# f32: the reference's own bound on the engine against full-context greedy
+# (tests/test_serving.py:221-223), max|diff| / max|want| over a request's
+# logits
+SERVE_REL = 1e-4
+# bf16, teacher-forced: each step's logits against forward's last position,
+# relative RMS; phase 5's bound (two bf16 paths that round in other places)
+SERVE_BF16_RMS = FLASH_VS_DENSE_RMS
+# both decode collectives forced onto quant at the reference test's block
+# (tests/test_serving.py:316-339): logits within 0.05 relative of the
+# native arm's, teacher-forced, and >= 75% of the tokens the same
+SERVE_QUANT_REL = 0.05
+SERVE_QUANT_MATCH = 0.75
+SERVE_QUANT_BLOCK = 32
+# 13c: the scheduler's stream
+SCHED_N, SCHED_QPS = 32, 50.0
+SCHED_PROMPT, SCHED_NEW = (64, 512), (16, 64)
+# 13d: prefill lengths; decode steps at (max_seqs, context of every slot)
+PREFILL_LENS = (128, 512, 2048)
+DECODE_CASES = [(8, 512), (8, 2048), (32, 512), (32, 2048)]
+
+
+def serve_prompts(np, vocab: int):
+    rng = np.random.default_rng(13)
+    return [rng.integers(0, vocab, n).tolist() for n in SERVE_PROMPT_LENS]
+
+
+def serve_pages(n_tokens: int) -> int:
+    return -(-n_tokens // SERVE_PAGE)
+
+
+def serve_engine(tfm, dc, train, cfg, max_seqs: int, pages_per_seq: int):
+    """An engine from this rank's train shards, with room for max_seqs
+    sequences of pages_per_seq pages each (page 0 is scratch)."""
+    from ompi_tpu_torch.serving.engine import ServingEngine
+    return ServingEngine(dc, train, cfg, n_pages=max_seqs * pages_per_seq + 1,
+                         page_size=SERVE_PAGE, max_seqs=max_seqs,
+                         max_pages_per_seq=pages_per_seq)
+
+
+def serve_requests(torch, np, eng, prompts, n_new: int, teacher=None,
+                   corrupt=None):
+    """Answer ``prompts`` together on ``eng``: every request admitted and
+    prefilled, then n_new - 1 batched greedy decode steps; with
+    ``teacher`` the tokens fed back come from it (teacher-forced).
+    ``corrupt(eng, slots)`` runs after admission (a planted fault).
+    Returns the token streams and each request's logits rows (n_new, V),
+    this rank's, on the device."""
+    cache = eng.cache
+    slots = [cache.admit(len(p), n_new) for p in prompts]
+    if corrupt is not None:
+        corrupt(eng, slots)
+    try:
+        streams, rows = [], []
+        for s, p in zip(slots, prompts):
+            first, lg = eng.prefill(s, np.asarray(p))
+            streams.append([first])
+            rows.append([lg[0, 0]])
+        for t in range(1, n_new):
+            tokens = np.zeros(eng.max_seqs, np.int64)
+            positions = np.full(eng.max_seqs, -1, np.int64)
+            for i, s in enumerate(slots):
+                tokens[s] = (streams[i][-1] if teacher is None
+                             else teacher[i][t - 1])
+                positions[s] = cache.seq_lens[s]
+            nxt, lg = eng.decode_step(tokens, positions)
+            for i, s in enumerate(slots):
+                cache.seq_lens[s] += 1
+                streams[i].append(int(nxt[s]))
+                rows[i].append(lg[0, s])
+    finally:
+        for s in slots:
+            cache.release(s)
+    return streams, [torch.stack(r) for r in rows]
+
+
+def serve_yardstick(torch, tfm, params, cfg, prompts, streams):
+    """forward's last-position logits at every context the streams see
+    (prompt + stream[:t]): the full-context recompute greedy does."""
+    return [torch.stack([tfm.forward(params, [p + s[:t]], cfg)[0, -1]
+                         for t in range(len(s))])
+            for p, s in zip(prompts, streams)]
+
+
+def serve_rel(got, want) -> float:
+    """max|got - want| / max|want| of each request's logits, the largest
+    over the requests (the reference test's measure)."""
+    return max(float((g.float() - w).abs().max() / w.abs().max())
+               for g, w in zip(got, want))
+
+
+def serve_step_rms(got, want) -> float:
+    """The largest relative RMS of one step's logits."""
+    return max(rel_rms(g[t].float(), w[t]) for g, w in zip(got, want)
+               for t in range(len(w)))
+
+
+def greedy_check(torch, tfm, attention, params, cfg, prompts) -> tuple:
+    """13a's yardstick: ``tfm.greedy`` (attn="flash": full-context
+    recompute, K1 a layer a forward) on each prompt, its K1 launches
+    counted, and forward's logits at every context it saw."""
+    zero_counts(attention)
+    streams = [tfm.greedy(params, [p], SERVE_NEW, cfg)[0] for p in prompts]
+    torch.cuda.synchronize()
+    counts = launch_counts(attention)
+    want = cfg.n_layers * SERVE_NEW * len(prompts)
+    if counts != (want, 0, 0, 0):
+        raise AssertionError(f"greedy's K1-K4 launches {counts}, want "
+                             f"({want}, 0, 0, 0)")
+    return streams, serve_yardstick(torch, tfm, params, cfg, prompts,
+                                    streams), counts[0]
+
+
+def check_dispatches(np, eng) -> dict:
+    """One decode step (one live slot) issues 1 + 4 n_layers + 2 decode
+    collectives, one of them decode_rs, and the engine's wire bytes equal
+    the spc's coll_wire_bytes."""
+    spc = eng.dc.spc
+    slot = eng.cache.admit(1, 2)
+    before = dict(eng.dispatches)
+    wire0, spc0 = eng.wire_bytes, spc.get("coll_wire_bytes")
+    tokens = np.zeros(eng.max_seqs, np.int64)
+    positions = np.full(eng.max_seqs, -1, np.int64)
+    positions[slot] = 0
+    eng.decode_step(tokens, positions)
+    eng.cache.release(slot)
+    per_step = {k: eng.dispatches[k] - before[k] for k in before}
+    row = {"dispatches_per_step": sum(per_step.values()),
+           "decode_rs_per_step": per_step["decode_rs"],
+           "want": 1 + 4 * eng.cfg.n_layers + 2,
+           "wire_bytes": eng.wire_bytes - wire0,
+           "spc_wire_bytes": spc.get("coll_wire_bytes") - spc0}
+    if (row["dispatches_per_step"] != row["want"]
+            or row["decode_rs_per_step"] != 1
+            or row["wire_bytes"] != row["spc_wire_bytes"]
+            or eng.wire_bytes != spc.get("coll_wire_bytes")):
+        raise AssertionError(f"decode dispatch audit: {row}")
+    return row
+
+
+def serve_faults(torch, eng_mod):
+    """The faults the engine checks must reject, by name: (name, the
+    context that plants it, the corruption applied after admission)."""
+    late = eng_mod._page_write
+    attn = eng_mod._paged_attn
+
+    def write_late(kp, vp, k, v, page_idx, offset):
+        late(kp, vp, k, v, page_idx, (offset + 1) % SERVE_PAGE)
+
+    def drop_last_page(q, kp, vp, bt, q_pos):
+        bt = bt.clone()
+        rows = torch.arange(bt.shape[0], device=bt.device)
+        bt[rows, q_pos.clamp(min=0) // SERVE_PAGE] = 0   # the scratch page
+        return attn(q, kp, vp, bt, q_pos)
+
+    def shared_page(eng, slots):
+        tables = eng.cache.block_tables
+        tables[slots[1], 0] = tables[slots[0], 0]
+
+    return [("page write one offset late",
+             lambda: planted(eng_mod, "_page_write", write_late), None),
+            ("block table points at another live slot's page",
+             contextlib.nullcontext, shared_page),
+            ("decode attention drops the last page",
+             lambda: planted(eng_mod, "_paged_attn", drop_last_page), None)]
+
+
+def fault_rows(torch, np, eng_mod, eng, prompts, check, teacher=None):
+    """Each planted fault run through ``check(streams, rows) -> (ok, err)``:
+    each must fail it."""
+    out = []
+    for name, ctx, corrupt in serve_faults(torch, eng_mod):
+        with ctx():
+            streams, rows = serve_requests(torch, np, eng, prompts, SERVE_NEW,
+                                           teacher, corrupt)
+        ok, err = check(streams, rows)
+        out.append({"fault": name, "err": err, "rejected": not ok})
+        if ok:
+            raise AssertionError(f"the check passed the planted fault "
+                                 f"{name!r} (err {err})")
+    return out
+
+
+def f32_check(want_streams, want_rows):
+    """13a's check: the same tokens and logits within SERVE_REL."""
+    def check(streams, rows):
+        err = serve_rel(rows, want_rows)
+        return streams == want_streams and err < SERVE_REL, err
+    return check
+
+
+def timed_ms(torch, fn, n: int = 10, warmup: int = 2) -> float:
+    """Median host-clock ms of ``fn``, which ends in a device sync."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def decode_bound(cfg, n_params: int, max_seqs: int, context: int,
+                 itemsize: int):
+    """The least time one decode step could take: every weight read once
+    and every live KV row read once (2 x heads x head_dim per layer), and
+    the products' operations."""
+    h = cfg.n_heads * cfg.head_dim
+    kv = max_seqs * context * 2 * h * itemsize * cfg.n_layers
+    flops = 2 * n_params * max_seqs + 4 * max_seqs * context * h * cfg.n_layers
+    ms, by = bound(flops, n_params * itemsize + kv)
+    return ms, by, n_params * itemsize, kv
+
+
+def decode_step_ms(torch, np, tfm, dc, train, cfg, max_seqs: int,
+                   context: int, profile=None) -> float:
+    """decode_step with every slot at ``context`` (its keys 0..context-1
+    live), median host-clock ms; ``profile`` (card, log_fn) also runs one
+    profiled step, its row handed to log_fn."""
+    eng = serve_engine(tfm, dc, train, cfg, max_seqs,
+                       serve_pages(context + 1))
+    for _ in range(max_seqs):
+        eng.cache.admit(context, 1)
+    tokens = np.arange(max_seqs, dtype=np.int64)
+    positions = np.full(max_seqs, context - 1, np.int64)
+    step = lambda: eng.decode_step(tokens, positions)
+    ms = timed_ms(torch, step)
+    if profile is not None:
+        profile_run(torch, step, ms, profile[0], "decode_step",
+                    log_fn=profile[1])
+    del eng
+    torch.cuda.empty_cache()
+    return ms
+
+
+def serve_one_card(torch, np, tfm, attention, card, log_fn=log) -> dict:
+    """Phase 13 on one card, in phase 9's one-process world: 13a-13d."""
+    from ompi_tpu_torch import serving, spc as spc_mod
+    from ompi_tpu_torch.parallel import DeviceComm, make_mesh
+    from ompi_tpu_torch.serving import engine as eng_mod
+    from ompi_tpu_torch.serving.scheduler import (
+        ContinuousBatchingScheduler, poisson_stream)
+    cfg = tfm.flagship_config()
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    n_params = sum(p.numel() for p in params["layers"][0].values()) * \
+        cfg.n_layers + params["embed"].numel() + cfg.d_model
+    mesh = make_mesh({"tp": 1})
+    dc = DeviceComm(mesh, "tp")
+    dc.spc = spc_mod.Counters()
+    train = tfm.shard_params(params, mesh, cfg)
+    prompts = serve_prompts(np, cfg.vocab)
+    pages = serve_pages(max(SERVE_PROMPT_LENS) + SERVE_NEW)
+    row = {"n_params": n_params}
+
+    # 13a: f32, against full-context greedy (K1 launched)
+    t0 = time.perf_counter()
+    want_streams, want_rows, k1 = greedy_check(torch, tfm, attention, params,
+                                               f32, prompts)
+    eng = serve_engine(tfm, dc, train, f32, SERVE_SEQS, pages)
+    # the serving path itself runs none of K1-K4 (prefill is
+    # attention_reference, decode decode_attention, as in the reference)
+    zero_counts(attention)
+    streams, rows = serve_requests(torch, np, eng, prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    engine_launches = launch_counts(attention)
+    check = f32_check(want_streams, want_rows)
+    ok, err = check(streams, rows)
+    a = {"phase": "serve_f32", "requests": len(prompts),
+         "prompt_lens": list(SERVE_PROMPT_LENS), "new_tokens": SERVE_NEW,
+         "tokens_equal": streams == want_streams, "max_rel_err": err,
+         "bound": SERVE_REL, "k1_launches_greedy": k1,
+         "k1_k4_launches_engine": list(engine_launches),
+         "audit": check_dispatches(np, eng),
+         "faults": fault_rows(torch, np, eng_mod, eng, prompts, check),
+         "seconds": time.perf_counter() - t0, "card": card}
+    log_fn(a)
+    if not ok or any(engine_launches):
+        raise AssertionError(f"13a: engine against greedy: {a}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # 13b: bf16, teacher-forced along 13a's streams, against forward
+    t0 = time.perf_counter()
+    want_bf = serve_yardstick(torch, tfm, params, cfg, prompts, want_streams)
+    sched_pages = max(pages, serve_pages(SCHED_PROMPT[1] + SCHED_NEW[1]))
+    eng = serve_engine(tfm, dc, train, cfg, SERVE_SEQS, sched_pages)
+
+    def bf16_check(streams, rows):
+        e = serve_step_rms(rows, want_bf)
+        return e < SERVE_BF16_RMS, e
+
+    streams, rows = serve_requests(torch, np, eng, prompts, SERVE_NEW,
+                                   teacher=want_streams)
+    ok, err = bf16_check(streams, rows)
+    b = {"phase": "serve_bf16", "max_step_rel_rms": err,
+         "bound": SERVE_BF16_RMS,
+         "tokens_equal_f32_greedy": streams == want_streams,
+         "faults": fault_rows(torch, np, eng_mod, eng, prompts, bf16_check,
+                              teacher=want_streams),
+         "seconds": time.perf_counter() - t0, "card": card}
+    log_fn(b)
+    if not ok:
+        raise AssertionError(f"13b: bf16 engine against forward: {b}")
+    del want_bf, want_rows
+
+    # 13c: the scheduler, continuous against static, on the same engine
+    sched = {}
+    for policy in ("continuous", "static"):
+        serving.reset()
+        serving.enable()
+        reqs = poisson_stream(SCHED_N, SCHED_QPS, cfg.vocab, seed=1,
+                              prompt_len=SCHED_PROMPT, max_new=SCHED_NEW)
+        t0 = time.perf_counter()
+        out = ContinuousBatchingScheduler(eng, reqs, policy=policy).run()
+        rep = serving.report()
+        serving.disable()
+        sched[policy] = {
+            "decode_steps": out["decode_steps"], "tokens": out["tokens"],
+            "completed": out["completed"], "clock_s": out["clock_s"],
+            "tokens_per_s": out["tokens_per_s"],
+            "batch_occupancy": rep["batch_occupancy"],
+            "decode_tokens_per_s": rep["goodput"]["decode_tokens_per_s"],
+            "goodput": rep["goodput"], "itl": rep["itl"],
+            "pages_used": eng.cache.pages_used,
+            "wall_s": time.perf_counter() - t0,
+            "streams": {rid: r["tokens"] for rid, r in out["results"].items()}}
+    cont, stat = sched["continuous"], sched["static"]
+    c = {"phase": "serve_scheduler", "requests": SCHED_N, "qps": SCHED_QPS,
+         "prompt_len": list(SCHED_PROMPT), "max_new": list(SCHED_NEW),
+         "streams_equal": cont["streams"] == stat["streams"],
+         **{p: {k: v for k, v in s.items() if k != "streams"}
+            for p, s in sched.items()}, "card": card}
+    log_fn(c)
+    if not (c["streams_equal"] and cont["completed"] == SCHED_N
+            and cont["decode_steps"] < stat["decode_steps"]
+            and cont["batch_occupancy"] > stat["batch_occupancy"]
+            and cont["pages_used"] == stat["pages_used"] == 0):
+        raise AssertionError(f"13c: scheduler: {c}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # 13d: numbers, bf16
+    numbers = []
+
+    def number(metric, value, **extra):
+        r = {"phase": "serve_numbers", "metric": metric, "value": value,
+             **extra, "card": card}
+        log_fn(r)
+        numbers.append({k: v for k, v in r.items() if k != "phase"})
+
+    eng = serve_engine(tfm, dc, train, cfg, 1,
+                       serve_pages(max(PREFILL_LENS) + 1))
+    slot = eng.cache.admit(max(PREFILL_LENS), 1)
+    rng = np.random.default_rng(14)
+    for n in PREFILL_LENS:
+        prompt = rng.integers(0, cfg.vocab, n)
+        number("prefill_ms", timed_ms(torch, lambda: eng.prefill(slot, prompt),
+                                      n=5, warmup=1), prompt_tokens=n)
+    del eng
+    torch.cuda.empty_cache()
+    profiled = []
+
+    def keep(obj):
+        profiled.append(obj)
+        log_fn(obj)
+
+    for max_seqs, context in DECODE_CASES:
+        profile = (card, keep) if (max_seqs, context) == DECODE_CASES[0] \
+            else None
+        ms = decode_step_ms(torch, np, tfm, dc, train, cfg, max_seqs, context,
+                            profile)
+        b_ms, by, w_bytes, kv_bytes = decode_bound(
+            cfg, n_params, max_seqs, context, cfg.dtype.itemsize)
+        number("decode_step_ms", ms, max_seqs=max_seqs, context=context,
+               bound_ms=b_ms, bound_by=by, weight_bytes=w_bytes,
+               kv_bytes=kv_bytes, bound_share=b_ms / ms,
+               decode_tokens_per_s=max_seqs / ms * 1e3)
+    p = profiled[0]
+    number("decode_step_idle_share", p["idle_share"],
+           max_seqs=DECODE_CASES[0][0], context=DECODE_CASES[0][1],
+           device_busy_ms=p["device_busy_ms"], step_ms=p["unprofiled_ms"],
+           launches=sum(c["launches"] for c in p["by_class"].values()))
+    for policy in ("continuous", "static"):
+        number("scheduler_tokens_per_s", sched[policy]["tokens_per_s"],
+               policy=policy)
+    del params, train
+    torch.cuda.empty_cache()
+    row.update({"f32": {k: v for k, v in a.items() if k != "phase"},
+                "bf16": {k: v for k, v in b.items() if k != "phase"},
+                "scheduler": {k: v for k, v in c.items() if k != "phase"},
+                "numbers": numbers})
+    return row
+
+
+def serve_multi_card(torch, np, tfm, attention, world: int, card: str,
+                     log_fn) -> dict:
+    """13e: the flagship's shards on a {"tp": world} mesh over NCCL:
+    convert_params bitwise against the decode layout cut from the whole
+    tree, both ways; the three all_to_all plans timed; the f32 engine
+    against one card's greedy (tokens equal, logits within SERVE_REL), its
+    dispatch audit, the quant arm forced, a skipped decode_ag rejected;
+    the bf16 decode step on four cards beside one card's."""
+    from ompi_tpu_torch import optim, spc as spc_mod
+    from ompi_tpu_torch.core import var
+    from ompi_tpu_torch.parallel import DeviceComm, make_mesh
+    from ompi_tpu_torch.parallel.mesh import sharded
+    from ompi_tpu_torch.parallel.reshard import resharder
+    cfg = tfm.flagship_config()
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    mesh = make_mesh({"tp": world})
+    train = tfm.shard_params(params, mesh, cfg)
+    row = {}
+
+    # convert_params, bitwise both ways
+    dec = tfm.convert_params(train, mesh, cfg, to="decode")
+    back = tfm.convert_params(dec, mesh, cfg, to="train")
+    specs = tfm.decode_param_specs(cfg)
+
+    def cut(x, spec, name):
+        if name == "wqkv":
+            x = tfm._qkv_by_heads(x, world)
+        return sharded(mesh, *spec).local(x)
+
+    want = {"embed": cut(params["embed"], specs["embed"], "embed"),
+            "final_norm": params["final_norm"],
+            "layers": [{k: cut(v, s[k], k) for k, v in lw.items()}
+                       for lw, s in zip(params["layers"], specs["layers"])]}
+    same = lambda t1, t2: all(torch.equal(x, y) for x, y in zip(
+        optim.tree_leaves(t1), optim.tree_leaves(t2)))
+    row["convert"] = {"decode_bitwise": same(dec, want),
+                      "train_round_trip_bitwise": same(back, train)}
+    del dec, back, want
+
+    # the three all_to_all plans, timed
+    rs = resharder(mesh)
+    train_specs = tfm.param_specs(cfg)
+    plans = []
+    for name, x, src, dst in (
+            ("embed", train["embed"], train_specs["embed"], specs["embed"]),
+            ("wo", train["layers"][0]["wo"], train_specs["layers"][0]["wo"],
+             specs["layers"][0]["wo"]),
+            ("w_down", train["layers"][0]["w_down"],
+             train_specs["layers"][0]["w_down"],
+             specs["layers"][0]["w_down"])):
+        shape = [n * (world if a else 1) for n, a in zip(x.shape, src)]
+        plan = rs.plan(shape, x.dtype, src, dst)
+        ms = median_ms(lambda: rs.run(x, src, dst), n=10)
+        plans.append({"leaf": name, "steps": plan.describe(),
+                      "shape": shape, "shard_bytes": plan.src_shard_bytes,
+                      "wire_bytes": plan.wire_bytes, "ms": ms,
+                      "wire_GBps": plan.wire_bytes / ms / 1e6})
+    row["plans"] = plans
+    if not (all(row["convert"].values())
+            and all(p["steps"] == ["all_to_all[tp:0->1]"] for p in plans)):
+        raise AssertionError(f"13e: convert_params: {row}")
+
+    # the f32 engine against one card's greedy, on every rank
+    prompts = serve_prompts(np, cfg.vocab)
+    want_streams, want_rows, k1 = greedy_check(torch, tfm, attention, params,
+                                               f32, prompts)
+    dc = DeviceComm(mesh, "tp")
+    dc.spc = spc_mod.Counters()
+    pages = serve_pages(max(SERVE_PROMPT_LENS) + SERVE_NEW)
+    eng = serve_engine(tfm, dc, train, f32, SERVE_SEQS, pages)
+    streams, rows = serve_requests(torch, np, eng, prompts, SERVE_NEW)
+    check = f32_check(want_streams, want_rows)
+    ok, err = check(streams, rows)
+    e = {"tokens_equal": streams == want_streams, "max_rel_err": err,
+         "bound": SERVE_REL, "k1_launches_greedy": k1,
+         "audit": check_dispatches(np, eng)}
+    # both decode collectives forced onto quant, teacher-forced along the
+    # native streams
+    force = {"coll_nccl_decode_ag_mode": "quant",
+             "coll_nccl_decode_rs_mode": "quant",
+             "coll_quant_block": SERVE_QUANT_BLOCK}
+    quant0 = dc.spc.get("coll_arm_quant_count")
+    for name, value in force.items():
+        var.registry.set_override(name, value)
+    try:
+        q_streams, q_rows = serve_requests(torch, np, eng, prompts, SERVE_NEW,
+                                           teacher=streams)
+    finally:
+        for name in force:
+            var.registry.set_override(name, var.registry.lookup(name).default)
+    match = float(np.mean([a == b for qs, s in zip(q_streams, streams)
+                           for a, b in zip(qs, s)]))
+    e["quant"] = {"max_rel_err": serve_rel(q_rows, rows),
+                  "bound": SERVE_QUANT_REL, "token_match": match,
+                  "match_bound": SERVE_QUANT_MATCH, "block": SERVE_QUANT_BLOCK,
+                  "quant_dispatches": dc.spc.get("coll_arm_quant_count")
+                  - quant0}
+    # planted: one decode_ag a forward returns only this rank's shard
+    real = dc.allgather
+    calls = [0]
+
+    def own_shard_only(x):
+        calls[0] += 1
+        if calls[0] % (4 * cfg.n_layers + 2) == 2:   # layer 0's head combine
+            return x.repeat(1, world, 1)
+        return real(x)
+
+    with planted(dc, "allgather", own_shard_only):
+        f_streams, f_rows = serve_requests(torch, np, eng, prompts, SERVE_NEW)
+    f_ok, f_err = check(f_streams, f_rows)
+    e["fault_skipped_decode_ag"] = {"err": f_err, "rejected": not f_ok}
+    row["engine_f32"] = e
+    log_fn({"phase": "serve_multi_card", "cards": world, **e, "card": card})
+    if not (ok and e["quant"]["max_rel_err"] < SERVE_QUANT_REL
+            and match >= SERVE_QUANT_MATCH and e["quant"]["quant_dispatches"]
+            and not f_ok):
+        raise AssertionError(f"13e: engine on {world} cards: {e}")
+    del eng, want_rows, rows, q_rows, f_rows
+    torch.cuda.empty_cache()
+
+    # the bf16 decode step on the tp mesh beside one card's (a {"dp":
+    # world, "tp": 1} mesh: every rank its own one-card engine)
+    max_seqs, context = DECODE_CASES[0]
+    four = decode_step_ms(torch, np, tfm, dc, train, cfg, max_seqs, context)
+    solo_mesh = make_mesh({"dp": world, "tp": 1})
+    solo = DeviceComm(solo_mesh, "tp")
+    solo.spc = spc_mod.Counters()
+    one = decode_step_ms(torch, np, tfm, solo,
+                         tfm.shard_params(params, solo_mesh, cfg), cfg,
+                         max_seqs, context)
+    row["decode_step"] = {"max_seqs": max_seqs, "context": context,
+                          "cards": world, "ms": four, "one_card_ms": one,
+                          "ratio": four / one}
+    log_fn({"phase": "serve_numbers", "metric": "decode_step_ms_tp",
+            **row["decode_step"], "card": card})
+    del params, train
+    torch.cuda.empty_cache()
+    return row
+
+
 # -- 11. the MPI surface: runtime, comm and coll/nccl under tpurun ----------
 
 # the entries coll/nccl serves (every one must be its provider)
@@ -2753,6 +3325,7 @@ def multi_card_worker(rank: int, world: int, init_method: str,
     import torch
     from ompi_tpu_torch.models import transformer as tfm
     from ompi_tpu_torch import optim
+    from ompi_tpu_torch.ops import attention
     from ompi_tpu_torch.parallel import DeviceComm, init_device_plane
     from ompi_tpu_torch.parallel import make_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2774,10 +3347,14 @@ def multi_card_worker(rank: int, world: int, init_method: str,
     sync = grad_sync_multi_card(torch, np, tfm, optim, world, card, out)
     torch.cuda.empty_cache()
     fused = fused_multi_card(torch, np, tfm, optim, world, card, out)
+    torch.cuda.empty_cache()
+    # 13e: convert_params and the engine on a {"tp": world} mesh
+    serve = serve_multi_card(torch, np, tfm, attention, world, card, out)
     out({"collectives": rows})
     out({"mesh": mesh_rows})
     out({"grad_sync": sync})
     out({"fused": fused})
+    out({"serve": serve})
     torch.distributed.destroy_process_group()
 
 
@@ -3087,8 +3664,13 @@ def main() -> int:
     sync_row = {"codec": codec_check(torch, grad_numel, card),
                 "dp1": grad_sync_one_card(torch, tfm, optim, cfg, pristine,
                                           train_tokens, card)}
-    torch.distributed.destroy_process_group()
     del pristine, train_tokens
+    torch.cuda.empty_cache()
+
+    # 13. serving in the same world: the engine against greedy (f32) and
+    # forward (bf16), its planted faults, the scheduler, the numbers
+    serve_row = serve_one_card(torch, np, tfm, attention, card)
+    torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
 
     # 11. the MPI surface under the port's tpurun: the device program on
@@ -3121,6 +3703,7 @@ def main() -> int:
     log({"mesh": mesh_rows})
     log({"mpi": mpi_row})
     log({"grad_sync": sync_row})
+    log({"serve": serve_row})
     log({"kernels": [
         {"name": "flash_partials", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_partials.cu",
@@ -3128,7 +3711,9 @@ def main() -> int:
          "launches": per_step[0], "max_abs_err": path_err, "ms": k1_ms,
          "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": sdpa_ms, "tflops": flops / k1_ms / 1e9,
-         "bound_share": k1_bound / k1_ms, **ring_row},
+         "bound_share": k1_bound / k1_ms,
+         "serve_greedy_launches": serve_row["f32"]["k1_launches_greedy"],
+         **ring_row},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ompi_tpu/ops/attention.py:381",
@@ -3171,7 +3756,7 @@ if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multi-card", action="store_true",
-                    help="run only phases 9, 10c and 11, across every "
-                         "visible card")
+                    help="run only phases 9, 10c, 11, 12d-f and 13e, "
+                         "across every visible card")
     ns = ap.parse_args()
     sys.exit(multi_card_main() if ns.multi_card else main())

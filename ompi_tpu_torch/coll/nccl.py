@@ -127,6 +127,22 @@ _var.register("coll", "nccl", "collmm_mode", "", type=str, level=3,
                    "(native = unidirectional ring | bidir = two "
                    "half-rings in both ring directions; empty = auto "
                    "via DEVICE_RULES collmm rows).")
+# the reshard plan steps (parallel/reshard) and the serving tier's decode
+# combines (serving/engine): decided by coll name, not NcclModule entries
+_var.register("coll", "nccl", "reshard_mode", "", type=str, level=3,
+              help="Force the reshard plan-step arm (native; empty = "
+                   "auto via DEVICE_RULES reshard rows). Plan steps are "
+                   "layout-pure single collectives, so native is the "
+                   "only executable arm.")
+_var.register("coll", "nccl", "decode_ag_mode", "", type=str, level=3,
+              help="Force the serving decode allgather arm (native|"
+                   "quant; empty = auto via DEVICE_RULES decode_ag "
+                   "rows): every decode-path feature combine plus the "
+                   "logits-sum gather half.")
+_var.register("coll", "nccl", "decode_rs_mode", "", type=str, level=3,
+              help="Force the serving decode reduce-scatter arm "
+                   "(native|quant; empty = auto via DEVICE_RULES "
+                   "decode_rs rows): the logits-sum reduce half.")
 
 _MODES = _rules_grammar.MODES
 _PLANES = _rules_grammar.PLANES

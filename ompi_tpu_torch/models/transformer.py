@@ -46,11 +46,18 @@ one native mean per leaf after the backward, ``bucketed`` fixed-byte
 buckets issued from autograd hooks during the backward
 (``parallel/overlap``), ``unsynced`` none (a measurement floor).
 
+Serving (``serving/engine``) reads the decode layout
+(``decode_param_specs``: every product column-parallel, the embedding cut
+over d_model), reached from the train shards by ``convert_params``
+through ``parallel/reshard``, and ``rope_rows``/``decode_attention``, the
+reference's per-row RoPE and paged decode attention.
+
 Not yet ported, refused with the ROADMAP slice that brings it:
-``mlp="moe"`` (P12) and the reference's two-tier ``dpo`` axis (P13).  The
-port's own refusal: ``attn="flash"`` or ``"dense"`` on a mesh whose sp
-axis is larger than 1 (the reference replicates them over sp under GSPMD;
-the port shards the sequence over sp).
+``mlp="moe"`` (P12), ``decode_overlap="fused"`` (P11b) and the
+reference's two-tier ``dpo`` axis (P13).  The port's own refusal:
+``attn="flash"`` or ``"dense"`` on a mesh whose sp axis is larger than 1
+(the reference replicates them over sp under GSPMD; the port shards the
+sequence over sp).
 """
 
 from __future__ import annotations
@@ -76,15 +83,19 @@ from ..parallel import overlap
 from ..parallel.collectives import (copy_to, gather_from, pmax, reduce_from,
                                     split_to)
 from ..parallel.mesh import axes_group, axis_rank, axis_size, sharded
+from ..parallel.reshard import resharder
 from ..parallel.ring import attention_reference, ring_attention
 
 _NOT_YET = {
     ("mlp", "moe"): "the MoE block comes with ROADMAP slice P12",
+    ("decode_overlap", "fused"): "the fused decode program comes with "
+                                 "ROADMAP slice P11b",
 }
 _CHOICES = {"attn": ("dense", "flash", "ring"), "mlp": ("dense", "moe"),
             "tp_overlap": ("none", "fused"),
             "remat": ("none", "dots", "full"),
-            "opt_moment_dtype": ("float32", "bfloat16")}
+            "opt_moment_dtype": ("float32", "bfloat16"),
+            "decode_overlap": ("eager", "fused")}
 _GRAD_SYNC = ("native", "quant", "perleaf", "bucketed", "unsynced")
 
 
@@ -116,6 +127,9 @@ class Config:
     # "bucketed" bucket target; None = the coll_nccl_grad_bucket_bytes
     # variable (4 MiB)
     grad_bucket_bytes: Optional[int] = None
+    # how the serving engine's decode step moves its tp combines: "eager",
+    # one audited decode_ag/decode_rs between the pieces ("fused": P11b)
+    decode_overlap: str = "eager"
 
     def __post_init__(self):
         for name, allowed in _CHOICES.items():
@@ -234,11 +248,11 @@ def _qkv_by_heads(w: torch.Tensor, tp: int,
     return w.reshape(shape).transpose(1, 2).reshape(d, -1)
 
 
-def _map_specs(fn: Callable, params: Dict[str, Any],
-               cfg: Config) -> Dict[str, Any]:
+def _map_specs(fn: Callable, params: Dict[str, Any], cfg: Config,
+               specs: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """``fn(leaf, spec, name)`` over the parameter tree, beside its
-    ``param_specs``."""
-    specs = param_specs(cfg)
+    ``specs`` (``param_specs`` by default)."""
+    specs = param_specs(cfg) if specs is None else specs
     if len(params["layers"]) != cfg.n_layers:
         raise ValueError(f"{len(params['layers'])} layers, Config has "
                          f"{cfg.n_layers}")
@@ -284,6 +298,41 @@ def gather_params(params: Dict[str, Any], mesh: DeviceMesh,
 
     _check_tp(cfg, tp)
     return _map_specs(one, params, cfg)
+
+
+def decode_param_specs(cfg: Config) -> Dict[str, Any]:
+    """Decode/serving layout: weight-stationary column-parallel.  Train's
+    row-parallel weights (wo, w_down) flip to sharding their OUTPUT
+    features over `tp`, and the embedding flips from vocab- to model-dim
+    sharding, as in the reference.  ``wqkv`` keeps the train cut, by heads
+    (``_qkv_by_heads``): rank t's columns are [q_t | k_t | v_t], the
+    per-rank layout the serving engine reads."""
+    layer = {"attn_norm": (), "wqkv": (None, "tp"), "wo": (None, "tp"),
+             "mlp_norm": (), "w_gate": (None, "tp"), "w_up": (None, "tp"),
+             "w_down": (None, "tp")}
+    return {"embed": (None, "tp"), "final_norm": (),
+            "layers": [dict(layer) for _ in range(cfg.n_layers)]}
+
+
+def convert_params(params: Dict[str, Any], mesh: DeviceMesh, cfg: Config,
+                   to: str = "decode") -> Dict[str, Any]:
+    """Switch this rank's shards between the train and decode layouts on
+    the device: each leaf moves through ``parallel/reshard``'s compiled
+    plan (``embed``, ``wo`` and ``w_down`` one ``all_to_all[tp:0->1]``
+    each); a leaf already in the target layout has the empty plan and
+    comes back as a copy.  Collective over the mesh."""
+    if to == "decode":
+        src, dst = param_specs(cfg), decode_param_specs(cfg)
+    elif to == "train":
+        src, dst = decode_param_specs(cfg), param_specs(cfg)
+    else:
+        raise ValueError(f"convert_params: to={to!r} (want train|decode)")
+    _check_tp(cfg, axis_size(mesh, "tp"))
+    want = {"embed": dst["embed"], "final_norm": dst["final_norm"],
+            **dst["layers"][0]}
+    rs = resharder(mesh)
+    return _map_specs(lambda x, spec, name: rs.run(
+        x, _fit(mesh, spec), _fit(mesh, want[name])), params, cfg, src)
 
 
 class _Plan:
@@ -438,6 +487,43 @@ def _rope(x, positions, base):
     rot1 = x1 * cos - x2 * sin
     rot2 = x2 * cos + x1 * sin
     return torch.cat([rot1, rot2], dim=-1).to(x.dtype)
+
+
+def rope_rows(x, positions, base):
+    """``_rope`` with PER-ROW positions: x (..., b, h, d), positions (b,) —
+    the decode-path variant where every batch row sits at its own sequence
+    position.  Same rotation math as ``_rope``."""
+    half = x.shape[-1] // 2
+    freqs = base ** (-torch.arange(half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions.float()[:, None] * freqs[None, :]
+    cos = torch.cos(ang).unsqueeze(-2)                 # (b, 1, half)
+    sin = torch.sin(ang).unsqueeze(-2)
+    x1, x2 = x[..., :half], x[..., half:]
+    rot1 = x1 * cos - x2 * sin
+    rot2 = x2 * cos + x1 * sin
+    return torch.cat([rot1, rot2], dim=-1).to(x.dtype)
+
+
+def decode_attention(q, k, v, q_pos):
+    """One decode step of the attention core against a paged KV view: q
+    (..., b, hl, hd) is the new token per batch slot, k/v (..., b, L, hl,
+    hd) the slot's gathered cache pages flattened to L key positions,
+    q_pos (b,) the token's absolute position (−1 for an inactive slot —
+    fully masked, output garbage the scheduler discards).  Query b attends
+    key slots l ≤ q_pos[b] (itself included: the engine writes the new k/v
+    before attending), ``attention_reference``'s causal row for position
+    q_pos.  Heads stay tp-sharded, so the op is local."""
+    # sqrt(hd) rounded to q's dtype, as the reference divides; a Python
+    # scalar, so no host-to-device copy stalls the stream
+    scale = torch.tensor(math.sqrt(q.shape[-1]), dtype=q.dtype).item()
+    scores = torch.einsum("...bnd,...blnd->...bnl", q, k) / scale
+    L = k.shape[-3]
+    mask = (torch.arange(L, device=q.device)[None, :]
+            <= q_pos[:, None])                         # (b, L)
+    scores = scores.masked_fill(~mask[:, None, :], -1e30)
+    w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("...bnl,...blnd->...bnd", w, v)
 
 
 def _attn_apply(x, layer, cfg: Config, mesh: Optional[_Plan] = None):

@@ -1,0 +1,655 @@
+"""Array redistribution on a mesh: compiled minimal-collective ``reshard``.
+
+Counterpart of the intra-mesh part of ``ompi_tpu/parallel/reshard.py``
+(``:1-700``).  A layout transition between two shardings of one array on
+one mesh decomposes into a short sequence of the device collectives the
+port already has, with bounded peak memory ("Memory-efficient array
+redistribution through portable collective communication", arXiv
+2112.01075):
+
+  plan grammar (one collective per step):
+    all_to_all[a:d->e]   move axis ``a`` from array dim d to dim e
+                         (flat memory: in == out == shard bytes)
+    all_gather[a@d]      unshard dim d over axis ``a`` (grow)
+    slice[a@d]           shard a replicated dim d over axis ``a``
+                         (shrink, zero wire bytes — a local slice)
+    ppermute[g~b@..]     exchange same-sized axes g and b (flat memory,
+                         one hop per rank)
+    device_put           the fallback for ragged specs the step grammar
+                         cannot express and for plans whose step sequence
+                         would breach the peak-memory bound
+
+  ordering discipline: shrinking slices fire as soon as their dim's
+  prefix is ready, moves/swaps run flat, gathers are deferred to last —
+  so intermediate shards never exceed max(src_shard, dst_shard) and the
+  per-step live set (input + output) stays within
+  ``reshard_peak_factor × max(src_shard, dst_shard)``.
+
+The plan compiler (``compile_plan``) is the reference's, over the port's
+specs — tuples of axis names or None per dim, as in
+``models/transformer.param_specs`` — and gives the same steps,
+``describe()`` strings, shard bytes and bound.  One step differs:
+``device_put``.  The reference hands the whole array to XLA's resharding
+transfer, whose live set is src + dst.  Here each process holds its own
+block, so the port's ``device_put`` all-gathers the source's sharded dims
+over their axes (a ragged dim's blocks padded to the ceiling and cut back
+after the gather) and then slices this rank's block of the destination,
+in one step.  Its wire bytes are those gathers' ring bytes, and its peak
+is the whole (padded) array beside the larger of the shards it grew from
+and was cut to: above the bound by construction, where the reference's
+is within it.
+
+Execution: each process holds this rank's shard; ``Resharder.run`` takes
+it and returns this rank's shard under the destination spec, as fresh
+tensors.  Every step runs on ``parallel.collectives`` over the mesh
+axis's process group (NCCL on the card, gloo on CPU tensors):
+``all_to_all_axis``, ``all_gather_axis``, a local slice, ``ppermute``.
+Each step is decided under the coll name ``reshard`` through
+``coll/nccl.decide_mode`` (force var ``coll_nccl_reshard_mode``; native
+is the only arm a layout step has) and, with an spc table attached,
+counts ``coll_arm_<arm>_count`` and ``coll_wire_bytes``.  The trace
+event, the perf and traffic halves of the audit, the plan log that
+``comm_doctor --reshard`` reads and the cross-mesh planner
+(``compile_cross_plan``/``cross_reshard``) come with later slices (ROADMAP
+P16, P11b).  A dim sharded over a tuple of axes plans, but does not run:
+tuple axes come with P13.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core import var as _var
+from .collectives import all_gather_axis, all_to_all_axis, ppermute
+from .mesh import axes_group, axis_rank, classify_axes
+
+_var.register("reshard", "", "peak_factor", 2.0, type=float, level=3,
+              help="Peak-live-bytes bound for compiled reshard plans, "
+                   "as a multiple of max(src_shard, dst_shard) per "
+                   "device (arXiv 2112.01075).  A plan whose step "
+                   "accounting would breach the bound is replaced by "
+                   "the single-step device_put plan.")
+
+_lock = threading.Lock()
+
+
+class ReshardError(ValueError):
+    """A (src, dst, mesh, shape) tuple the plan compiler rejects loudly
+    (unknown/repeated mesh axes — never a silent host fallback)."""
+
+
+# ---------------------------------------------------------------------------
+# plan representation
+# ---------------------------------------------------------------------------
+
+Placement = Tuple[Tuple[str, ...], ...]     # per-dim axis groups
+Spec = Tuple[Any, ...]                      # per-dim axis name, tuple, None
+
+
+@dataclass(frozen=True)
+class PlanStep:
+    op: str                       # a grammar step (module docstring)
+    axes: Tuple[str, ...]         # mesh axes driving the step
+    dim: int                      # array dim acted on / move target dim
+    src_dim: int                  # move/exchange source dim (== dim otherwise)
+    in_spec: Spec
+    out_spec: Spec
+    in_bytes: int                 # per-device live bytes entering the step
+    out_bytes: int                # per-device live bytes leaving the step
+    wire_bytes: int               # modeled per-rank wire bytes
+    perm: Tuple[Tuple[int, int], ...] = ()   # ppermute pairs (flat positions)
+
+    def describe(self) -> str:
+        if self.op == "all_to_all":
+            return (f"all_to_all[{'+'.join(self.axes)}:"
+                    f"{self.src_dim}->{self.dim}]")
+        if self.op == "all_gather":
+            return f"all_gather[{self.axes[0]}@{self.dim}]"
+        if self.op == "slice":
+            return f"slice[{self.axes[0]}@{self.dim}]"
+        if self.op == "ppermute":
+            g, b = self.axes
+            if self.src_dim == self.dim:
+                return f"ppermute[{g}~{b}@{self.dim}]"
+            return f"ppermute[{g}@{self.src_dim}~{b}@{self.dim}]"
+        return self.op
+
+
+@dataclass(frozen=True)
+class ReshardPlan:
+    key: tuple
+    shape: Tuple[int, ...]
+    dtype: str
+    src: Placement
+    dst: Placement
+    steps: Tuple[PlanStep, ...]
+    src_shard_bytes: int
+    dst_shard_bytes: int
+    peak_bytes: int               # max per-step (in + out) live bytes
+    wire_bytes: int               # sum of step wire figures
+    bound_bytes: int              # factor * max(src_shard, dst_shard)
+    fallback_reason: str = ""     # non-empty when device_put replaced steps
+
+    def describe(self) -> List[str]:
+        return [s.describe() for s in self.steps]
+
+    @property
+    def label(self) -> str:
+        return (f"{_fmt_placement(self.src)}->{_fmt_placement(self.dst)}"
+                f"/{self.dtype}{list(self.shape)}")
+
+
+def _fmt_placement(pl: Placement) -> str:
+    parts = []
+    for grp in pl:
+        if not grp:
+            parts.append("_")
+        elif len(grp) == 1:
+            parts.append(grp[0])
+        else:
+            parts.append("(" + "+".join(grp) + ")")
+    return "[" + ",".join(parts) + "]"
+
+
+def _norm(spec, ndim: int) -> Placement:
+    """Spec (a sequence, or None) → per-dim tuples of axis names."""
+    parts: Sequence = tuple(spec) if spec is not None else ()
+    out: List[Tuple[str, ...]] = []
+    for d in range(ndim):
+        e = parts[d] if d < len(parts) else None
+        if e is None:
+            out.append(())
+        elif isinstance(e, (tuple, list)):
+            out.append(tuple(str(a) for a in e))
+        else:
+            out.append((str(e),))
+    return tuple(out)
+
+
+def _spec_of(pl: Placement) -> Spec:
+    ents = []
+    for grp in pl:
+        if not grp:
+            ents.append(None)
+        elif len(grp) == 1:
+            ents.append(grp[0])
+        else:
+            ents.append(tuple(grp))
+    return tuple(ents)
+
+
+def _axis_sizes(mesh) -> Dict[str, int]:
+    """{axis: size} of a DeviceMesh, or of a mapping given as one (the
+    plan is host math over the sizes alone)."""
+    if isinstance(mesh, dict):
+        return {str(a): int(n) for a, n in mesh.items()}
+    names = mesh.mesh_dim_names
+    return {a: int(mesh.mesh.shape[i]) for i, a in enumerate(names)}
+
+
+def _dtype_of(dtype) -> Tuple[str, int]:
+    """(name, itemsize) of a torch or numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch."), dtype.itemsize
+    dt = np.dtype(dtype)
+    return dt.name, dt.itemsize
+
+
+# ---------------------------------------------------------------------------
+# plan compiler
+# ---------------------------------------------------------------------------
+
+def compile_plan(shape: Sequence[int], dtype, src_spec, dst_spec,
+                 mesh, peak_factor: Optional[float] = None) -> ReshardPlan:
+    """Compile a (src, dst, mesh) triple into a minimal collective
+    sequence.  Pure host math — no device work, no caches, no audit;
+    the Resharder wraps this with caching and per-step dispatch.  ``mesh``
+    is a DeviceMesh or a {axis: size} mapping."""
+    shape = tuple(int(s) for s in shape)
+    dt_name, itemsize = _dtype_of(dtype)
+    src = _norm(src_spec, len(shape))
+    dst = _norm(dst_spec, len(shape))
+    sizes = _axis_sizes(mesh)
+    for pl, which in ((src, "src"), (dst, "dst")):
+        seen = set()
+        for grp in pl:
+            for a in grp:
+                if a not in sizes:
+                    raise ReshardError(
+                        f"reshard: {which} spec names axis {a!r} not on "
+                        f"mesh {tuple(sizes)}")
+                if a in seen:
+                    raise ReshardError(
+                        f"reshard: {which} spec uses axis {a!r} on more "
+                        "than one dim")
+                seen.add(a)
+    factor = float(peak_factor if peak_factor is not None
+                   else _var.get("reshard_peak_factor", 2.0))
+    total = itemsize * int(np.prod(shape)) if shape else itemsize
+
+    def nshards(grp: Tuple[str, ...]) -> int:
+        n = 1
+        for a in grp:
+            n *= sizes[a]
+        return n
+
+    def shard_bytes(pl: Placement) -> int:
+        b = total
+        for d, grp in enumerate(pl):
+            n = nshards(grp)
+            b = b // n if b % n == 0 else int(math.ceil(b / n))
+        return max(b, itemsize)
+
+    src_b, dst_b = shard_bytes(src), shard_bytes(dst)
+    bound = int(factor * max(src_b, dst_b))
+    key = (src, dst, shape, dt_name)
+
+    def _plan(steps, peak, wire, why=""):
+        return ReshardPlan(key=key, shape=shape, dtype=dt_name,
+                           src=src, dst=dst, steps=tuple(steps),
+                           src_shard_bytes=src_b, dst_shard_bytes=dst_b,
+                           peak_bytes=peak, wire_bytes=wire,
+                           bound_bytes=bound, fallback_reason=why)
+
+    if src == dst:
+        return _plan((), 0, 0)
+
+    def _device_put_plan(why: str) -> ReshardPlan:
+        # gather the source's sharded dims, then slice the destination's
+        # block: see the module docstring for its bytes
+        wire, peak = _device_put_cost(shape, itemsize, src, dst, nshards)
+        step = PlanStep(op="device_put", axes=tuple(sizes),
+                        dim=0, src_dim=0, in_spec=_spec_of(src),
+                        out_spec=_spec_of(dst), in_bytes=src_b,
+                        out_bytes=dst_b, wire_bytes=wire)
+        return _plan((step,), peak, wire, why)
+
+    divisible = all(
+        shape[d] % nshards(src[d]) == 0 and shape[d] % nshards(dst[d]) == 0
+        for d in range(len(shape)))
+    if not divisible:
+        return _device_put_plan(
+            "ragged: a dim does not divide by its sharding axes "
+            "(shard_map steps need even shards)")
+
+    placement: List[Tuple[str, ...]] = list(src)
+    ndim = len(shape)
+    dst_dim_of: Dict[str, int] = {a: d for d, grp in enumerate(dst)
+                                  for a in grp}
+    steps: List[PlanStep] = []
+    cur_b = src_b
+    peak = 0
+    wire_total = 0
+
+    def placed_anywhere(a: str) -> bool:
+        return any(a in grp for grp in placement)
+
+    def emit(op: str, axes: Tuple[str, ...], dim: int, src_dim: int,
+             before: Placement, after: Placement, wire: int,
+             perm: Tuple = ()) -> None:
+        nonlocal cur_b, peak, wire_total
+        in_b, out_b = shard_bytes(before), shard_bytes(after)
+        steps.append(PlanStep(op=op, axes=axes, dim=dim, src_dim=src_dim,
+                              in_spec=_spec_of(before),
+                              out_spec=_spec_of(after), in_bytes=in_b,
+                              out_bytes=out_b, wire_bytes=int(wire),
+                              perm=perm))
+        cur_b = out_b
+        peak = max(peak, in_b + out_b)
+        wire_total += int(wire)
+
+    def _transpose_perm(n: int) -> Tuple[Tuple[int, int], ...]:
+        # device (i, j) over the joint (g, b) space receives from (j, i)
+        return tuple((j * n + i, i * n + j)
+                     for i in range(n) for j in range(n))
+
+    guard = 0
+    while tuple(placement) != dst:
+        guard += 1
+        if guard > 8 * ndim * (len(sizes) + 1):
+            return _device_put_plan("scheduler found no step sequence")
+        progress = False
+
+        # 1) ppermute: same-dim axis substitution g -> b (equal sizes,
+        #    g leaving the layout entirely, b entering it) — flat memory
+        #    where gather+slice would blow up n-fold
+        for d in range(ndim):
+            cur, want = placement[d], dst[d]
+            if (cur and want and len(cur) == len(want)
+                    and cur[:-1] == want[:-1] and cur[-1] != want[-1]):
+                g, b = cur[-1], want[-1]
+                if (sizes[g] == sizes[b] and g not in dst_dim_of
+                        and not placed_anywhere(b)):
+                    after = list(placement)
+                    after[d] = want
+                    n = sizes[g]
+                    w = cur_b * (n * n - n) // (n * n)
+                    emit("ppermute", (g, b), d, d, tuple(placement),
+                         tuple(after), w, _transpose_perm(n))
+                    placement[d] = want
+                    progress = True
+
+        # 2) ppermute: dim-pair exchange g@d <-> b@e (equal sizes) —
+        #    the cyclic-move deadlock resolved in one flat hop
+        for d in range(ndim):
+            for e in range(ndim):
+                if d == e:
+                    continue
+                cd, wd = placement[d], dst[d]
+                ce, we = placement[e], dst[e]
+                if not (cd and ce and wd and we):
+                    continue
+                g, b = cd[-1], ce[-1]
+                if (g != b and sizes[g] == sizes[b]
+                        and wd == cd[:-1] + (b,) and we == ce[:-1] + (g,)):
+                    after = list(placement)
+                    after[d], after[e] = wd, we
+                    n = sizes[g]
+                    w = cur_b * (n * n - n) // (n * n)
+                    emit("ppermute", (g, b), e, d, tuple(placement),
+                         tuple(after), w, _transpose_perm(n))
+                    placement[d], placement[e] = wd, we
+                    progress = True
+
+        # 3) moves: an innermost suffix of dim d's axes belongs — in
+        #    order — on dim e whose prefix is ready: one all_to_all
+        #    over the (joint) axis group, flat memory.  Longest suffix
+        #    first, so a whole group like ("x","y") moves in a single
+        #    step instead of two.
+        for d in range(ndim):
+            cur = placement[d]
+            for k in range(len(cur), 0, -1):
+                grp = cur[-k:]
+                e = dst_dim_of.get(grp[0])
+                if e is None or e == d:
+                    continue
+                q = len(placement[e])
+                if (placement[e] == dst[e][:q]
+                        and dst[e][q:q + k] == grp):
+                    after = list(placement)
+                    after[d] = cur[:-k]
+                    after[e] = placement[e] + grp
+                    m = nshards(grp)
+                    w = cur_b * (m - 1) // m
+                    emit("all_to_all", grp, e, d, tuple(placement),
+                         tuple(after), w)
+                    placement[d], placement[e] = after[d], after[e]
+                    progress = True
+                    break
+
+        # 4) slices: the next wanted axis of a ready dim is currently
+        #    unplaced — shard it locally (shrinks, zero wire)
+        for d in range(ndim):
+            cur, want = placement[d], dst[d]
+            if cur == want[:len(cur)] and len(want) > len(cur):
+                b = want[len(cur)]
+                if not placed_anywhere(b):
+                    after = list(placement)
+                    after[d] = cur + (b,)
+                    emit("slice", (b,), d, d, tuple(placement),
+                         tuple(after), 0)
+                    placement[d] = after[d]
+                    progress = True
+
+        if progress:
+            continue
+
+        # 5) gathers, last: remove the innermost axis past some dim's
+        #    common prefix (also breaks move deadlocks — a gathered
+        #    axis becomes re-addable by slice, since the data is then
+        #    replicated over it)
+        for d in range(ndim):
+            cur, want = placement[d], dst[d]
+            p = 0
+            while p < min(len(cur), len(want)) and cur[p] == want[p]:
+                p += 1
+            if len(cur) > p:
+                g = cur[-1]
+                after = list(placement)
+                after[d] = cur[:-1]
+                m = sizes[g]
+                w = cur_b * (m - 1)
+                emit("all_gather", (g,), d, d, tuple(placement),
+                     tuple(after), w)
+                placement[d] = after[d]
+                progress = True
+                break
+        if not progress:
+            return _device_put_plan("scheduler found no step sequence")
+
+    if peak > bound:
+        return _device_put_plan(
+            f"peak {peak}B over bound {bound}B "
+            f"(reshard_peak_factor={factor:g})")
+    return _plan(steps, peak, wire_total)
+
+
+def _device_put_cost(shape, itemsize: int, src: Placement, dst: Placement,
+                     nshards) -> Tuple[int, int]:
+    """(wire bytes a rank, peak live bytes) of the port's device_put: each
+    source-sharded dim, its blocks padded to the ceiling, all-gathered in
+    dim order ((m − 1) blocks over the wire a rank), then this rank's
+    destination block cut from the whole array.  Peak: the largest
+    gather's input + output, or the gathered array beside the block cut
+    from it."""
+    local = [-(-s // nshards(src[d])) for d, s in enumerate(shape)]
+    cur = itemsize * int(np.prod(local))
+    wire = peak = 0
+    for d, grp in enumerate(src):
+        if not grp:
+            continue
+        m = nshards(grp)
+        wire += cur * (m - 1)
+        peak = max(peak, cur + cur * m)
+        cur *= m
+    dst_b = itemsize * int(np.prod([-(-s // nshards(dst[d]))
+                                    for d, s in enumerate(shape)]))
+    return wire, max(peak, cur + dst_b)
+
+
+# ---------------------------------------------------------------------------
+# executor
+# ---------------------------------------------------------------------------
+
+def _block(n: int, i: int, extent: int) -> Tuple[int, int]:
+    """(start, size) of member i's block when ``extent`` is cut over n
+    members: ceiling-sized blocks, the last ones short or empty (how a
+    NamedSharding lays out a dim the axis does not divide)."""
+    c = -(-extent // n)
+    start = min(i * c, extent)
+    return start, min(c, extent - start)
+
+
+def _local_shape(shape: Sequence[int], spec, mesh) -> Tuple[int, ...]:
+    """This rank's block shape of a ``shape`` array laid out by ``spec``
+    (one axis name or None per dim) on ``mesh``."""
+    sizes = _axis_sizes(mesh)
+    out = []
+    for d, grp in enumerate(_norm(spec, len(shape))):
+        if not grp:
+            out.append(int(shape[d]))
+            continue
+        _check_single(grp)
+        out.append(_block(sizes[grp[0]], axis_rank(mesh, grp[0]),
+                          int(shape[d]))[1])
+    return tuple(out)
+
+
+def _check_single(grp: Tuple[str, ...]) -> None:
+    if len(grp) > 1:
+        raise NotImplementedError(
+            f"reshard: a dim sharded over the tuple of axes {grp} runs with "
+            "ROADMAP P13 (tuple axes); its plan compiles")
+
+
+class Resharder:
+    """Per-mesh plan cache + step executor.  Making one is collective (it
+    classifies the mesh's axes, ``mesh.classify_axes``); so is ``run``."""
+
+    def __init__(self, mesh, spc=None) -> None:
+        if mesh.device_type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("reshard on a cuda mesh and no CUDA device "
+                               "is available")
+        self.mesh = mesh
+        self.spc = spc
+        self._plans: Dict[tuple, ReshardPlan] = {}
+        self._plan_hits = 0
+        self._sizes = _axis_sizes(mesh)
+        self._axis_plane = classify_axes(mesh)
+        self._platform = mesh.device_type
+
+    def cache_info(self) -> Dict[str, int]:
+        return {"plans": len(self._plans), "plan_hits": self._plan_hits}
+
+    def plan(self, shape, dtype, src_spec, dst_spec) -> ReshardPlan:
+        dt = _dtype_of(dtype)[0]
+        key = (_norm(src_spec, len(shape)), _norm(dst_spec, len(shape)),
+               tuple(int(s) for s in shape), dt)
+        hit = self._plans.get(key)
+        if hit is not None:
+            self._plan_hits += 1
+            return hit
+        plan = compile_plan(shape, dtype, src_spec, dst_spec, self.mesh)
+        self._plans[key] = plan
+        return plan
+
+    # -- per-step execution -------------------------------------------------
+
+    def _gather_dim(self, x: torch.Tensor, axis: str, d: int,
+                    extent: int) -> torch.Tensor:
+        """All-gather dim d over ``axis``: each member's block padded to
+        the ceiling, the result cut back to ``extent``."""
+        n = self._sizes[axis]
+        c = -(-extent // n)
+        moved = x.movedim(d, 0)
+        if moved.shape[0] != c:
+            moved = torch.nn.functional.pad(
+                moved, [0, 0] * (moved.dim() - 1) + [0, c - moved.shape[0]])
+        full = all_gather_axis(moved.contiguous(), axis, mesh=self.mesh)
+        return full[:extent].movedim(0, d)
+
+    def _slice_dim(self, x: torch.Tensor, axis: str, d: int) -> torch.Tensor:
+        start, size = _block(self._sizes[axis], axis_rank(self.mesh, axis),
+                             x.shape[d])
+        return x.narrow(d, start, size)
+
+    def _step(self, plan: ReshardPlan, step: PlanStep,
+              x: torch.Tensor) -> torch.Tensor:
+        if step.op == "all_to_all":
+            return all_to_all_axis(x, step.axes[0], split_dim=step.dim,
+                                   concat_dim=step.src_dim, mesh=self.mesh)
+        if step.op == "all_gather":
+            return self._gather_dim(x, step.axes[0], step.dim,
+                                    plan.shape[step.dim])
+        if step.op == "slice":
+            return self._slice_dim(x, step.axes[0], step.dim)
+        if step.op == "ppermute":
+            # the group over both axes orders its ranks in the mesh's
+            # axis order; the plan's pairs are a transposition of two
+            # equal axes, the same set in either order
+            return ppermute(x, axes_group(self.mesh, step.axes),
+                            step.perm)
+        if step.op == "device_put":
+            for d, grp in enumerate(plan.src):
+                if grp:
+                    x = self._gather_dim(x, grp[0], d, plan.shape[d])
+            for d, grp in enumerate(plan.dst):
+                if grp:
+                    x = self._slice_dim(x, grp[0], d)
+            return x
+        raise ReshardError(f"unknown plan op {step.op!r}")   # closed grammar
+
+    # -- decision + audit ---------------------------------------------------
+
+    def _decide(self, step: PlanStep, ndev: int) -> Tuple[str, str, list]:
+        from ..coll import nccl as _nccl
+        plane = ("dcn" if any(self._axis_plane.get(a) == "dcn"
+                              for a in step.axes) else "ici")
+        return _nccl.decide_mode(
+            "reshard", step.wire_bytes, ndev, self._platform,
+            _nccl._load_device_rules(), allowed=("native",),
+            quant_ok=False, dtype=None, op=None, plane=plane,
+            hier_ok=False,
+            hier_why="reshard steps are single layout-pure collectives")
+
+    def _audit_step(self, step: PlanStep, arm: str) -> None:
+        if self.spc is not None:
+            self.spc.inc(f"coll_arm_{arm}_count")
+            if step.wire_bytes:
+                self.spc.inc("coll_wire_bytes", int(step.wire_bytes))
+
+    # -- execution ----------------------------------------------------------
+
+    def run(self, x: torch.Tensor, src_spec, dst_spec,
+            global_shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """This rank's shard ``x`` under ``src_spec`` → its shard under
+        ``dst_spec``, a fresh tensor.  ``global_shape`` defaults to the
+        shard's extents times the sizes of the axes that cut them (give it
+        for a dim its axis does not divide).  Collective over the mesh."""
+        if x.device.type != self._platform:
+            raise ValueError(f"reshard: tensor on {x.device}, mesh on "
+                             f"{self._platform}")
+        src = _norm(src_spec, x.dim())
+        dst = _norm(dst_spec, x.dim())
+        for grp in src + dst:
+            _check_single(grp)
+        if global_shape is None:
+            global_shape = [s * (self._sizes[g[0]] if g else 1)
+                            for s, g in zip(x.shape, src)]
+        shape = tuple(int(s) for s in global_shape)
+        want = _local_shape(shape, src, self.mesh)
+        if tuple(x.shape) != want:
+            raise ValueError(f"reshard: shard {tuple(x.shape)} is not this "
+                             f"rank's block {want} of {shape} under "
+                             f"{_spec_of(src)}")
+        plan = self.plan(shape, x.dtype, src, dst)
+        for step in plan.steps:
+            ndev = 1
+            for a in step.axes:
+                ndev *= self._sizes[a]
+            arm, _reason, _chain = self._decide(step, ndev)
+            x = self._step(plan, step, x)
+            self._audit_step(step, arm)
+        return x.clone(memory_format=torch.contiguous_format)
+
+
+# ---------------------------------------------------------------------------
+# module-level face
+# ---------------------------------------------------------------------------
+
+_resharders: Dict[Any, Resharder] = {}
+_RESHARDER_CAP = 8
+
+
+def resharder(mesh, spc=None) -> Resharder:
+    """The per-mesh Resharder (bounded registry; the newest SPC table
+    attaches — the latest Context wins, like DeviceComm.spc).  Its first
+    call for a mesh is collective."""
+    with _lock:
+        r = _resharders.get(mesh)
+        if r is None:
+            if len(_resharders) >= _RESHARDER_CAP:
+                _resharders.pop(next(iter(_resharders)))
+            r = _resharders[mesh] = Resharder(mesh, spc=spc)
+        if spc is not None:
+            r.spc = spc
+    return r
+
+
+def reshard(x: torch.Tensor, src_spec, dst_spec, mesh,
+            global_shape: Optional[Sequence[int]] = None,
+            spc=None) -> torch.Tensor:
+    """Redistribute this rank's shard ``x`` from ``src_spec`` to
+    ``dst_spec`` on ``mesh`` through a compiled minimal-collective plan
+    (``Resharder.run``); every rank of the mesh calls it."""
+    return resharder(mesh, spc=spc).run(x, src_spec, dst_spec, global_shape)
+
+
+__all__ = ["ReshardError", "PlanStep", "ReshardPlan", "compile_plan",
+           "Resharder", "resharder", "reshard"]

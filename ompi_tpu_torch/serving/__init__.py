@@ -1,0 +1,270 @@
+"""Serving plane — continuous-batching decode observability.
+
+Counterpart of ``ompi_tpu/serving/__init__.py`` without the fleet
+(``note_route``, ``note_migration`` and the fleet table: ROADMAP P11b).
+The serving tier is a continuous-batching inference engine over the
+decode weight layout (``models/transformer.decode_param_specs``), with the
+decode matmul combines dispatched as the audited coll names ``decode_ag``
+/ ``decode_rs`` so the decision layer's native|quant arms apply.  This
+module is the plane's ledger:
+
+* **counters** — ``serve_tokens`` / ``serve_active_seqs`` /
+  ``serve_evictions`` / ``serve_kv_pages_used`` (``pvar_value``).
+* **goodput split** — wall time attributed to prefill / decode / host
+  (scheduler bookkeeping), plus decode tokens/s.
+* **inter-token latency** — per-request deltas between consecutive
+  emitted tokens (a bounded sample window), p50/p99 in ``report()``.
+* **request table** — admit → prefill → decode → evict lifecycle rows
+  (EOS vs max-len), bounded to the most recent requests.
+
+The compute pieces live in the submodules: ``cache`` (the paged KV
+cache), ``engine`` (prefill/decode_step and the decode_ag/rs dispatch),
+``scheduler`` (continuous vs static batching and the Poisson request
+stream), loaded lazily.  Every entry point is behind one
+``serving.enabled`` attribute read.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, List
+
+from ..core import var as _var
+
+_var.register("serve", "", "enabled", False, type=bool, level=3,
+              help="Master switch for the serving plane (request table, "
+                   "goodput split, inter-token latency ledger). Off by "
+                   "default; the disabled path is one attribute read "
+                   "per engine/scheduler event.")
+_var.register("serve", "", "latency_window", 4096, type=int, level=3,
+              help="Inter-token latency samples kept for the p50/p99 "
+                   "ledger (bounded ring; oldest samples drop first).")
+_var.register("serve", "", "table_cap", 64, type=int, level=3,
+              help="Request-lifecycle rows kept for the per-request "
+                   "table (oldest finished rows drop first).")
+
+enabled: bool = bool(_var.get("serve_enabled", False))
+
+PVARS = ("serve_tokens", "serve_active_seqs", "serve_evictions",
+         "serve_kv_pages_used")
+
+_lock = threading.Lock()
+
+# cumulative counters (pvars + report)
+_tokens = 0                  # tokens emitted (prefill's first counts)
+_evictions = 0
+_active = 0                  # current in-flight sequences
+_pages_used = 0              # current KV pages held (cache mirrors in)
+_prefills = 0
+_decode_steps = 0
+_prefill_s = 0.0
+_decode_s = 0.0
+_host_s = 0.0
+_occ_sum = 0.0               # sum over decode steps of active/slots
+_itl: List[float] = []       # inter-token deltas, seconds
+_requests: "dict[Any, Dict[str, Any]]" = {}
+_finished_order: List[Any] = []
+_dispatches: Dict[str, int] = {"eager": 0}
+
+
+def enable() -> None:
+    global enabled
+    enabled = True
+
+
+def disable() -> None:
+    global enabled
+    enabled = False
+
+
+def _on_enabled_var(v: Any) -> None:
+    # mid-run OMPI_TPU_SERVE_ENABLED / set_cli writes take effect
+    global enabled
+    enabled = bool(v)
+
+
+_var.watch("serve_enabled", _on_enabled_var)
+
+
+def reset() -> None:
+    global _tokens, _evictions, _active, _pages_used, _prefills, \
+        _decode_steps, _prefill_s, _decode_s, _host_s, _occ_sum
+    with _lock:
+        _tokens = 0
+        _evictions = 0
+        _active = 0
+        _pages_used = 0
+        _prefills = 0
+        _decode_steps = 0
+        _prefill_s = 0.0
+        _decode_s = 0.0
+        _host_s = 0.0
+        _occ_sum = 0.0
+        _dispatches.clear()
+        _dispatches["eager"] = 0
+        _itl.clear()
+        _requests.clear()
+        _finished_order.clear()
+
+
+# -- lifecycle events (the engine/scheduler call these when enabled) --------
+
+def note_admit(rid: Any, prompt_len: int, max_new: int,
+               arrival: float, now: float) -> None:
+    global _active
+    with _lock:
+        _active += 1
+        _requests[rid] = {"rid": rid, "state": "prefill",
+                          "prompt_len": int(prompt_len),
+                          "max_new": int(max_new), "generated": 0,
+                          "arrival": float(arrival),
+                          "admitted": float(now),
+                          "queue_wait_s": float(now - arrival),
+                          "finished": None, "evict_reason": None,
+                          "_last_token_t": None}
+        if len(_requests) > int(_var.get("serve_table_cap", 64)):
+            # drop the OLDEST finished row; live rows are never dropped
+            for old in list(_finished_order):
+                if old in _requests:
+                    del _requests[old]
+                    _finished_order.remove(old)
+                    break
+
+
+def note_prefill(dur_s: float, n_tokens: int) -> None:
+    global _prefills, _prefill_s
+    with _lock:
+        _prefills += 1
+        _prefill_s += float(dur_s)
+
+
+def note_decode_step(dur_s: float, active: int, slots: int) -> None:
+    global _decode_steps, _decode_s, _occ_sum
+    with _lock:
+        _decode_steps += 1
+        _decode_s += float(dur_s)
+        _occ_sum += active / max(slots, 1)
+
+
+def note_host(dur_s: float) -> None:
+    global _host_s
+    with _lock:
+        _host_s += float(dur_s)
+
+
+def note_token(rid: Any, now: float) -> None:
+    global _tokens
+    with _lock:
+        _tokens += 1
+        row = _requests.get(rid)
+        if row is None:
+            return
+        row["generated"] += 1
+        row["state"] = "decode"
+        last = row["_last_token_t"]
+        if last is not None:
+            _itl.append(float(now - last))
+            cap = int(_var.get("serve_latency_window", 4096))
+            if len(_itl) > cap:
+                del _itl[: len(_itl) - cap]
+        row["_last_token_t"] = float(now)
+
+
+def note_evict(rid: Any, reason: str, now: float) -> None:
+    global _active, _evictions
+    with _lock:
+        _active = max(_active - 1, 0)
+        _evictions += 1
+        row = _requests.get(rid)
+        if row is not None:
+            row["state"] = "done"
+            row["finished"] = float(now)
+            row["evict_reason"] = str(reason)
+            _finished_order.append(rid)
+
+
+def set_pages_used(n: int) -> None:
+    global _pages_used
+    with _lock:
+        _pages_used = int(n)
+
+
+def note_dispatch(mode: str, n: int = 1) -> None:
+    """Count an eagerly dispatched decode collective (``mode="eager"``:
+    decode_ag/decode_rs between the pieces; ``"fused"`` comes with
+    P11b)."""
+    with _lock:
+        _dispatches[mode] = _dispatches.get(mode, 0) + int(n)
+
+
+# -- pvar read-through + report ---------------------------------------------
+
+def pvar_value(name: str) -> float:
+    with _lock:
+        if name == "serve_tokens":
+            return float(_tokens)
+        if name == "serve_active_seqs":
+            return float(_active)
+        if name == "serve_evictions":
+            return float(_evictions)
+        if name == "serve_kv_pages_used":
+            return float(_pages_used)
+    raise KeyError(name)
+
+
+def _percentile(sorted_vals: List[float], q: float) -> float:
+    if not sorted_vals:
+        return 0.0
+    k = min(int(round(q * (len(sorted_vals) - 1))), len(sorted_vals) - 1)
+    return sorted_vals[k]
+
+
+def report() -> Dict[str, Any]:
+    """Structured plane state."""
+    with _lock:
+        itl = sorted(_itl)
+        total = _prefill_s + _decode_s + _host_s
+        rows = [{k: v for k, v in row.items() if not k.startswith("_")}
+                for row in _requests.values()]
+        return {
+            "tokens": _tokens,
+            "active_seqs": _active,
+            "evictions": _evictions,
+            "kv_pages_used": _pages_used,
+            "prefills": _prefills,
+            "decode_steps": _decode_steps,
+            "batch_occupancy": _occ_sum / max(_decode_steps, 1),
+            "goodput": {
+                "prefill_s": round(_prefill_s, 6),
+                "decode_s": round(_decode_s, 6),
+                "host_s": round(_host_s, 6),
+                "total_s": round(total, 6),
+                "prefill_pct": 100.0 * _prefill_s / total if total else 0.0,
+                "decode_pct": 100.0 * _decode_s / total if total else 0.0,
+                "host_pct": 100.0 * _host_s / total if total else 0.0,
+                "decode_tokens_per_s": (_tokens / _decode_s
+                                        if _decode_s else 0.0),
+            },
+            "itl": {
+                "count": len(itl),
+                "p50_ms": 1e3 * _percentile(itl, 0.50),
+                "p99_ms": 1e3 * _percentile(itl, 0.99),
+                "mean_ms": (1e3 * sum(itl) / len(itl)) if itl else 0.0,
+            },
+            "dispatches": dict(_dispatches),
+            "requests": rows,
+        }
+
+
+# the engine/scheduler/cache modules import torch — load them lazily
+def __getattr__(name: str):
+    if name == "ServingEngine":
+        from .engine import ServingEngine
+        return ServingEngine
+    if name == "PagedKVCache":
+        from .cache import PagedKVCache
+        return PagedKVCache
+    if name in ("ContinuousBatchingScheduler", "Request", "poisson_stream"):
+        from . import scheduler as _sched
+        return getattr(_sched, name)
+    raise AttributeError(name)

@@ -1,0 +1,226 @@
+"""Request-level continuous batching over the ServingEngine.
+
+Counterpart of ``ompi_tpu/serving/scheduler.py`` (``Request``,
+``poisson_stream``, ``ContinuousBatchingScheduler``).  The scheduler is
+pure host orchestration — admission, eviction and the per-step device
+batch are integer bookkeeping against the paged cache; all device work
+happens inside the engine's prefill/decode_step.  Two policies share the
+loop:
+
+* ``continuous`` — admit whenever a batch slot AND the request's full
+  page reservation are free, every step.  Finished sequences evict (EOS
+  or max-new) and their slot refills on the next step, so the device
+  batch stays full while requests of different lengths drain.
+* ``static`` — the classic baseline: admit a wave only when the batch is
+  EMPTY, then run the wave to completion.  Short requests finish early
+  and their slots idle until the longest member drains.
+
+Time is a virtual clock fed by MEASURED durations (prefill, decode step,
+host bookkeeping): arrivals interleave against real step costs and idle
+gaps jump to the next arrival.  Speculative decoding (``spec_k >= 2``)
+and the fleet router come with ROADMAP P11b, the per-request ledger
+(``serving/requests.py``) with P16.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from .. import serving
+
+
+@dataclass
+class Request:
+    """One inference request in the stream."""
+    rid: int
+    prompt: np.ndarray                 # (prompt_len,) int32 token ids
+    max_new: int                       # generation budget (incl. the
+                                       # prefill's first token)
+    arrival: float = 0.0               # virtual-clock arrival time
+    eos_id: Optional[int] = None       # per-request EOS override
+
+
+def poisson_stream(n: int, qps: float, vocab: int, *, seed: int = 0,
+                   prompt_len: tuple = (4, 16),
+                   max_new: tuple = (4, 16),
+                   eos_id: Optional[int] = None) -> List[Request]:
+    """Synthetic open-loop request stream: exponential inter-arrival gaps
+    at ``qps`` (a Poisson process), uniform prompt/generation lengths.
+    Deterministic under ``seed`` — the reference's numpy stream — so the
+    continuous and static arms replay the IDENTICAL stream."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / qps, n)
+    arrivals = np.cumsum(gaps)
+    reqs = []
+    for i in range(n):
+        plen = int(rng.integers(prompt_len[0], prompt_len[1] + 1))
+        reqs.append(Request(
+            rid=i,
+            prompt=rng.integers(0, vocab, plen).astype(np.int32),
+            max_new=int(rng.integers(max_new[0], max_new[1] + 1)),
+            arrival=float(arrivals[i]),
+            eos_id=eos_id))
+    return reqs
+
+
+@dataclass
+class _Active:
+    req: Request
+    slot: int
+    tokens: List[int] = field(default_factory=list)
+    last: int = 0                      # next decode step's input token
+
+
+class ContinuousBatchingScheduler:
+    """Drives one engine over a request stream; see module docstring."""
+
+    def __init__(self, engine, requests: List[Request], *,
+                 policy: str = "continuous",
+                 eos_id: Optional[int] = None,
+                 spec_k: int = 0) -> None:
+        if policy not in ("continuous", "static"):
+            raise ValueError(f"policy={policy!r} "
+                             "(want continuous|static)")
+        if spec_k < 0 or spec_k == 1:
+            raise ValueError(f"spec_k={spec_k} (0 disables; >=2 sets "
+                             "the draft/verify window length)")
+        if spec_k >= 2:
+            raise NotImplementedError(
+                f"spec_k={spec_k}: speculative decoding (decode_window) "
+                "comes with ROADMAP slice P11b")
+        self.engine = engine
+        self.policy = policy
+        self.eos_id = eos_id
+        self.pending: List[Request] = sorted(requests,
+                                             key=lambda r: r.arrival)
+        self.active: Dict[int, _Active] = {}       # slot -> state
+        self.clock = 0.0
+        self.decode_steps = 0
+        self.decode_s = 0.0
+        self.occ_sum = 0.0
+        self.results: Dict[int, Dict[str, Any]] = {}
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def _admit_one(self, req: Request) -> None:
+        cache = self.engine.cache
+        slot = cache.admit(len(req.prompt), req.max_new)
+        if serving.enabled:
+            serving.note_admit(req.rid, len(req.prompt), req.max_new,
+                               req.arrival, self.clock)
+            serving.set_pages_used(cache.pages_used)
+        t0 = time.perf_counter()
+        first, _ = self.engine.prefill(slot, req.prompt)
+        dur = time.perf_counter() - t0
+        self.clock += dur
+        st = _Active(req=req, slot=slot, tokens=[first], last=first)
+        self.active[slot] = st
+        if serving.enabled:
+            serving.note_prefill(dur, len(req.prompt))
+            serving.note_token(req.rid, self.clock)
+        self._maybe_finish(st, first)
+
+    def _finish(self, st: _Active, reason: str) -> None:
+        self.engine.cache.release(st.slot)
+        del self.active[st.slot]
+        self.results[st.req.rid] = {
+            "rid": st.req.rid, "tokens": list(st.tokens),
+            "reason": reason, "finished_at": self.clock}
+        if serving.enabled:
+            serving.note_evict(st.req.rid, reason, self.clock)
+            serving.set_pages_used(self.engine.cache.pages_used)
+
+    def _maybe_finish(self, st: _Active, tok: int) -> bool:
+        eos = (st.req.eos_id if st.req.eos_id is not None
+               else self.eos_id)
+        if eos is not None and tok == eos:
+            self._finish(st, "eos")
+            return True
+        if len(st.tokens) >= st.req.max_new:
+            self._finish(st, "max_new")
+            return True
+        return False
+
+    def _admissible(self) -> bool:
+        if not self.pending or self.pending[0].arrival > self.clock:
+            return False
+        if self.policy == "static" and self.active:
+            return False
+        req = self.pending[0]
+        return self.engine.cache.can_admit(len(req.prompt), req.max_new)
+
+    # -- the loop ----------------------------------------------------------
+
+    def run(self, max_steps: int = 100000) -> Dict[str, Any]:
+        while self.pending or self.active:
+            th0 = time.perf_counter()
+            while self._admissible():
+                host = time.perf_counter() - th0
+                self.clock += host
+                if serving.enabled:
+                    serving.note_host(host)
+                self._admit_one(self.pending.pop(0))
+                th0 = time.perf_counter()
+            host = time.perf_counter() - th0
+            self.clock += host
+            if serving.enabled:
+                serving.note_host(host)
+            if not self.active:
+                if not self.pending:
+                    break
+                # idle: jump the virtual clock to the next arrival
+                self.clock = max(self.clock, self.pending[0].arrival)
+                continue
+            self._step()
+            if self.decode_steps >= max_steps:
+                raise RuntimeError(f"scheduler exceeded {max_steps} "
+                                   "decode steps without draining")
+        return self.summary()
+
+    def _step(self) -> None:
+        cache = self.engine.cache
+        b = self.engine.max_seqs
+        tokens = np.zeros(b, np.int32)
+        positions = np.full(b, -1, np.int64)
+        for slot, st in self.active.items():
+            tokens[slot] = st.last
+            positions[slot] = int(cache.seq_lens[slot])
+        t0 = time.perf_counter()
+        nxt, _ = self.engine.decode_step(tokens, positions)
+        dur = time.perf_counter() - t0
+        self.clock += dur
+        self.decode_steps += 1
+        self.decode_s += dur
+        self.occ_sum += len(self.active) / b
+        if serving.enabled:
+            serving.note_decode_step(dur, len(self.active), b)
+        th0 = time.perf_counter()
+        for slot in list(self.active):
+            st = self.active[slot]
+            cache.seq_lens[slot] += 1          # the input token's kv
+            tok = int(nxt[slot])
+            st.tokens.append(tok)
+            st.last = tok
+            if serving.enabled:
+                serving.note_token(st.req.rid, self.clock)
+            self._maybe_finish(st, tok)
+        host = time.perf_counter() - th0
+        self.clock += host
+        if serving.enabled:
+            serving.note_host(host)
+
+    def summary(self) -> Dict[str, Any]:
+        toks = sum(len(r["tokens"]) for r in self.results.values())
+        return {
+            "policy": self.policy,
+            "clock_s": self.clock,
+            "decode_steps": self.decode_steps,
+            "completed": len(self.results),
+            "tokens": toks,
+            "tokens_per_s": toks / self.clock if self.clock else 0.0,
+            "results": self.results,
+        }

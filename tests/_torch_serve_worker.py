@@ -1,0 +1,181 @@
+"""What the gloo workers of the port's reshard and serving tests run.
+
+``_torch_coll_worker.Pool`` runs these by ``"_torch_serve_worker:<name>"``
+in every process of its world (the tp 1 serving tests call them in the
+test process, in a world of one); each function builds (once) the named
+mesh over that world and works on this process's shard.  Like the pool's
+own module it imports torch, numpy and the port only, never JAX: inputs
+arrive as numpy arrays and results leave as numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ompi_tpu_torch import spc as spc_mod
+from ompi_tpu_torch.core import var
+from ompi_tpu_torch.models import transformer as tfm
+from ompi_tpu_torch.parallel.collectives import DeviceComm
+from ompi_tpu_torch.parallel.mesh import axis_rank, make_mesh
+from ompi_tpu_torch.parallel.reshard import Resharder
+from ompi_tpu_torch.serving.engine import ServingEngine
+
+_MESHES = {}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _mesh(axes):
+    """One mesh per axes dict in each worker: its groups are made once."""
+    key = tuple(axes.items())
+    if key not in _MESHES:
+        _MESHES[key] = make_mesh(dict(axes))
+    return _MESHES[key]
+
+
+def block(x: np.ndarray, sizes: dict, coords: dict, spec) -> np.ndarray:
+    """The block of x a rank at ``coords`` holds under ``spec`` (one axis
+    name or None per dim): ceiling-sized blocks, the last short or empty,
+    as a NamedSharding lays out a dim its axis does not divide."""
+    for d, axis in enumerate(spec):
+        if axis is None:
+            continue
+        extent, n = x.shape[d], sizes[axis]
+        c = -(-extent // n)
+        start = min(coords[axis] * c, extent)
+        idx = [slice(None)] * x.ndim
+        idx[d] = slice(start, start + min(c, extent - start))
+        x = x[tuple(idx)]
+    return np.ascontiguousarray(x)
+
+
+def _coords(mesh) -> dict:
+    return {a: axis_rank(mesh, a) for a in mesh.mesh_dim_names}
+
+
+def reshard_cases(dc, axes, host, cases, dtype="float32",
+                  peak_factor=None):
+    """Each (src, dst) of ``cases`` on this rank's block of ``host``: the
+    result block, the plan's steps and wire bytes, and what the audit
+    counted.  ``peak_factor`` plans on a fresh Resharder under that
+    bound."""
+    mesh = _mesh(axes)
+    coords = _coords(mesh)
+    sizes = dict(axes)
+    if peak_factor is not None:
+        var.registry.set_override("reshard_peak_factor", peak_factor)
+    try:
+        rs = Resharder(mesh, spc=spc_mod.Counters())
+        out = []
+        for src, dst in cases:
+            x = torch.from_numpy(block(host, sizes, coords, src)).to(
+                _DTYPES[dtype])
+            arms = rs.spc.get("coll_arm_native_count")
+            wire = rs.spc.get("coll_wire_bytes")
+            y = rs.run(x, src, dst, global_shape=host.shape)
+            plan = rs.plan(host.shape, x.dtype, src, dst)
+            out.append({"coords": coords, "out": y.float().numpy(),
+                        "fresh": y.data_ptr() != x.data_ptr(),
+                        "steps": plan.describe(),
+                        "plan_wire": plan.wire_bytes,
+                        "arms": rs.spc.get("coll_arm_native_count") - arms,
+                        "wire": rs.spc.get("coll_wire_bytes") - wire})
+        out.append(rs.cache_info())
+        return out
+    finally:
+        if peak_factor is not None:
+            var.registry.set_override("reshard_peak_factor", 2.0)
+
+
+def reshard_tuple_refused(dc, axes, host):
+    mesh = _mesh(axes)
+    rs = Resharder(mesh)
+    try:
+        rs.run(torch.from_numpy(host), (tuple(axes), None), (None, None),
+               global_shape=(host.shape[0] * dc.n, host.shape[1]))
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def _leaves(tree):
+    out = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
+    for i, layer in enumerate(tree["layers"]):
+        out.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    return {k: v.detach().float().numpy() for k, v in out.items()}
+
+
+def _config(cfg_kw):
+    kw = dict(cfg_kw)
+    kw["dtype"] = _DTYPES[kw.get("dtype", "float32")]
+    return tfm.Config(**kw)
+
+
+def convert(dc, axes, cfg_kw, tree):
+    """The train shards of ``tree``, their decode layout by
+    ``convert_params`` and back: this rank's leaves of each."""
+    mesh = _mesh(axes)
+    cfg = _config(cfg_kw)
+    train = tfm.shard_params(tfm.params_from_numpy(tree, device="cpu"),
+                             mesh, cfg)
+    dec = tfm.convert_params(train, mesh, cfg, to="decode")
+    back = tfm.convert_params(dec, mesh, cfg, to="train")
+    return {"train": _leaves(train), "decode": _leaves(dec),
+            "back": _leaves(back)}
+
+
+def engine_greedy(dc, axes, cfg_kw, tree, prompts, steps, teacher=None,
+                  force=None, engine_kw=None):
+    """Per prompt: prefill + ``steps`` single-slot greedy decode steps
+    (``tests/test_serving.py``'s ``_greedy_decode``; with ``teacher`` the
+    fed-back tokens come from it), on an engine built from this rank's
+    train shards.  ``force`` sets the decode arms' force variables (and
+    the quant block) for the run.  Returns the tokens, the prefill's and
+    each step's logits, and the audit counts."""
+    mesh = _mesh(axes)
+    cfg = _config(cfg_kw)
+    comm = DeviceComm(mesh, "tp")
+    comm.spc = spc_mod.Counters()
+    train = tfm.shard_params(tfm.params_from_numpy(tree, device="cpu"),
+                             mesh, cfg)
+    kw = dict(n_pages=64, page_size=8, max_seqs=4)
+    kw.update(engine_kw or {})
+    eng = ServingEngine(comm, train, cfg, **kw)
+    for name, value in (force or {}).items():
+        var.registry.set_override(name, value)
+    try:
+        runs = []
+        for i, prompt in enumerate(prompts):
+            runs.append(_greedy_decode(
+                eng, np.asarray(prompt), steps,
+                None if teacher is None else teacher[i]))
+    finally:
+        for name in (force or {}):
+            var.registry.set_override(
+                name, var.registry.lookup(name).default)
+    return {"runs": runs, "dispatches": dict(eng.dispatches),
+            "wire_bytes": eng.wire_bytes,
+            "spc_wire": comm.spc.get("coll_wire_bytes"),
+            "arms": {a: comm.spc.get(f"coll_arm_{a}_count")
+                     for a in ("native", "quant", "staged")},
+            "pages_used": eng.cache.pages_used}
+
+
+def _greedy_decode(eng, prompt, steps, teacher=None):
+    slot = eng.cache.admit(len(prompt), steps + 1)
+    first, lg0 = eng.prefill(slot, prompt)
+    toks = [first]
+    logits = [lg0[0, 0].numpy()]
+    last = first if teacher is None else teacher[0]
+    for i in range(steps):
+        t = np.zeros(eng.max_seqs, np.int32)
+        p = np.full(eng.max_seqs, -1, np.int64)
+        t[slot] = last
+        p[slot] = int(eng.cache.seq_lens[slot])
+        nxt, lg = eng.decode_step(t, p)
+        eng.cache.seq_lens[slot] += 1
+        toks.append(int(nxt[slot]))
+        logits.append(lg[0, slot].numpy())
+        last = int(nxt[slot]) if teacher is None else teacher[i + 1]
+    eng.cache.release(slot)
+    return {"tokens": toks, "logits": np.stack(logits)}

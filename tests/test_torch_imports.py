@@ -50,7 +50,8 @@ def test_every_module_is_listed():
     assert "ompi_tpu_torch.optim" in MODULES
     for name in ("op", "topo", "parallel.device_plane", "parallel.mesh",
                  "parallel.collectives", "coll.quant", "parallel.overlap",
-                 "ops.collective_matmul"):
+                 "ops.collective_matmul", "parallel.reshard", "serving",
+                 "serving.cache", "serving.engine", "serving.scheduler"):
         assert f"ompi_tpu_torch.{name}" in MODULES
 
 
@@ -61,14 +62,23 @@ def test_import_loads_no_jax(module, leaks):
 
 def test_entry_points_refuse_without_cuda():
     code = """
+import types
 import torch
 from ompi_tpu_torch import optim
 from ompi_tpu_torch.models import transformer as tfm
 from ompi_tpu_torch.parallel.device_plane import init_device_plane
+from ompi_tpu_torch.parallel.reshard import reshard
+from ompi_tpu_torch.serving.engine import ServingEngine
 cfg = tfm.Config(vocab=16, d_model=16, n_layers=1, n_heads=2, head_dim=8,
                  d_ff=32, seq=8, dtype=torch.float32, attn="flash")
 params = tfm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
 assert not torch.cuda.is_available()
+# a mesh and a comm on the card, as make_mesh and DeviceComm give them
+# under NCCL (no CUDA tensor can be made here)
+cuda_mesh = type("CudaMesh", (), {"device_type": "cuda",
+                                  "mesh_dim_names": ("tp",)})()
+cuda_comm = types.SimpleNamespace(n=1, device=torch.device("cuda", 0),
+                                  mesh=cuda_mesh, axis="tp")
 refused = []
 for call in (lambda: tfm.forward(params, [[1, 2, 3]], cfg),
              lambda: tfm.init_params(torch.Generator(), cfg),
@@ -77,14 +87,16 @@ for call in (lambda: tfm.forward(params, [[1, 2, 3]], cfg),
              lambda: optim.opt_state_from_numpy(
                  {"count": 0, "mu": [], "nu": []}),
              lambda: init_device_plane(rank=0, world_size=1,
-                                       store=torch.distributed.HashStore())):
+                                       store=torch.distributed.HashStore()),
+             lambda: ServingEngine(cuda_comm, params, cfg),
+             lambda: reshard(torch.zeros(4), ("tp",), (None,), cuda_mesh)):
     try:
         call()
     except RuntimeError as e:
         refused.append("CUDA" in str(e))
 print(refused)
 """
-    assert _run(code).strip() == "[True, True, True, True, True, True]"
+    assert _run(code).strip() == str([True] * 8)
 
 
 def test_chip_smoke_imports_no_jax():
