@@ -122,8 +122,24 @@ Phases, in order; any failure raises and the script exits non-zero:
                at 512 and 2048 context beside its bytes bound, tokens/s,
                the scheduler's tokens/s, one profiled decode step
                (serve_numbers and profile lines).
-The last lines are the collectives, mesh, mpi, grad_sync, serve and
-kernels JSON objects,
+ 14. decode  — in phase 9's world, after phase 13, the same weights on a
+               {"tp": 1} mesh: (a) f32, the scheduler on 13a's four
+               prompts at spec_k 0, 2 and 4 gives the streams of plain
+               decoding (a departure is excused only where that step's
+               top-two logits are within 1e-5 of the larger, and printed),
+               the speculative ledger, every page released, some draft
+               accepted, the longest request's pages filling its block
+               table; a draft accepted one past its match, seq_lens not
+               rolled back after a rejection and no draft accepted must
+               each fail that check (decode_check line); (b) bf16,
+               decode_window ms at (max_seqs, context) = (8, 512) and
+               (32, 512) for k = 2 and 4 beside decode_step
+               ms on the same engine, each with one profiled call (idle
+               share, launches), and the scheduler's tokens/s, decode
+               steps and acceptance rate on 13c's stream at spec_k 0, 2
+               and 4 (decode_numbers lines).
+The last lines are the collectives, mesh, mpi, grad_sync, serve, decode
+and kernels JSON objects,
 the nvidia-smi line and {"ok": true, "device": {...}}.  Without CUDA it
 exits 1 and prints no result.
 
@@ -159,6 +175,16 @@ and its logits within 1e-4, 27 audited dispatches a step, the decode
 collectives forced onto quant within 0.05 (>= 75% of the tokens), one
 decode_ag returning only this rank's shard rejected; the bf16 decode step
 on four cards beside one card's (serve_multi_card, serve_numbers lines).
+Phase 14c on the same mesh: decode_overlap="fused" at full width, f32
+tokens equal to the eager engine's and logits within 1e-4, an allgather
+ring short its last hop and a reduce-scatter ring without this rank's
+partial each rejected, 2 eager dispatches and 25 decode_collmm a step
+whose wire (909,312 B at 8 rows in bf16) equals ring_schedule's and the
+spc's, spec_k 2 on the fused engine with plain decoding's streams and
+some draft accepted; bf16 teacher-forced within phase 13b's 4e-2 of the
+eager engine; the fused
+step beside the eager one at (8, 512) and (32, 512), each profiled
+(decode_check, decode_numbers lines, then the decode line).
 """
 
 from __future__ import annotations
@@ -785,19 +811,27 @@ def k4_path(torch, attention, cfg, card):
     return rows
 
 
-def device_kernels(torch, fn):
+def device_kernels(torch, fn, tries: int = 3):
     """The device kernels of one warm call of ``fn``, by torch.profiler:
-    [{"name", "count"}]."""
+    [{"name", "count"}].  The profiler now and then returns a trace with
+    no device record at all (seen on H100 machines whose other traces
+    were whole); such a trace says nothing of what ran, so it is taken
+    again, up to ``tries`` times.  A trace with any kernel is returned
+    as it is."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     kernels = torch.autograd.DeviceType.CUDA
-    return [{"name": e.key[:120], "count": e.count}
-            for e in prof.key_averages() if e.device_type == kernels]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = [{"name": e.key[:120], "count": e.count}
+                for e in prof.key_averages() if e.device_type == kernels]
+        if seen:
+            break
+    return seen
 
 
 KERNEL_NAMES = ("partials_sm90", "attention_sm90", "partials_f32",
@@ -874,21 +908,37 @@ def profile_run(torch, fn, ref_ms: float, card: str, what: str,
     time, so that is reported but not used).  ``want_launches`` maps
     kernel classes to the launches the run must show."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for step in range(2):            # a warm-up run, then the record
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            prof.step()
-    # kernels only: an operator's device time repeats its kernels', and
-    # the ProfilerStep annotation spans the whole step
+    # kernels only: an operator's device time repeats its kernels', the
+    # ProfilerStep annotation spans the whole step, and c10d's "nccl:<op>"
+    # annotation on the device timeline repeats its NCCL kernel
     kernels = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.key_averages() if e.device_type == kernels
-              and not e.key.startswith("ProfilerStep")]
+    annotation = ("ProfilerStep", "nccl:")
+    # a trace with no device record is taken again (``device_kernels``)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for step in range(2):        # a warm-up run, then the record
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                prof.step()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == kernels
+                  and not e.key.startswith(annotation)]
+        if events:
+            break
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    # the device busy as the union of the kernels' intervals: NCCL's
+    # stream overlaps the compute stream's, and an NCCL kernel spans its
+    # wait for late peers, so the kernels' sum can pass the wall time
+    spans = [(e.time_range.start, e.time_range.end, "nccl" in e.name)
+             for e in prof.events() if e.device_type == kernels
+             and not e.name.startswith(annotation)]
+    union_ms = interval_union(spans) / 1e3
+    compute_ms = interval_union([sp for sp in spans if not sp[2]]) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     # the host's time inside operators (dispatch and launch, inflated by
     # the profiler's own cost); the rest of the host's time is Python
@@ -909,9 +959,12 @@ def profile_run(torch, fn, ref_ms: float, card: str, what: str,
            "host_top": [{"name": e.key[:60], "count": e.count,
                          "host_ms": e.self_cpu_time_total / 1e3}
                         for e in host_top],
+           "device_union_ms": union_ms, "compute_union_ms": compute_ms,
            # no device time seen means the profiler could not trace the
            # card: the share is then not measured, not 100% idle
-           "idle_share": 1 - busy_ms / ref_ms if busy_ms else None,
+           "idle_share": 1 - union_ms / ref_ms if busy_ms else None,
+           "compute_idle_share": 1 - compute_ms / ref_ms if busy_ms
+           else None,
            "card": card,
            "by_class": {c: {"device_ms": ms, "launches": n}
                         for c, (ms, n) in sorted(by_class.items())},
@@ -924,6 +977,20 @@ def profile_run(torch, fn, ref_ms: float, card: str, what: str,
         if seen != n:
             raise AssertionError(f"profile of {what}: {seen} launches of "
                                  f"{cls}, want {n}")
+    return out
+
+
+def interval_union(spans) -> float:
+    """The length of the union of (start, end, ...) intervals."""
+    total, end = 0.0, None
+    for start, stop, *_ in sorted(spans):
+        if end is None or start > end:
+            total += stop - start
+            end = stop
+        elif stop > end:
+            total += stop - end
+            end = stop
+    return total
 
 
 def rel_rms(a, b) -> float:
@@ -2868,6 +2935,502 @@ def serve_multi_card(torch, np, tfm, attention, world: int, card: str,
     return row
 
 
+# -- 14. speculative decoding and the fused decode program --------------------
+
+# 14a/14c: the windows beside spec_k 0, on the phase-13 prompts
+SPEC_KS = (2, 4)
+# a stream may leave spec_k 0's only where that step's top-two logits are
+# closer than this share of the larger (the window's products run at
+# other shapes than the step's, so their last bits differ)
+NEAR_TIE = 1e-5
+# 14b: decode_window beside decode_step at (max_seqs, context), k of each
+WINDOW_CASES = [(8, 512), (32, 512)]
+WINDOW_KS = (2, 4)
+# 14c: the fused step beside the eager one at (max_seqs, context)
+FUSED_CASES = [(8, 512), (32, 512)]
+
+
+def spec_requests(np, prompts):
+    """The phase-13 prompts as requests, all arrived at 0, SERVE_NEW
+    tokens each."""
+    from ompi_tpu_torch.serving.scheduler import Request
+    return [Request(rid=i, prompt=np.asarray(p, np.int64),
+                    max_new=SERVE_NEW) for i, p in enumerate(prompts)]
+
+
+def run_scheduler(eng, reqs, spec_k: int) -> dict:
+    """One scheduler run with the serve plane on: streams in request
+    order, decode steps, tokens/s, the speculative ledger, pages left."""
+    from ompi_tpu_torch import serving
+    from ompi_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
+    serving.reset()
+    serving.enable()
+    try:
+        t0 = time.perf_counter()
+        out = ContinuousBatchingScheduler(eng, reqs, spec_k=spec_k).run()
+        wall = time.perf_counter() - t0
+        rep = serving.report()
+    finally:
+        serving.disable()
+    return {"spec_k": spec_k, "decode_steps": out["decode_steps"],
+            "tokens": out["tokens"], "tokens_per_s": out["tokens_per_s"],
+            "clock_s": out["clock_s"], "wall_s": wall,
+            "speculative": rep["speculative"],
+            "pages_used": eng.cache.pages_used,
+            "streams": [out["results"][r.rid]["tokens"] for r in reqs]}
+
+
+def departures(streams, want, want_rows) -> list:
+    """Where each stream first leaves ``want``: the index, both tokens,
+    and the top-two margin of want's logits there over the larger
+    (``want_rows``: each request's plain decode logits, row t giving
+    token t)."""
+    out = []
+    for r, (got, ref) in enumerate(zip(streams, want)):
+        i = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
+                 None)
+        if i is None:
+            if len(got) == len(ref):
+                continue
+            i = min(len(got), len(ref))
+        if i >= len(want_rows[r]):
+            gap = None
+        else:
+            top = want_rows[r][i].float().topk(2).values
+            gap = float((top[0] - top[1]) / top[0].abs())
+        out.append({"request": r, "index": i,
+                    "got": got[i] if i < len(got) else None,
+                    "want": ref[i] if i < len(ref) else None, "gap": gap,
+                    "near_tie": gap is not None and gap < NEAR_TIE})
+    return out
+
+
+def spec_check(run, want, want_rows) -> dict:
+    """One scheduler run against ``want``: a stream may leave it only at a
+    near-tie (printed, not hidden), every page is released, and at
+    spec_k >= 2 some draft was accepted (a verify loop that accepts
+    nothing gives the same streams)."""
+    run["departures"] = departures(run.pop("streams"), want, want_rows)
+    run["identical"] = all(d["near_tie"] for d in run["departures"])
+    run["ok"] = (run["identical"] and run["pages_used"] == 0
+                 and (run["spec_k"] == 0
+                      or run["speculative"]["accepted"] > 0))
+    return run
+
+
+def spec_identity(eng, reqs, want, want_rows, ks) -> dict:
+    """The scheduler at spec_k 0 and each of ``ks`` through
+    ``spec_check``."""
+    return {k: spec_check(run_scheduler(eng, reqs, k), want, want_rows)
+            for k in (0, *ks)}
+
+
+@contextlib.contextmanager
+def accept_one_past():
+    """Planted: the verify loop accepts one draft past its last match."""
+    from ompi_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
+    real = ContinuousBatchingScheduler.__dict__["_accepted"]
+    ContinuousBatchingScheduler._accepted = staticmethod(
+        lambda d, y: min(real.__func__(d, y) + 1, len(d)))
+    try:
+        yield
+    finally:
+        ContinuousBatchingScheduler._accepted = real
+
+
+@contextlib.contextmanager
+def accept_none():
+    """Planted: the verify loop accepts no draft (speculation a no-op)."""
+    from ompi_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
+    real = ContinuousBatchingScheduler.__dict__["_accepted"]
+    ContinuousBatchingScheduler._accepted = staticmethod(lambda d, y: 0)
+    try:
+        yield
+    finally:
+        ContinuousBatchingScheduler._accepted = real
+
+
+@contextlib.contextmanager
+def no_rollback():
+    """Planted: after a window every KV row is kept — seq_lens is never
+    rolled back to the accepted prefix."""
+    from ompi_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    def keep_all(self, slot, rows):
+        self.engine.cache.seq_lens[slot] += self.spec_k
+
+    with planted(ContinuousBatchingScheduler, "_truncate", keep_all):
+        yield
+
+
+def spec_faults(eng, reqs, want, want_rows, k: int) -> list:
+    """Each planted fault of the verify loop must fail ``spec_check``."""
+    out = []
+    for name, ctx in (("a draft accepted one past its match",
+                       accept_one_past),
+                      ("seq_lens not rolled back after a rejection",
+                       no_rollback),
+                      ("no draft accepted", accept_none)):
+        with ctx():
+            run = spec_check(run_scheduler(eng, reqs, k), want, want_rows)
+        ok = run["ok"]
+        out.append({"fault": name, "spec_k": k,
+                    "departures": len(run["departures"]),
+                    "accepted": run["speculative"]["accepted"],
+                    "rejected": not ok})
+        if ok:
+            raise AssertionError(f"the identity check passed the planted "
+                                 f"fault {name!r}")
+    return out
+
+
+def case_engine(tfm, dc, train, cfg, max_seqs: int, context: int, k: int):
+    """An engine with every slot at ``context`` (keys 0..context-1 live)
+    and room for a k-token window past it."""
+    eng = serve_engine(tfm, dc, train, cfg, max_seqs,
+                       serve_pages(context + k))
+    for _ in range(max_seqs):
+        eng.cache.admit(context, k)
+    return eng
+
+
+def step_call(np, eng, context: int):
+    tokens = np.arange(eng.max_seqs, dtype=np.int64)
+    positions = np.full(eng.max_seqs, context - 1, np.int64)
+    return lambda: eng.decode_step(tokens, positions)
+
+
+def window_call(np, eng, context: int, k: int):
+    b = eng.max_seqs
+    tokens = np.arange(b * k, dtype=np.int64).reshape(b, k)
+    positions = context - 1 + np.broadcast_to(np.arange(k), (b, k))
+    return lambda: eng.decode_window(tokens, positions)
+
+
+def interleaved_ms(torch, calls: dict, card: str, what: str, log_fn,
+                   n: int = 10, warmup: int = 2) -> dict:
+    """Median host-clock ms of each call (each ends in a device sync),
+    timed in turns so the host's drift falls on all alike, then one
+    profiled run each: idle share, device busy ms, launches, NCCL
+    launches and the host's time inside operators."""
+    for fn in calls.values():
+        for _ in range(warmup):
+            fn()
+    times = {name: [] for name in calls}
+    for _ in range(n):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for name, fn in calls.items():
+        ms = statistics.median(times[name])
+        prof = profile_run(torch, fn, ms, card, f"{name} {what}",
+                           log_fn=log_fn)
+        out[name] = {"ms": ms, "ms_all": times[name],
+                     "idle_share": prof["idle_share"],
+                     "compute_idle_share": prof["compute_idle_share"],
+                     "device_busy_ms": prof["device_busy_ms"],
+                     "device_union_ms": prof["device_union_ms"],
+                     "compute_union_ms": prof["compute_union_ms"],
+                     "host_ops_ms": prof["host_ops_ms"],
+                     "launches": sum(c["launches"]
+                                     for c in prof["by_class"].values()),
+                     "nccl_launches": prof["by_class"].get(
+                         "NCCL", {"launches": 0})["launches"]}
+    return out
+
+
+def decode_one_card(torch, np, tfm, card, log_fn=log) -> dict:
+    """Phase 14 on one card, in phase 9's one-process world after phase
+    13: (a) f32, the scheduler on the phase-13 prompts at spec_k 0, 2 and
+    4 with the same streams as plain decoding (near-ties excepted and
+    printed), two planted faults of the verify loop rejected; (b) bf16,
+    decode_window beside decode_step and the scheduler's tokens/s at each
+    spec_k."""
+    from ompi_tpu_torch import spc as spc_mod
+    from ompi_tpu_torch.parallel import DeviceComm, make_mesh
+    from ompi_tpu_torch.serving.scheduler import poisson_stream
+    cfg = tfm.flagship_config()
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    mesh = make_mesh({"tp": 1})
+    dc = DeviceComm(mesh, "tp")
+    dc.spc = spc_mod.Counters()
+    train = tfm.shard_params(params, mesh, cfg)
+    del params
+    prompts = serve_prompts(np, cfg.vocab)
+    reqs = spec_requests(np, prompts)
+    # the longest request fills its block table: a window's rows past it
+    # go to the scratch page
+    pages = serve_pages(max(SERVE_PROMPT_LENS) + SERVE_NEW)
+    row = {}
+
+    # 14a: f32 stream identity against plain decoding
+    t0 = time.perf_counter()
+    eng = serve_engine(tfm, dc, train, f32, SERVE_SEQS, pages)
+    want, want_rows = serve_requests(torch, np, eng, prompts, SERVE_NEW)
+    runs = spec_identity(eng, reqs, want, want_rows, SPEC_KS)
+    a = {"phase": "decode_check", "check": "spec_identity_f32", "tp": 1,
+         "path": "eager", "requests": len(prompts), "new_tokens": SERVE_NEW,
+         "near_tie": NEAR_TIE,
+         "runs": runs,
+         "faults": spec_faults(eng, reqs, want, want_rows, max(SPEC_KS)),
+         "seconds": time.perf_counter() - t0, "card": card}
+    log_fn(a)
+    if not all(r["ok"] for r in runs.values()):
+        raise AssertionError(f"14a: speculative streams: {a}")
+    del eng, want_rows
+    torch.cuda.empty_cache()
+    row["spec_f32"] = {k: v for k, v in a.items() if k != "phase"}
+
+    # 14b: bf16 numbers
+    numbers = []
+
+    def number(metric, value, **extra):
+        r = {"phase": "decode_numbers", "metric": metric, "value": value,
+             **extra, "card": card}
+        log_fn(r)
+        numbers.append({k: v for k, v in r.items() if k != "phase"})
+
+    for max_seqs, context in WINDOW_CASES:
+        eng = case_engine(tfm, dc, train, cfg, max_seqs, context,
+                          max(WINDOW_KS))
+        calls = {"decode_step": step_call(np, eng, context)}
+        calls.update({f"decode_window k={k}": window_call(np, eng, context, k)
+                      for k in WINDOW_KS})
+        got = interleaved_ms(torch, calls, card, f"({max_seqs}, {context})",
+                             log_fn)
+        del eng, calls
+        torch.cuda.empty_cache()
+        step = got["decode_step"]
+        number("decode_step_ms", step["ms"], max_seqs=max_seqs,
+               context=context, **{k: v for k, v in step.items()
+                                   if k != "ms"})
+        for k in WINDOW_KS:
+            w = got[f"decode_window k={k}"]
+            number("decode_window_ms", w["ms"], max_seqs=max_seqs,
+                   context=context, k=k, decode_step_ms=step["ms"],
+                   window_over_step=w["ms"] / step["ms"],
+                   **{key: v for key, v in w.items() if key != "ms"})
+    sched_pages = serve_pages(SCHED_PROMPT[1] + SCHED_NEW[1])
+    eng = serve_engine(tfm, dc, train, cfg, SERVE_SEQS, sched_pages)
+    stream = poisson_stream(SCHED_N, SCHED_QPS, cfg.vocab, seed=1,
+                            prompt_len=SCHED_PROMPT, max_new=SCHED_NEW)
+    plain = None
+    for k in (0, *SPEC_KS):
+        run = run_scheduler(eng, stream, k)
+        streams = run.pop("streams")
+        plain = streams if plain is None else plain
+        number("scheduler_tokens_per_s", run["tokens_per_s"], spec_k=k,
+               decode_steps=run["decode_steps"], tokens=run["tokens"],
+               clock_s=run["clock_s"], wall_s=run["wall_s"],
+               acceptance_rate=run["speculative"]["acceptance_rate"],
+               speculative=run["speculative"],
+               streams_equal_spec0=streams == plain,
+               pages_used=run["pages_used"])
+        if run["pages_used"]:
+            raise AssertionError(f"14b: spec_k {k} left pages held: {run}")
+    del eng, train
+    torch.cuda.empty_cache()
+    row["numbers"] = numbers
+    return row
+
+
+@contextlib.contextmanager
+def ag_ring_short(every: int):
+    """Planted: the first allgather ring of every ``every`` (one a decode
+    step) stops one hop short — the block its last hop brings is never
+    placed."""
+    import torch.distributed as dist
+    from ompi_tpu_torch.ops import collective_matmul as cm
+    real = cm._ag_ring
+    calls = [0]
+
+    def short(x, w, group, reverse, bidir):
+        out, full = real(x, w, group, reverse, bidir)
+        if calls[0] % every == 0:
+            n, my = dist.get_world_size(group), dist.get_rank(group)
+            m = x.shape[-2]
+            last = (my + (-1 if reverse else 1)) % n
+            out.narrow(-2, last * m, m).zero_()
+        calls[0] += 1
+        return out, full
+
+    with planted(cm, "_ag_ring", short):
+        yield
+
+
+@contextlib.contextmanager
+def rs_ring_partial_dropped(every: int):
+    """Planted: the first reduce-scatter ring of every ``every`` (one a
+    decode step) leaves out this rank's own partial."""
+    import torch.distributed as dist
+    from ompi_tpu_torch.ops import collective_matmul as cm
+    real = cm._rs_ring
+    calls = [0]
+
+    def dropped(x, w, group, bidir):
+        out = real(x, w, group, bidir)
+        if calls[0] % every == 0:
+            mb = x.shape[-2] // dist.get_world_size(group)
+            own = x.narrow(-2, dist.get_rank(group) * mb, mb)
+            out = out - (own @ w).to(out.dtype)
+        calls[0] += 1
+        return out
+
+    with planted(cm, "_rs_ring", dropped):
+        yield
+
+
+def fused_audit(np, eng) -> dict:
+    """One fused decode step (one live slot): 2 eager decode_ag, 4 n_layers
+    + 1 decode_collmm, the rings' wire equal to ring_schedule's and the
+    spc's wire moving by the engine's."""
+    from ompi_tpu_torch.coll.quant import wire_bytes
+    from ompi_tpu_torch.serving.fused import ring_schedule
+    dc, cfg, b = eng.dc, eng.cfg, eng.max_seqs
+    spc = dc.spc
+    slot = eng.cache.admit(1, 2)
+    before = dict(eng.dispatches)
+    wire0, spc0 = eng.wire_bytes, spc.get("coll_wire_bytes")
+    native0 = spc.get("coll_arm_native_count")
+    tokens = np.zeros(b, np.int64)
+    positions = np.full(b, -1, np.int64)
+    positions[slot] = 0
+    eng.decode_step(tokens, positions)
+    eng.cache.release(slot)
+    # the two eager AGs: the embed's d/tp and the logits' f32 V/tp columns
+    eager = sum(wire_bytes("allgather", b * c // dc.n, dc.n, dt)
+                ["native_bytes"] for c, dt in ((cfg.d_model, cfg.dtype),
+                                               (cfg.vocab, np.float32)))
+    sched = ring_schedule(cfg.n_layers, b, cfg.d_model, dc.n,
+                          cfg.dtype.itemsize)
+    step_wire = eng.wire_bytes - wire0
+    row = {"rows": b, "dtype": str(cfg.dtype),
+           "dispatches_per_step": {k: eng.dispatches[k] - before[k]
+                                   for k in before},
+           "want_collmm": 4 * cfg.n_layers + 1,
+           "collmm_wire_bytes": step_wire - eager,
+           "ring_schedule_wire_bytes": sum(w for _, _, w in sched),
+           "spc_wire_bytes": spc.get("coll_wire_bytes") - spc0,
+           "step_wire_bytes": step_wire,
+           "spc_native_arms": spc.get("coll_arm_native_count") - native0}
+    if (row["dispatches_per_step"] != {"decode_ag": 2, "decode_rs": 0,
+                                       "decode_collmm": row["want_collmm"]}
+            or row["collmm_wire_bytes"] != row["ring_schedule_wire_bytes"]
+            or row["spc_wire_bytes"] != step_wire
+            or row["spc_native_arms"] != 2 + row["want_collmm"]):
+        raise AssertionError(f"fused decode audit: {row}")
+    return row
+
+
+def decode_multi_card(torch, np, tfm, world: int, card: str,
+                      log_fn) -> dict:
+    """14c: decode_overlap="fused" on a {"tp": world} mesh at full width:
+    f32 tokens and logits against the eager engine's, two planted ring
+    faults rejected, the audit (2 eager dispatches and 4 n_layers + 1
+    decode_collmm a step, the rings' wire), spec_k 2 on the fused engine;
+    bf16 teacher-forced against the eager engine; the fused step beside
+    the eager one."""
+    from ompi_tpu_torch import spc as spc_mod
+    from ompi_tpu_torch.parallel import DeviceComm, make_mesh
+    cfg = tfm.flagship_config()
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    mesh = make_mesh({"tp": world})
+    dc = DeviceComm(mesh, "tp")
+    dc.spc = spc_mod.Counters()
+    train = tfm.shard_params(params, mesh, cfg)
+    del params
+    prompts = serve_prompts(np, cfg.vocab)
+    reqs = spec_requests(np, prompts)
+    # the longest request fills its block table: a window's rows past it
+    # go to the scratch page
+    pages = serve_pages(max(SERVE_PROMPT_LENS) + SERVE_NEW)
+    fused = lambda c: dataclasses.replace(c, decode_overlap="fused")
+    rings = 2 * cfg.n_layers + 1        # AG rings a step (RS: n_layers)
+    row = {}
+
+    # f32: the fused engine against the eager one
+    t0 = time.perf_counter()
+    eng = serve_engine(tfm, dc, train, f32, SERVE_SEQS, pages)
+    want, want_rows = serve_requests(torch, np, eng, prompts, SERVE_NEW)
+    del eng
+    eng = serve_engine(tfm, dc, train, fused(f32), SERVE_SEQS, pages)
+    streams, rows = serve_requests(torch, np, eng, prompts, SERVE_NEW)
+    check = f32_check(want, want_rows)
+    ok, err = check(streams, rows)
+    faults = []
+    for name, ctx in (("an allgather ring short its last hop",
+                       lambda: ag_ring_short(rings)),
+                      ("a reduce-scatter ring drops this rank's partial",
+                       lambda: rs_ring_partial_dropped(cfg.n_layers))):
+        with ctx():
+            f_streams, f_rows = serve_requests(torch, np, eng, prompts,
+                                               SERVE_NEW)
+        f_ok, f_err = check(f_streams, f_rows)
+        faults.append({"fault": name, "err": f_err, "rejected": not f_ok})
+    spec = spec_identity(eng, reqs, want, want_rows, (2,))
+    c = {"phase": "decode_check", "check": "fused_f32", "tp": world,
+         "tokens_equal_eager": streams == want, "max_rel_err": err,
+         "bound": SERVE_REL, "audit": fused_audit(np, eng),
+         "faults": faults,
+         "spec": spec,
+         "seconds": time.perf_counter() - t0, "card": card}
+    log_fn(c)
+    if not (ok and all(f["rejected"] for f in faults)
+            and all(r["ok"] for r in spec.values())):
+        raise AssertionError(f"14c: fused engine on {world} cards: {c}")
+    del eng, want_rows, rows
+    torch.cuda.empty_cache()
+    row["f32"] = {k: v for k, v in c.items() if k != "phase"}
+
+    # bf16, teacher-forced along the eager engine's streams
+    t0 = time.perf_counter()
+    eng = serve_engine(tfm, dc, train, cfg, SERVE_SEQS, pages)
+    e_streams, e_rows = serve_requests(torch, np, eng, prompts, SERVE_NEW)
+    del eng
+    eng = serve_engine(tfm, dc, train, fused(cfg), SERVE_SEQS, pages)
+    _, f_rows = serve_requests(torch, np, eng, prompts, SERVE_NEW,
+                               teacher=e_streams)
+    rms = serve_step_rms(f_rows, [r.float() for r in e_rows])
+    b = {"phase": "decode_check", "check": "fused_bf16", "tp": world,
+         "max_step_rel_rms": rms, "bound": SERVE_BF16_RMS,
+         "audit": fused_audit(np, eng),
+         "seconds": time.perf_counter() - t0, "card": card}
+    log_fn(b)
+    if not rms < SERVE_BF16_RMS:
+        raise AssertionError(f"14c: bf16 fused engine: {b}")
+    del eng, e_rows, f_rows
+    torch.cuda.empty_cache()
+    row["bf16"] = {k: v for k, v in b.items() if k != "phase"}
+
+    # the fused step beside the eager one, bf16
+    numbers = []
+    for max_seqs, context in FUSED_CASES:
+        engs = {path: case_engine(tfm, dc, train, c_, max_seqs, context, 1)
+                for path, c_ in (("eager", cfg), ("fused", fused(cfg)))}
+        got = interleaved_ms(torch, {p: step_call(np, e, context)
+                                     for p, e in engs.items()}, card,
+                             f"decode_step ({max_seqs}, {context}) on "
+                             f"{world} cards", log_fn)
+        del engs
+        torch.cuda.empty_cache()
+        r = {"phase": "decode_numbers", "metric": "fused_step_ms",
+             "value": got["fused"]["ms"], "eager_ms": got["eager"]["ms"],
+             "fused_over_eager": got["fused"]["ms"] / got["eager"]["ms"],
+             "max_seqs": max_seqs, "context": context, "cards": world,
+             "fused": got["fused"], "eager": got["eager"], "card": card}
+        log_fn(r)
+        numbers.append({k: v for k, v in r.items() if k != "phase"})
+    del train
+    torch.cuda.empty_cache()
+    row["numbers"] = numbers
+    return row
+
+
 # -- 11. the MPI surface: runtime, comm and coll/nccl under tpurun ----------
 
 # the entries coll/nccl serves (every one must be its provider)
@@ -3350,11 +3913,15 @@ def multi_card_worker(rank: int, world: int, init_method: str,
     torch.cuda.empty_cache()
     # 13e: convert_params and the engine on a {"tp": world} mesh
     serve = serve_multi_card(torch, np, tfm, attention, world, card, out)
+    torch.cuda.empty_cache()
+    # 14c: the fused decode program on a {"tp": world} mesh
+    decode = decode_multi_card(torch, np, tfm, world, card, out)
     out({"collectives": rows})
     out({"mesh": mesh_rows})
     out({"grad_sync": sync})
     out({"fused": fused})
     out({"serve": serve})
+    out({"decode": decode})
     torch.distributed.destroy_process_group()
 
 
@@ -3670,6 +4237,11 @@ def main() -> int:
     # 13. serving in the same world: the engine against greedy (f32) and
     # forward (bf16), its planted faults, the scheduler, the numbers
     serve_row = serve_one_card(torch, np, tfm, attention, card)
+    torch.cuda.empty_cache()
+
+    # 14. speculative decoding in the same world: stream identity (f32),
+    # its planted faults, decode_window beside decode_step (bf16)
+    decode_row = decode_one_card(torch, np, tfm, card)
     torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
 
@@ -3704,6 +4276,7 @@ def main() -> int:
     log({"mpi": mpi_row})
     log({"grad_sync": sync_row})
     log({"serve": serve_row})
+    log({"decode": decode_row})
     log({"kernels": [
         {"name": "flash_partials", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_partials.cu",
@@ -3756,7 +4329,7 @@ if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multi-card", action="store_true",
-                    help="run only phases 9, 10c, 11, 12d-f and 13e, "
+                    help="run only phases 9, 10c, 11, 12d-f, 13e and 14c, "
                          "across every visible card")
     ns = ap.parse_args()
     sys.exit(multi_card_main() if ns.multi_card else main())

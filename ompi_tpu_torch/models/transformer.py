@@ -51,13 +51,14 @@ Serving (``serving/engine``) reads the decode layout
 over d_model), reached from the train shards by ``convert_params``
 through ``parallel/reshard``, and ``rope_rows``/``decode_attention``, the
 reference's per-row RoPE and paged decode attention.
+``decode_overlap="fused"`` runs the engine's decode step as one program
+whose tp combines are the collective-matmul rings (``serving/fused``).
 
 Not yet ported, refused with the ROADMAP slice that brings it:
-``mlp="moe"`` (P12), ``decode_overlap="fused"`` (P11b) and the
-reference's two-tier ``dpo`` axis (P13).  The port's own refusal:
-``attn="flash"`` or ``"dense"`` on a mesh whose sp axis is larger than 1
-(the reference replicates them over sp under GSPMD; the port shards the
-sequence over sp).
+``mlp="moe"`` (P12) and the reference's two-tier ``dpo`` axis (P13).  The
+port's own refusal: ``attn="flash"`` or ``"dense"`` on a mesh whose sp
+axis is larger than 1 (the reference replicates them over sp under GSPMD;
+the port shards the sequence over sp).
 """
 
 from __future__ import annotations
@@ -88,8 +89,6 @@ from ..parallel.ring import attention_reference, ring_attention
 
 _NOT_YET = {
     ("mlp", "moe"): "the MoE block comes with ROADMAP slice P12",
-    ("decode_overlap", "fused"): "the fused decode program comes with "
-                                 "ROADMAP slice P11b",
 }
 _CHOICES = {"attn": ("dense", "flash", "ring"), "mlp": ("dense", "moe"),
             "tp_overlap": ("none", "fused"),
@@ -128,7 +127,8 @@ class Config:
     # variable (4 MiB)
     grad_bucket_bytes: Optional[int] = None
     # how the serving engine's decode step moves its tp combines: "eager",
-    # one audited decode_ag/decode_rs between the pieces ("fused": P11b)
+    # one audited decode_ag/decode_rs between the pieces; "fused", the
+    # collective-matmul rings inside one program (serving/fused)
     decode_overlap: str = "eager"
 
     def __post_init__(self):

@@ -51,7 +51,7 @@ counts ``coll_arm_<arm>_count`` and ``coll_wire_bytes``.  The trace
 event, the perf and traffic halves of the audit, the plan log that
 ``comm_doctor --reshard`` reads and the cross-mesh planner
 (``compile_cross_plan``/``cross_reshard``) come with later slices (ROADMAP
-P16, P11b).  A dim sharded over a tuple of axes plans, but does not run:
+P16, P11c).  A dim sharded over a tuple of axes plans, but does not run:
 tuple axes come with P13.
 """
 

@@ -1,7 +1,7 @@
 """Serving plane — continuous-batching decode observability.
 
 Counterpart of ``ompi_tpu/serving/__init__.py`` without the fleet
-(``note_route``, ``note_migration`` and the fleet table: ROADMAP P11b).
+(``note_route``, ``note_migration`` and the fleet table: ROADMAP P11c).
 The serving tier is a continuous-batching inference engine over the
 decode weight layout (``models/transformer.decode_param_specs``), with the
 decode matmul combines dispatched as the audited coll names ``decode_ag``
@@ -16,11 +16,16 @@ module is the plane's ledger:
   emitted tokens (a bounded sample window), p50/p99 in ``report()``.
 * **request table** — admit → prefill → decode → evict lifecycle rows
   (EOS vs max-len), bounded to the most recent requests.
+* **speculative ledger** — verify windows, drafted and accepted tokens
+  (``note_spec``): the MEASURED acceptance rate.
+* **dispatch split** — eager decode collectives against fused-program
+  rings (``note_dispatch``).
 
 The compute pieces live in the submodules: ``cache`` (the paged KV
-cache), ``engine`` (prefill/decode_step and the decode_ag/rs dispatch),
-``scheduler`` (continuous vs static batching and the Poisson request
-stream), loaded lazily.  Every entry point is behind one
+cache), ``engine`` (prefill/decode_step/decode_window and the decode_ag/rs
+dispatch), ``fused`` (the fused decode program), ``scheduler``
+(continuous vs static batching, speculative windows and the Poisson
+request stream), loaded lazily.  Every entry point is behind one
 ``serving.enabled`` attribute read.
 """
 
@@ -61,6 +66,9 @@ _prefill_s = 0.0
 _decode_s = 0.0
 _host_s = 0.0
 _occ_sum = 0.0               # sum over decode steps of active/slots
+_spec_drafted = 0            # speculative: draft tokens proposed
+_spec_accepted = 0           # speculative: draft tokens accepted
+_spec_windows = 0            # speculative: verify windows run
 _itl: List[float] = []       # inter-token deltas, seconds
 _requests: "dict[Any, Dict[str, Any]]" = {}
 _finished_order: List[Any] = []
@@ -88,7 +96,8 @@ _var.watch("serve_enabled", _on_enabled_var)
 
 def reset() -> None:
     global _tokens, _evictions, _active, _pages_used, _prefills, \
-        _decode_steps, _prefill_s, _decode_s, _host_s, _occ_sum
+        _decode_steps, _prefill_s, _decode_s, _host_s, _occ_sum, \
+        _spec_drafted, _spec_accepted, _spec_windows
     with _lock:
         _tokens = 0
         _evictions = 0
@@ -100,6 +109,9 @@ def reset() -> None:
         _decode_s = 0.0
         _host_s = 0.0
         _occ_sum = 0.0
+        _spec_drafted = 0
+        _spec_accepted = 0
+        _spec_windows = 0
         _dispatches.clear()
         _dispatches["eager"] = 0
         _itl.clear()
@@ -189,10 +201,22 @@ def set_pages_used(n: int) -> None:
         _pages_used = int(n)
 
 
+def note_spec(drafted: int, accepted: int) -> None:
+    """One speculative verify window: ``drafted`` tokens proposed by the
+    draft source, ``accepted`` of them matched the target model's greedy
+    choice (0 ≤ accepted ≤ drafted).  The MEASURED acceptance rate —
+    accepted/drafted over the run — is never assumed."""
+    global _spec_drafted, _spec_accepted, _spec_windows
+    with _lock:
+        _spec_drafted += int(drafted)
+        _spec_accepted += int(accepted)
+        _spec_windows += 1
+
+
 def note_dispatch(mode: str, n: int = 1) -> None:
     """Count an eagerly dispatched decode collective (``mode="eager"``:
-    decode_ag/decode_rs between the pieces; ``"fused"`` comes with
-    P11b)."""
+    decode_ag/decode_rs between the pieces) or a fused-program ring
+    (``mode="fused"``: a decode_collmm site inside the fused program)."""
     with _lock:
         _dispatches[mode] = _dispatches.get(mode, 0) + int(n)
 
@@ -250,6 +274,13 @@ def report() -> Dict[str, Any]:
                 "p50_ms": 1e3 * _percentile(itl, 0.50),
                 "p99_ms": 1e3 * _percentile(itl, 0.99),
                 "mean_ms": (1e3 * sum(itl) / len(itl)) if itl else 0.0,
+            },
+            "speculative": {
+                "windows": _spec_windows,
+                "drafted": _spec_drafted,
+                "accepted": _spec_accepted,
+                "acceptance_rate": (_spec_accepted / _spec_drafted
+                                    if _spec_drafted else 0.0),
             },
             "dispatches": dict(_dispatches),
             "requests": rows,

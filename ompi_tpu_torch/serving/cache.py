@@ -123,14 +123,18 @@ class PagedKVCache:
                       positions: np.ndarray) -> Tuple[np.ndarray,
                                                       np.ndarray]:
         """Vectorized (page_idx, offset) for one position per slot;
-        positions < 0 (inactive slots) land on the scratch page 0."""
+        positions < 0 (inactive slots) land on the scratch page 0, and so
+        do positions past the slot's block table: a speculative window
+        may run k − 1 rows past the pages its request reserved, and the
+        reference's clamp into the table's last page would overwrite
+        live rows of that page (ROADMAP Queue 3)."""
         slots = np.asarray(slots, np.int64)
         positions = np.asarray(positions, np.int64)
-        live = positions >= 0
+        page_slot = np.where(positions >= 0,
+                             positions // self.page_size, -1)
+        live = (page_slot >= 0) & (page_slot < self.max_pages_per_seq)
         p = np.where(live, positions, 0)
-        page_slot = p // self.page_size
-        page_idx = self.block_tables[slots, np.minimum(
-            page_slot, self.max_pages_per_seq - 1)]
+        page_idx = self.block_tables[slots, np.where(live, page_slot, 0)]
         page_idx = np.where(live, page_idx, 0).astype(np.int32)
         offset = np.where(live, p % self.page_size, 0).astype(np.int32)
         return page_idx, offset

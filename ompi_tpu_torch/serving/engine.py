@@ -1,11 +1,11 @@
 """Continuous-batching serving engine — prefill/decode over the decode
 weight layout, decode collectives audited as ``decode_ag``/``decode_rs``.
 
-Counterpart of ``ompi_tpu/serving/engine.py``'s eager path.  The per-layer
-compute is a handful of collective-free pieces (the reference's jitted
-pieces, here plain functions on tensors), and the only cross-rank traffic
-is the decided and audited decode collectives between them, one decision
-per dispatch.
+Counterpart of ``ompi_tpu/serving/engine.py``.  On the eager path the
+per-layer compute is a handful of collective-free pieces (the reference's
+jitted pieces, here plain functions on tensors), and the only cross-rank
+traffic is the decided and audited decode collectives between them, one
+decision per dispatch.
 
 Layout.  One process per tp position (``DeviceComm.n`` processes): every
 weight is this rank's decode shard under a leading row
@@ -32,10 +32,22 @@ DEVICE_RULES rows > platform default; the hierarchical arms ineligible:
 the decode collectives are single-stage) and leaves one audit record:
 ``dispatches``, ``wire_bytes`` (``coll/quant.wire_bytes``'s figure for the
 arm) and, with an spc table on the comm, ``coll_arm_<arm>_count`` and
-``coll_wire_bytes``.  The trace, perf and traffic halves of the audit come
-with ROADMAP P16; the fused decode program (``decode_overlap="fused"``,
-refused by ``Config``), ``decode_window`` and speculative decoding with
-P11b; the MoE decode path with P12 (``Config`` refuses ``mlp="moe"``).
+``coll_wire_bytes``.
+
+``decode_overlap="fused"`` (dense MLP, tp ≥ 2, max_seqs divisible by tp)
+runs each decode step as the fused program of ``serving/fused``: one eager
+embed ``decode_ag``, every tp combine a collective-matmul ring inside the
+program (4 a layer + the logits ring, each decided and audited as
+``decode_collmm``), then the eager logits ``decode_ag``: 2 eager
+dispatches a step.  Its row-parallel weights (``wo``, ``w_down``, the tied
+embedding) are laid out once at construction by ``parallel/reshard``.
+``decode_window`` runs a k-token teacher-forced verify window on either
+path (speculative decoding, ``serving/scheduler``'s ``spec_k``).
+
+Left for later slices: the trace, perf, traffic and simulated-DCN halves
+of the audit (ROADMAP P16, P13), the static proof of the fused program's
+wire (``verify_decode_program``: ``analysis/commgraph``, P17), the fleet
+(P11c) and the MoE decode path (P12; ``Config`` refuses ``mlp="moe"``).
 
 Prefill runs the prompt at its own length: the reference pads it to a
 power-of-two bucket only to bound its JIT compiles, and the padded
@@ -150,6 +162,14 @@ def _logits_argmax(ag, b: int):
     return logits, logits.argmax(dim=-1)
 
 
+def _fused_logits_argmax(ag, n: int):
+    """Fused-path logits: the program returns (1, B, V/tp) vocab blocks;
+    after the eager decode_ag the regroup concats them in rank order —
+    full (1, B, V) logits and the greedy argmax."""
+    logits = _regroup(ag, n).float()
+    return logits, logits.argmax(dim=-1)
+
+
 # -- decision + audit -------------------------------------------------------
 
 def _decide_serve_coll(dc, coll: str, nbytes: int, dtype, plane: str,
@@ -214,6 +234,21 @@ class ServingEngine:
                     f"the {dc.n}-way tp axis")
         if layout not in ("train", "decode"):
             raise ValueError(f"layout={layout!r} (want train|decode)")
+        self.fused = cfg.decode_overlap == "fused"
+        if self.fused:
+            if cfg.mlp == "moe":
+                raise ValueError(
+                    "ServingEngine: decode_overlap='fused' is dense-MLP "
+                    "only — moe decode stays on the eager path")
+            if dc.n < 2:
+                raise ValueError(
+                    "ServingEngine: decode_overlap='fused' needs tp>=2 "
+                    "(the rings are the whole point)")
+            if int(max_seqs) % dc.n:
+                raise ValueError(
+                    f"ServingEngine: decode_overlap='fused' needs "
+                    f"max_seqs={max_seqs} divisible by the {dc.n}-way "
+                    f"tp axis (batch-sharded residual)")
         check_on(optim.tree_leaves(params), self.device, "params")
         if layout == "train":
             params = tfm.convert_params(params, dc.mesh, cfg, to="decode")
@@ -241,8 +276,44 @@ class ServingEngine:
             dc, cfg.n_layers, cfg.n_heads, cfg.head_dim,
             n_pages=n_pages, page_size=page_size, max_seqs=max_seqs,
             max_pages_per_seq=max_pages_per_seq, dtype=cfg.dtype)
-        self.dispatches: Dict[str, int] = {"decode_ag": 0, "decode_rs": 0}
+        self.dispatches: Dict[str, int] = {"decode_ag": 0, "decode_rs": 0,
+                                           "decode_collmm": 0}
         self.wire_bytes = 0
+        if self.fused:
+            self._init_fused(params)
+
+    def _init_fused(self, params: Dict) -> None:
+        """The fused decode program and its weight views.  The AG rings
+        reuse the column shards lifted above (gate|up concatenated into
+        one ``wgu`` so the pair shares a ring); the RS rings contract over
+        local ROWS, so ``wo``, ``w_down`` and the tied embedding are laid
+        out row-parallel once here — one planned and audited
+        ``all_to_all`` step each (``parallel/reshard``) — and the
+        embedding's vocab block is transposed to (1, d, V/tp)."""
+        from ..parallel.reshard import Resharder
+        from .fused import build_fused_decode
+        dc, cfg = self.dc, self.cfg
+        # audited into this comm's spc (the mesh's shared Resharder would
+        # keep the comm's table for later callers)
+        rs = Resharder(dc.mesh, spc=dc.spc)
+        col, row = (None, dc.axis), (dc.axis, None)
+
+        def row_can(w):
+            return dc.canonicalize(rs.run(w.to(cfg.dtype), col, row), 0)
+
+        self._fused_layers: List[Dict[str, torch.Tensor]] = [
+            {"attn_norm": cl["attn_norm"], "mlp_norm": cl["mlp_norm"],
+             "wqkv": cl["wqkv"],
+             "wgu": torch.cat([cl["w_gate"], cl["w_up"]], dim=-1),
+             "wo": row_can(lw["wo"]),                 # (1, h/tp, d)
+             "wd": row_can(lw["w_down"])}             # (1, f/tp, d)
+            for lw, cl in zip(params["layers"], self._layers)]
+        self._embed_lg = row_can(params["embed"]).transpose(1, 2).contiguous()
+        self._fused = build_fused_decode(dc, cfg.n_layers, cfg.head_dim,
+                                         float(cfg.rope_base))
+        # one ring schedule per row count: the continuous batch and each
+        # speculative window length (the payloads scale with the rows)
+        self._ring_rows: Dict[int, List[Tuple[str, int, int]]] = {}
 
     # -- audited collective dispatch ---------------------------------------
 
@@ -294,12 +365,80 @@ class ServingEngine:
     def _index(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
 
+    # -- fused decode (decode_overlap="fused") -----------------------------
+
+    def _audit_collmm(self, wire: int, arm: str) -> None:
+        """One audit record per fused ring — the decode_collmm counterpart
+        of ``_audit_serve_coll``.  The ring is an n−1-hop rotation, so the
+        wire figure is exact (``ring_schedule``): counted as
+        ``coll_arm_<arm>_count`` and ``coll_wire_bytes`` in the comm's spc,
+        in ``dispatches`` and ``wire_bytes``, and as a ``"fused"``
+        dispatch in the serve plane.  The trace decision event, the perf
+        sample and the traffic ring-edge charge wait for ROADMAP P16, the
+        simulated-DCN charge for P13."""
+        spc = self.dc.spc
+        if spc is not None:
+            spc.inc(f"coll_arm_{arm}_count")
+            spc.inc("coll_wire_bytes", int(wire))
+        self.dispatches["decode_collmm"] += 1
+        self.wire_bytes += int(wire)
+        if serving.enabled:
+            serving.note_dispatch("fused")
+
+    def _decode_fused(self, tokens, positions, page_idx, offset, bt):
+        """The fused decode body: every ring of the program is decided
+        (the full precedence chain, native the only arm) BEFORE it runs,
+        then one eager embed ``decode_ag``, the program (every tp combine
+        an n−1-hop collective-matmul ring, ``serving/fused``), one
+        ``decode_collmm`` audit a ring, and the eager logits
+        ``decode_ag``.  The arguments are flat over any row count
+        divisible by tp: the continuous batch (``decode_step``) and the
+        speculative window (``decode_window``) share this body, each row
+        count with its own ring schedule."""
+        from .fused import ring_schedule
+        cfg, n = self.cfg, self.dc.n
+        rows = int(tokens.shape[0])
+        sched = self._ring_rows.get(rows)
+        if sched is None:
+            sched = self._ring_rows[rows] = ring_schedule(
+                cfg.n_layers, rows, cfg.d_model, n, cfg.dtype.itemsize)
+        arms = [_decide_serve_coll(self.dc, "decode_collmm", payload,
+                                   cfg.dtype, self._plane,
+                                   allowed=("native",))[0]
+                for _site, payload, _wire in sched]
+        x = _regroup(self._ag(_embed(self._embed, self._index(tokens))), n)
+        lg = self._fused(x, self._index(bt), self._index(positions),
+                         self._index(page_idx), self._index(offset),
+                         self._fused_layers, self._final_norm,
+                         self._embed_lg, self.cache.k, self.cache.v)
+        for (_site, _payload, wire), arm in zip(sched, arms):
+            self._audit_collmm(wire, arm)
+        return _fused_logits_argmax(self._ag(lg), n)
+
+    def _decode_rows(self, tokens, positions, page_idx, offset, bt):
+        """One decode pass over flat rows (inactive rows at position −1,
+        their token 0) on the engine's path: eager or fused.  Returns the
+        (1, rows, V) logits and the (1, rows) greedy tokens."""
+        if self.fused:
+            return self._decode_fused(tokens, positions, page_idx, offset,
+                                      bt)
+        bt = self._index(bt)
+        pos_dev = self._index(positions)
+        x = _regroup(self._ag(_embed(self._embed, self._index(tokens))),
+                     self.dc.n)
+        x = self._backbone(
+            x, pos_dev, self._index(page_idx), self._index(offset),
+            lambda i, q, k, v: _paged_attn(q, self.cache.k[i],
+                                           self.cache.v[i], bt, pos_dev))
+        return self._logits(x, int(tokens.shape[0]))
+
     # -- serving entry points ----------------------------------------------
 
     def prefill(self, slot: int, prompt: np.ndarray):
         """Run one request's prompt through the decode-layout model: writes
         its KV pages, returns (first greedy token, last-position logits
-        (1, 1, V), this rank's row)."""
+        (1, 1, V), this rank's row).  Prefill is eager on either path, as
+        in the reference."""
         prompt = np.asarray(prompt, np.int64)
         s = int(prompt.shape[0])
         positions = np.arange(s)
@@ -325,14 +464,48 @@ class ServingEngine:
         positions = np.asarray(positions, np.int64)
         page_idx, offset = self.cache.write_indices(np.arange(b),
                                                     positions)
-        bt = self._index(self.cache.block_tables)
-        pos_dev = self._index(positions)
-        x = _regroup(self._ag(_embed(
-            self._embed, self._index(np.where(positions >= 0, tokens, 0)))),
-            self.dc.n)
-        x = self._backbone(
-            x, pos_dev, self._index(page_idx), self._index(offset),
-            lambda i, q, k, v: _paged_attn(q, self.cache.k[i],
-                                           self.cache.v[i], bt, pos_dev))
-        logits, nxt = self._logits(x, b)
+        logits, nxt = self._decode_rows(
+            np.where(positions >= 0, tokens, 0), positions, page_idx,
+            offset, self.cache.block_tables)
         return nxt[0].cpu().numpy(), logits
+
+    def decode_window(self, tokens: np.ndarray, positions: np.ndarray):
+        """Teacher-forced k-token verify window for speculative decoding:
+        ``tokens``/``positions`` are (max_seqs, k) — slot s's row is its
+        last accepted token followed by k−1 draft tokens, at consecutive
+        positions (−1 = inactive, whole row).  All k KV rows are written to
+        the slot's pages FIRST, then the flattened (max_seqs·k) rows attend
+        under the causal position mask — within-window causality falls out
+        of ``decode_attention`` masking key positions > q_pos.  Returns
+        (greedy next token per window position (max_seqs, k), logits
+        (1, max_seqs·k, V), this rank's row).
+
+        Rejection is the caller's job: truncate ``cache.seq_lens`` back to
+        the accepted prefix — the stale KV rows beyond it are masked by
+        every later query and overwritten when the position is refilled.
+        The window rides the engine's path, eager (27 audited dispatches
+        at the flagship's depth) or fused (the rings at the window's row
+        count)."""
+        b = self.max_seqs
+        tokens = np.asarray(tokens, np.int64)
+        positions = np.asarray(positions, np.int64)
+        k = int(tokens.shape[1])
+        slots = np.broadcast_to(np.arange(b)[:, None], (b, k))
+        page_idx, offset = self.cache.write_indices(slots, positions)
+        logits, nxt = self._decode_rows(
+            np.where(positions >= 0, tokens, 0).reshape(-1),
+            positions.reshape(-1), page_idx.reshape(-1),
+            offset.reshape(-1), np.repeat(self.cache.block_tables, k,
+                                          axis=0))
+        return nxt[0].cpu().numpy().reshape(b, k), logits
+
+    def verify_decode_program(self):
+        """The reference proves the fused program's static wire against
+        the runtime audit byte for byte through ``analysis/commgraph``,
+        which comes with ROADMAP P17."""
+        if not self.fused:
+            raise ValueError("verify_decode_program needs "
+                             "decode_overlap='fused'")
+        raise NotImplementedError(
+            "verify_decode_program: the static extraction "
+            "(analysis/commgraph) comes with ROADMAP slice P17")

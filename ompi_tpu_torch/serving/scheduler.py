@@ -17,9 +17,19 @@ loop:
 
 Time is a virtual clock fed by MEASURED durations (prefill, decode step,
 host bookkeeping): arrivals interleave against real step costs and idle
-gaps jump to the next arrival.  Speculative decoding (``spec_k >= 2``)
-and the fleet router come with ROADMAP P11b, the per-request ledger
-(``serving/requests.py``) with P16.
+gaps jump to the next arrival.  Every tp rank runs the scheduler on the
+same stream (one process a rank, where the reference has one controller),
+so before each admission decision the ranks take the largest of their
+clocks: each rank measures its own durations, and a rank that admitted a
+request while another ran a decode step would issue mismatched
+collectives.
+
+Speculative decoding (``spec_k >= 2``): each step drafts ``spec_k − 1``
+tokens a slot by an n-gram self-draft over the request's own history and
+verifies them in one ``engine.decode_window``; the longest prefix the
+model's greedy output agrees with is accepted, so the streams are the
+non-speculative ones.  The fleet router comes with ROADMAP P11c, the
+per-request ledger (``serving/requests.py``) with P16.
 """
 
 from __future__ import annotations
@@ -29,8 +39,10 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from .. import serving
+from ..op import MAX
 
 
 @dataclass
@@ -88,13 +100,10 @@ class ContinuousBatchingScheduler:
         if spec_k < 0 or spec_k == 1:
             raise ValueError(f"spec_k={spec_k} (0 disables; >=2 sets "
                              "the draft/verify window length)")
-        if spec_k >= 2:
-            raise NotImplementedError(
-                f"spec_k={spec_k}: speculative decoding (decode_window) "
-                "comes with ROADMAP slice P11b")
         self.engine = engine
         self.policy = policy
         self.eos_id = eos_id
+        self.spec_k = int(spec_k)
         self.pending: List[Request] = sorted(requests,
                                              key=lambda r: r.arrival)
         self.active: Dict[int, _Active] = {}       # slot -> state
@@ -145,8 +154,20 @@ class ContinuousBatchingScheduler:
             return True
         return False
 
+    def _agree_clock(self) -> None:
+        """The largest of the tp ranks' clocks, on every rank: one MAX
+        ``allreduce`` of one row on the engine's comm."""
+        dc = self.engine.dc
+        if dc.n > 1:
+            t = torch.tensor([[self.clock]], dtype=torch.float64,
+                             device=dc.device)
+            self.clock = float(dc.allreduce(t, MAX)[0, 0])
+
     def _admissible(self) -> bool:
-        if not self.pending or self.pending[0].arrival > self.clock:
+        if not self.pending:
+            return False
+        self._agree_clock()
+        if self.pending[0].arrival > self.clock:
             return False
         if self.policy == "static" and self.active:
             return False
@@ -175,7 +196,10 @@ class ContinuousBatchingScheduler:
                 # idle: jump the virtual clock to the next arrival
                 self.clock = max(self.clock, self.pending[0].arrival)
                 continue
-            self._step()
+            if self.spec_k >= 2:
+                self._step_spec()
+            else:
+                self._step()
             if self.decode_steps >= max_steps:
                 raise RuntimeError(f"scheduler exceeded {max_steps} "
                                    "decode steps without draining")
@@ -208,6 +232,103 @@ class ContinuousBatchingScheduler:
             if serving.enabled:
                 serving.note_token(st.req.rid, self.clock)
             self._maybe_finish(st, tok)
+        host = time.perf_counter() - th0
+        self.clock += host
+        if serving.enabled:
+            serving.note_host(host)
+
+    # -- speculative decoding (spec_k >= 2) --------------------------------
+
+    @staticmethod
+    def _draft(history: List[int], n: int) -> List[int]:
+        """n-gram SELF-draft: continue the sequence by the most recent
+        bigram match in the request's own history (prompt + emitted
+        tokens), falling back to repeating the last token.  Free — no
+        second model — and measurably nonzero on any stream with local
+        structure; the acceptance rate is MEASURED by the verify loop
+        (serving.note_spec), never assumed."""
+        work = list(history)
+        out: List[int] = []
+        for _ in range(n):
+            d = None
+            if len(work) >= 2:
+                prev, last = work[-2], work[-1]
+                for i in range(len(work) - 3, -1, -1):
+                    if work[i] == prev and work[i + 1] == last:
+                        d = work[i + 2]
+                        break
+            if d is None:
+                d = work[-1]
+            out.append(d)
+            work.append(d)
+        return out
+
+    @staticmethod
+    def _accepted(drafts: List[int], out: List[int]) -> int:
+        """How many leading drafts the window confirms: draft i against
+        the model's greedy output at window position i."""
+        j = 0
+        while j < len(drafts) and drafts[j] == out[j]:
+            j += 1
+        return j
+
+    def _truncate(self, slot: int, rows: int) -> None:
+        """Keep ``slot``'s first ``rows`` KV rows: the consumed tokens, the
+        input and the accepted drafts, one row each; the rows past them
+        are rolled back (masked by every later query, overwritten when
+        their positions refill)."""
+        self.engine.cache.seq_lens[slot] = rows
+
+    def _step_spec(self) -> None:
+        """One draft/verify window: each active slot runs its next input
+        token plus ``spec_k − 1`` draft tokens through ONE teacher-forced
+        ``decode_window`` call, then accepts the longest prefix where draft
+        i equals the model's greedy output at window position i−1 — so
+        every emitted token is EXACTLY the token non-speculative greedy
+        would have produced, and a rejection is a block-table truncate
+        (``cache.seq_lens`` rolls back to the accepted prefix; the stale KV
+        rows are masked and later overwritten)."""
+        cache = self.engine.cache
+        b, k = self.engine.max_seqs, self.spec_k
+        tokens = np.zeros((b, k), np.int32)
+        positions = np.full((b, k), -1, np.int64)
+        drafts: Dict[int, List[int]] = {}
+        for slot, st in self.active.items():
+            d = self._draft(list(st.req.prompt) + st.tokens, k - 1)
+            drafts[slot] = d
+            tokens[slot] = [st.last] + d
+            p = int(cache.seq_lens[slot])
+            positions[slot] = np.arange(p, p + k)
+        t0 = time.perf_counter()
+        nxt, _ = self.engine.decode_window(tokens, positions)
+        dur = time.perf_counter() - t0
+        self.clock += dur
+        self.decode_steps += 1
+        self.decode_s += dur
+        self.occ_sum += len(self.active) / b
+        if serving.enabled:
+            serving.note_decode_step(dur, len(self.active), b)
+        th0 = time.perf_counter()
+        for slot in list(self.active):
+            st = self.active[slot]
+            y = [int(t) for t in nxt[slot]]
+            j = self._accepted(drafts[slot], y)
+            if serving.enabled:
+                serving.note_spec(k - 1, j)
+            emitted = 0
+            finished = False
+            for i in range(j + 1):       # y_0..y_j are all greedy-true
+                tok = y[i]
+                st.tokens.append(tok)
+                st.last = tok
+                emitted += 1
+                if serving.enabled:
+                    serving.note_token(st.req.rid, self.clock)
+                if self._maybe_finish(st, tok):
+                    finished = True
+                    break
+            if not finished:
+                self._truncate(slot, int(positions[slot, 0]) + emitted)
         host = time.perf_counter() - th0
         self.clock += host
         if serving.enabled:

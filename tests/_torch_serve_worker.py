@@ -1,4 +1,4 @@
-"""What the gloo workers of the port's reshard and serving tests run.
+"""What the gloo workers of the port's reshard, serving and decode tests run.
 
 ``_torch_coll_worker.Pool`` runs these by ``"_torch_serve_worker:<name>"``
 in every process of its world (the tp 1 serving tests call them in the
@@ -124,14 +124,9 @@ def convert(dc, axes, cfg_kw, tree):
             "back": _leaves(back)}
 
 
-def engine_greedy(dc, axes, cfg_kw, tree, prompts, steps, teacher=None,
-                  force=None, engine_kw=None):
-    """Per prompt: prefill + ``steps`` single-slot greedy decode steps
-    (``tests/test_serving.py``'s ``_greedy_decode``; with ``teacher`` the
-    fed-back tokens come from it), on an engine built from this rank's
-    train shards.  ``force`` sets the decode arms' force variables (and
-    the quant block) for the run.  Returns the tokens, the prefill's and
-    each step's logits, and the audit counts."""
+def _engine(axes, cfg_kw, tree, engine_kw=None):
+    """An engine from this rank's train shards of ``tree`` on a fresh comm
+    with its own spc table."""
     mesh = _mesh(axes)
     cfg = _config(cfg_kw)
     comm = DeviceComm(mesh, "tp")
@@ -140,7 +135,19 @@ def engine_greedy(dc, axes, cfg_kw, tree, prompts, steps, teacher=None,
                              mesh, cfg)
     kw = dict(n_pages=64, page_size=8, max_seqs=4)
     kw.update(engine_kw or {})
-    eng = ServingEngine(comm, train, cfg, **kw)
+    return ServingEngine(comm, train, cfg, **kw)
+
+
+def engine_greedy(dc, axes, cfg_kw, tree, prompts, steps, teacher=None,
+                  force=None, engine_kw=None):
+    """Per prompt: prefill + ``steps`` single-slot greedy decode steps
+    (``tests/test_serving.py``'s ``_greedy_decode``; with ``teacher`` the
+    fed-back tokens come from it), on an engine built from this rank's
+    train shards.  ``force`` sets the decode arms' force variables (and
+    the quant block) for the run.  Returns the tokens, the prefill's and
+    each step's logits, and the audit counts."""
+    eng = _engine(axes, cfg_kw, tree, engine_kw)
+    comm = eng.dc
     for name, value in (force or {}).items():
         var.registry.set_override(name, value)
     try:
@@ -179,3 +186,146 @@ def _greedy_decode(eng, prompt, steps, teacher=None):
         last = int(nxt[slot]) if teacher is None else teacher[i + 1]
     eng.cache.release(slot)
     return {"tokens": toks, "logits": np.stack(logits)}
+
+
+# -- the fused decode program and speculative decoding ------------------------
+
+def step_audit(dc, axes, cfg_kw, tree, prompt, steps):
+    """Per decode step after one prefill: the engine's dispatch counts,
+    wire bytes and the spc's native arm count and wire bytes, each as the
+    step's delta."""
+    eng = _engine(axes, cfg_kw, tree)
+    spc = eng.dc.spc
+    slot = eng.cache.admit(len(prompt), steps + 1)
+    last, _ = eng.prefill(slot, np.asarray(prompt))
+    out = []
+    for _ in range(steps):
+        before = (dict(eng.dispatches), eng.wire_bytes,
+                  spc.get("coll_arm_native_count"),
+                  spc.get("coll_wire_bytes"))
+        t = np.zeros(eng.max_seqs, np.int32)
+        p = np.full(eng.max_seqs, -1, np.int64)
+        t[slot] = last
+        p[slot] = int(eng.cache.seq_lens[slot])
+        nxt, _ = eng.decode_step(t, p)
+        eng.cache.seq_lens[slot] += 1
+        last = int(nxt[slot])
+        out.append({"dispatches": {k: v - before[0][k]
+                                   for k, v in eng.dispatches.items()},
+                    "wire_bytes": eng.wire_bytes - before[1],
+                    "spc_native": spc.get("coll_arm_native_count")
+                    - before[2],
+                    "spc_wire": spc.get("coll_wire_bytes") - before[3]})
+    eng.cache.release(slot)
+    return out
+
+
+def window(dc, axes, cfg_kw, tree, prompts, windows):
+    """Prefill ``prompts`` into slots, then one ``decode_window`` per
+    (max_seqs, k) token table of ``windows``: each live slot's row at its
+    next positions; after each window the slot keeps its first two rows
+    (one accepted draft).  Returns, per window, the next tokens and the
+    logits rows of the live slots."""
+    eng = _engine(axes, cfg_kw, tree)
+    cache = eng.cache
+    slots = []
+    for prompt in prompts:
+        slot = cache.admit(len(prompt), 16)
+        eng.prefill(slot, np.asarray(prompt))
+        slots.append(slot)
+    out = []
+    for table in windows:
+        table = np.asarray(table)
+        k = table.shape[1]
+        positions = np.full(table.shape, -1, np.int64)
+        for s in slots:
+            positions[s] = cache.seq_lens[s] + np.arange(k)
+        nxt, lg = eng.decode_window(table, positions)
+        rows = np.concatenate([np.arange(s * k, (s + 1) * k) for s in slots])
+        out.append({"next": nxt[slots], "logits": lg[0, rows].numpy()})
+        for s in slots:
+            cache.seq_lens[s] += 2
+    return out
+
+
+class _StepClock:
+    """A host clock that moves ``step`` seconds a reading: every duration
+    the scheduler measures is then ``step``, so its virtual clock, and
+    with it how arrivals interleave with steps, is the same in every run
+    (measured durations differ from run to run and from rank to rank)."""
+
+    def __init__(self, step: float) -> None:
+        self.step, self.now = float(step), 0.0
+
+    def perf_counter(self) -> float:
+        self.now += self.step
+        return self.now
+
+
+def spec_streams(dc, axes, cfg_kw, tree, requests, ks, clock=None,
+                 engine_kw=None):
+    """The scheduler at spec_k 0 and each of ``ks`` on one engine:
+    streams, decode steps, the serve plane's speculative ledger and the
+    pages left held.  ``requests`` is ``(n, seed)`` for ``poisson_stream(n,
+    50 qps, seed)`` or a list of ``(prompt, max_new)`` arrived at 0.  With
+    ``clock`` the scheduler reads a ``_StepClock`` of ``clock·(1 + tp
+    position)`` seconds a reading (the ranks' clocks then run apart, and
+    only their agreement keeps the ranks' admissions in step)."""
+    from ompi_tpu_torch import serving
+    from ompi_tpu_torch.serving import scheduler as sched
+    eng = _engine(axes, cfg_kw, tree, engine_kw)
+    real_time = sched.time
+    out = []
+    for k in (0, *ks):
+        if isinstance(requests, tuple):
+            reqs = sched.poisson_stream(requests[0], qps=50.0,
+                                        vocab=eng.cfg.vocab,
+                                        seed=requests[1])
+        else:
+            reqs = [sched.Request(rid=i, prompt=np.asarray(p, np.int32),
+                                  max_new=m)
+                    for i, (p, m) in enumerate(requests)]
+        serving.reset()
+        serving.enable()
+        if clock is not None:
+            sched.time = _StepClock(clock * (1 + eng.dc.pos))
+        try:
+            res = sched.ContinuousBatchingScheduler(eng, reqs,
+                                                    spec_k=k).run()
+            rep = serving.report()
+        finally:
+            sched.time = real_time
+            serving.disable()
+        out.append({"spec_k": k, "decode_steps": res["decode_steps"],
+                    "streams": {rid: r["tokens"]
+                                for rid, r in res["results"].items()},
+                    "speculative": rep["speculative"],
+                    "dispatches": rep["dispatches"],
+                    "pages_used": eng.cache.pages_used})
+    return out
+
+
+def fused_refusals(dc, axes, cfg_kw, tree):
+    """The fused engine's refusals on a tp ≥ 2 mesh: max_seqs not divisible
+    by tp, and ``verify_decode_program`` (P17)."""
+    out = {}
+    try:
+        _engine(axes, cfg_kw, tree, {"max_seqs": 3})
+    except ValueError as e:
+        out["max_seqs"] = str(e)
+    try:
+        _engine(axes, cfg_kw, tree).verify_decode_program()
+    except NotImplementedError as e:
+        out["verify"] = str(e)
+    return out
+
+
+def fused_views(dc, axes, cfg_kw, tree):
+    """This rank's weight views of the fused program: per layer wqkv, wgu
+    (column shards), wo and wd (row shards), and the transposed embedding
+    block, with the rank's tp position."""
+    eng = _engine(axes, cfg_kw, tree)
+    f = lambda t: t[0].float().numpy()
+    return {"pos": eng.dc.pos, "embed_lg": f(eng._embed_lg),
+            "layers": [{k: f(lw[k]) for k in ("wqkv", "wgu", "wo", "wd")}
+                       for lw in eng._fused_layers]}

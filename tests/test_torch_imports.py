@@ -51,7 +51,8 @@ def test_every_module_is_listed():
     for name in ("op", "topo", "parallel.device_plane", "parallel.mesh",
                  "parallel.collectives", "coll.quant", "parallel.overlap",
                  "ops.collective_matmul", "parallel.reshard", "serving",
-                 "serving.cache", "serving.engine", "serving.scheduler"):
+                 "serving.cache", "serving.engine", "serving.fused",
+                 "serving.scheduler"):
         assert f"ompi_tpu_torch.{name}" in MODULES
 
 

@@ -322,11 +322,17 @@ def test_eos_eviction(dc1, train1):
 # -- refusals -----------------------------------------------------------------
 
 def test_refusals(dc1, train1):
-    with pytest.raises(NotImplementedError, match="P11b"):
-        tfm.Config(decode_overlap="fused")
+    # the fused decode program and speculative decoding are the
+    # reference's behaviour now (tests/test_torch_decode.py); the fused
+    # engine refuses tp 1, as the reference does, and MoE stays P12's
+    fused = tfm.Config(dtype=torch.float32, decode_overlap="fused",
+                       **CFG_KW)
+    with pytest.raises(ValueError, match="tp>=2"):
+        ServingEngine(dc1, train1, fused)
+    with pytest.raises(NotImplementedError, match="P12"):
+        tfm.Config(mlp="moe")
     eng = _engine(dc1, train1)
-    with pytest.raises(NotImplementedError, match="P11b"):
-        ContinuousBatchingScheduler(eng, [], spec_k=2)
+    assert ContinuousBatchingScheduler(eng, [], spec_k=2).spec_k == 2
     with pytest.raises(ValueError, match="spec_k"):
         ContinuousBatchingScheduler(eng, [], spec_k=1)
     with pytest.raises(ValueError, match="policy"):
