@@ -138,8 +138,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                share, launches), and the scheduler's tokens/s, decode
                steps and acceptance rate on 13c's stream at spec_k 0, 2
                and 4 (decode_numbers lines).
-The last lines are the collectives, mesh, mpi, grad_sync, serve, decode
-and kernels JSON objects,
+ 15. fleet   — in phase 9's world, after phase 14: (a) a ServingFleet of
+               one colocated replica at tp 1 against the bare scheduler on
+               an engine of the same geometry, 13c's stream in bf16 at full
+               width: under one step clock (a fixed step a reading) the
+               same streams and decode steps, no K1-K4 launch in the
+               fleet, every page released; then each once on the host
+               clock, tokens/s and ITL, streams equal (fleet_check
+               "fleet_of_one" line).
+The last lines are the collectives, mesh, mpi, grad_sync, serve, decode,
+fleet and kernels JSON objects,
 the nvidia-smi line and {"ok": true, "device": {...}}.  Without CUDA it
 exits 1 and prints no result.
 
@@ -185,6 +193,28 @@ some draft accepted; bf16 teacher-forced within phase 13b's 4e-2 of the
 eager engine; the fused
 step beside the eager one at (8, 512) and (32, 512), each profiled
 (decode_check, decode_numbers lines, then the decode line).
+Phase 15 across the cards, seed-0 weights at full width: (b) a 1 + 1
+fleet at tp 2, bf16: a 512-token prompt prefilled on the prefill row and
+its KV pages migrated, the decode ranks' pages bitwise equal to the prefill
+ranks' (sent again by a plain send), seq_lens carried over, wire bytes =
+the plan's = the spc's = fleet_migrated_bytes, peak <= bound, a dropped
+piece and the last page of prompt rows of one layer zeroed each failing the
+bitwise check, then the ms and GB/s of a migration (fleet_check
+"migration" line); (c)
+13a's four requests in f32 through colocated 1 x tp 4 and 2 x tp 2 and
+disaggregated 1 + 1 at tp 2 and 1 + 3 at tp 1: every request's tokens
+equal colocated 1 x tp 4's, the migrations equal the requests that outlive
+their first token (fleet_check "fleet_tokens_f32" line); (d) 13c's stream
+in bf16 through colocated 1 x tp 4 and disaggregated 2 x tp 2 (one prefill
+replica, one decode replica): tokens/s and ITL p50/p99 on the host's
+clock (tokens over the command's wall time; the gaps between a request's
+tokens on its serving replica) and on the fleet's virtual clock, decode
+steps, migrations, the share of the command spent migrating, every card's
+idle share from one more, profiled run (fleet_numbers lines).  The
+fleets of one layout share its mesh and pair groups (made once).  Then
+the fleet line, and each rank ends through leave_world: a teardown line,
+and a teardown of the world that does not return within 60 s fails the
+run.
 """
 
 from __future__ import annotations
@@ -907,38 +937,13 @@ def profile_run(torch, fn, ref_ms: float, card: str, what: str,
     ``ref_ms`` (the profiler's own overhead lengthens the profiled wall
     time, so that is reported but not used).  ``want_launches`` maps
     kernel classes to the launches the run must show."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    # kernels only: an operator's device time repeats its kernels', the
-    # ProfilerStep annotation spans the whole step, and c10d's "nccl:<op>"
-    # annotation on the device timeline repeats its NCCL kernel
+    prof, spans, wall_ms = traced(torch, fn, warm=True, cpu=True)
     kernels = torch.autograd.DeviceType.CUDA
-    annotation = ("ProfilerStep", "nccl:")
-    # a trace with no device record is taken again (``device_kernels``)
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for step in range(2):        # a warm-up run, then the record
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-                prof.step()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == kernels
-                  and not e.key.startswith(annotation)]
-        if events:
-            break
+    events = [e for e in prof.key_averages()
+              if e.device_type == kernels
+              and not e.key.startswith(ANNOTATIONS)]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    # the device busy as the union of the kernels' intervals: NCCL's
-    # stream overlaps the compute stream's, and an NCCL kernel spans its
-    # wait for late peers, so the kernels' sum can pass the wall time
-    spans = [(e.time_range.start, e.time_range.end, "nccl" in e.name)
-             for e in prof.events() if e.device_type == kernels
-             and not e.name.startswith(annotation)]
-    union_ms = interval_union(spans) / 1e3
-    compute_ms = interval_union([sp for sp in spans if not sp[2]]) / 1e3
+    shares = idle_shares(spans, ref_ms)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     # the host's time inside operators (dispatch and launch, inflated by
     # the profiler's own cost); the rest of the host's time is Python
@@ -959,13 +964,7 @@ def profile_run(torch, fn, ref_ms: float, card: str, what: str,
            "host_top": [{"name": e.key[:60], "count": e.count,
                          "host_ms": e.self_cpu_time_total / 1e3}
                         for e in host_top],
-           "device_union_ms": union_ms, "compute_union_ms": compute_ms,
-           # no device time seen means the profiler could not trace the
-           # card: the share is then not measured, not 100% idle
-           "idle_share": 1 - union_ms / ref_ms if busy_ms else None,
-           "compute_idle_share": 1 - compute_ms / ref_ms if busy_ms
-           else None,
-           "card": card,
+           **shares, "card": card,
            "by_class": {c: {"device_ms": ms, "launches": n}
                         for c, (ms, n) in sorted(by_class.items())},
            "top": [{"name": e.key[:90], "count": e.count,
@@ -978,6 +977,57 @@ def profile_run(torch, fn, ref_ms: float, card: str, what: str,
             raise AssertionError(f"profile of {what}: {seen} launches of "
                                  f"{cls}, want {n}")
     return out
+
+
+# kernels only: an operator's device time repeats its kernels', the
+# ProfilerStep annotation spans the whole step, and c10d's "nccl:<op>"
+# annotation on the device timeline repeats its NCCL kernel
+ANNOTATIONS = ("ProfilerStep", "nccl:")
+
+
+def traced(torch, fn, warm: bool, cpu: bool):
+    """A torch.profiler trace of one call of ``fn`` (after an unrecorded
+    warm-up call when ``warm``; host operators too when ``cpu``): the
+    profile, its kernels' (start, end, is NCCL) spans and the recorded
+    call's wall ms.  A trace with no kernel at all is taken again, up to
+    3 times (on one card the profiler has returned such empty traces)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    kernels = torch.autograd.DeviceType.CUDA
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for _ in range(3):
+        with profile(activities=acts,
+                     schedule=schedule(wait=0, warmup=int(warm), active=1,
+                                       repeat=1)) as prof:
+            for _ in range(1 + int(warm)):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                prof.step()
+        spans = [(e.time_range.start, e.time_range.end, "nccl" in e.name)
+                 for e in prof.events() if e.device_type == kernels
+                 and not e.name.startswith(ANNOTATIONS)]
+        if spans:
+            break
+    return prof, spans, wall_ms
+
+
+def idle_shares(spans, ref_ms: float) -> dict:
+    """The device busy as the union of the kernels' intervals (NCCL's
+    stream overlaps the compute stream's, and an NCCL kernel spans its
+    wait for late peers, so the kernels' sum can pass the wall time), and
+    its idle share of the unprofiled ``ref_ms``; also without NCCL's
+    kernels (``compute_idle_share``).  No kernel seen means the profiler
+    could not trace the card: the shares are then not measured (None),
+    not 100% idle."""
+    union_ms = interval_union(spans) / 1e3
+    compute_ms = interval_union([sp for sp in spans if not sp[2]]) / 1e3
+    return {"device_union_ms": union_ms, "compute_union_ms": compute_ms,
+            "kernels": len(spans),
+            "nccl_kernels": sum(1 for sp in spans if sp[2]),
+            "idle_share": 1 - union_ms / ref_ms if spans else None,
+            "compute_idle_share": 1 - compute_ms / ref_ms if spans
+            else None}
 
 
 def interval_union(spans) -> float:
@@ -3431,6 +3481,487 @@ def decode_multi_card(torch, np, tfm, world: int, card: str,
     return row
 
 
+# -- 15. the serving fleet ----------------------------------------------------
+
+# 15b: the migrated prompt and the timed migrations after the checked one
+FLEET_PROMPT = 512
+FLEET_MIGRATIONS = 5
+# 15c: the four fleets of the f32 token check (name, replicas, tp,
+# prefill replicas); the first is the yardstick
+FLEET_TOKEN_TOPOS = [("colocated 1x4", 1, 4, 0), ("colocated 2x2", 2, 2, 0),
+                     ("disaggregated 1+1 tp2", 2, 2, 1),
+                     ("disaggregated 1+3 tp1", 4, 1, 1)]
+# 15d: colocated against disaggregated on the same cards (bench.py:3907-3909
+# on four cards)
+FLEET_TIMED_TOPOS = [("colocated 1x4", 1, 4, 0),
+                     ("disaggregated 2x2", 2, 2, 1)]
+# 15a: the virtual clock's step when both runs read a step clock
+FLEET_STEP_S = 0.02
+
+
+class StepClock:
+    """A host clock that moves ``step`` seconds a reading: two runs that
+    read it take the same virtual time, so their admissions, and with them
+    their decode steps, can be held equal."""
+
+    def __init__(self, step: float) -> None:
+        self.step, self.now = float(step), 0.0
+
+    def perf_counter(self) -> float:
+        self.now += self.step
+        return self.now
+
+
+@contextlib.contextmanager
+def step_clock(step: float):
+    """The scheduler and the fleet read a fresh ``StepClock``."""
+    from ompi_tpu_torch.serving import fleet, scheduler
+    clock = StepClock(step)
+    with planted(scheduler, "time", clock), planted(fleet, "time", clock):
+        yield
+
+
+def fleet_of(params, cfg, replicas: int, tp: int, prefill: int,
+             pages_per_seq: int):
+    """A fleet at phase 13's page size and batch, room for SERVE_SEQS
+    sequences of pages_per_seq pages, its own spc table."""
+    from ompi_tpu_torch import spc as spc_mod
+    from ompi_tpu_torch.serving.fleet import ServingFleet
+    return ServingFleet(params, cfg, replicas=replicas, tp=tp,
+                        prefill_replicas=prefill,
+                        n_pages=SERVE_SEQS * pages_per_seq + 1,
+                        page_size=SERVE_PAGE, max_seqs=SERVE_SEQS,
+                        spc=spc_mod.Counters())
+
+
+def sched_stream(cfg):
+    from ompi_tpu_torch.serving.scheduler import poisson_stream
+    return poisson_stream(SCHED_N, SCHED_QPS, cfg.vocab, seed=1,
+                          prompt_len=SCHED_PROMPT, max_new=SCHED_NEW)
+
+
+def fleet_one_card(torch, np, tfm, attention, card, log_fn=log) -> dict:
+    """15a, in phase 9's one-process world: a fleet of one colocated
+    replica at tp 1 against the bare scheduler on an engine of the same
+    geometry, 13c's stream in bf16 at full width.  Under one step clock
+    both give the same streams and decode steps (and the fleet launches
+    none of K1-K4); then each once on the host clock, timed."""
+    from ompi_tpu_torch import serving
+    from ompi_tpu_torch.parallel import DeviceComm, make_mesh
+    from ompi_tpu_torch.serving.engine import ServingEngine
+    from ompi_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
+    cfg = tfm.flagship_config()
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    pages = serve_pages(SCHED_PROMPT[1] + SCHED_NEW[1])
+    t0 = time.perf_counter()
+    fl = fleet_of(params, cfg, 1, 1, 0, pages)
+    mesh = make_mesh({"tp": 1})
+    dc = DeviceComm(mesh, "tp")
+    eng = ServingEngine(dc, tfm.shard_params(params, mesh, cfg), cfg,
+                        n_pages=SERVE_SEQS * pages + 1, page_size=SERVE_PAGE,
+                        max_seqs=SERVE_SEQS)
+    del params
+    runs = {}
+    for clock in ("step", "host"):
+        for name, run in (
+                ("scheduler", lambda: ContinuousBatchingScheduler(
+                    eng, sched_stream(cfg)).run()),
+                ("fleet", lambda: fl.run(sched_stream(cfg)))):
+            serving.reset()
+            serving.enable()
+            zero_counts(attention)
+            w0 = time.perf_counter()
+            with (step_clock(FLEET_STEP_S) if clock == "step"
+                  else contextlib.nullcontext()):
+                out = run()
+            torch.cuda.synchronize()
+            rep = serving.report()
+            serving.disable()
+            runs[(clock, name)] = {
+                "streams": {rid: r["tokens"]
+                            for rid, r in out["results"].items()},
+                "decode_steps": out["decode_steps"],
+                "completed": out["completed"], "tokens": out["tokens"],
+                "tokens_per_s": out["tokens_per_s"],
+                "clock_s": out["clock_s"], "itl": rep["itl"],
+                "wall_s": time.perf_counter() - w0,
+                "k1_k4_launches": list(launch_counts(attention))}
+    step = {n: runs[("step", n)] for n in ("scheduler", "fleet")}
+    host = {n: runs[("host", n)] for n in ("scheduler", "fleet")}
+    a = {"phase": "fleet_check", "check": "fleet_of_one", "tp": 1,
+         "replicas": 1, "requests": SCHED_N, "qps": SCHED_QPS,
+         "prompt_len": list(SCHED_PROMPT), "max_new": list(SCHED_NEW),
+         "step_clock_s": FLEET_STEP_S,
+         "streams_equal": step["fleet"]["streams"]
+         == step["scheduler"]["streams"],
+         "decode_steps": {n: r["decode_steps"] for n, r in step.items()},
+         "host_clock_streams_equal": host["fleet"]["streams"]
+         == host["scheduler"]["streams"],
+         "host_clock": {n: {k: v for k, v in r.items() if k != "streams"}
+                        for n, r in host.items()},
+         "k1_k4_launches_fleet": step["fleet"]["k1_k4_launches"],
+         "pages_used": fl.engine.cache.pages_used,
+         "seconds": time.perf_counter() - t0, "card": card}
+    log_fn(a)
+    if not (a["streams_equal"] and a["host_clock_streams_equal"]
+            and step["fleet"]["completed"] == SCHED_N
+            and a["decode_steps"]["fleet"] == a["decode_steps"]["scheduler"]
+            and not any(a["k1_k4_launches_fleet"]) and not a["pages_used"]):
+        raise AssertionError(f"15a: a fleet of one against the scheduler: "
+                             f"{a}")
+    del fl, eng
+    torch.cuda.empty_cache()
+    return {k: v for k, v in a.items() if k != "phase"}
+
+
+def gathered(torch, obj) -> list:
+    """Every rank's ``obj``, in rank order."""
+    out = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(out, obj)
+    return out
+
+
+def slot_pages(torch, cache, slot: int):
+    """The slot's pages of every pool, k then v, layer-major: the block a
+    migration moves."""
+    idx = torch.as_tensor(cache._slot_pages[slot], device=cache.k[0].device)
+    return torch.cat([p.index_select(1, idx) for p in cache.k + cache.v],
+                     dim=1)
+
+
+def migration_bitwise(torch, fl, pslot, dslot) -> bool:
+    """Decode rank j's pages of ``dslot`` against prefill rank j's of
+    ``pslot``, bitwise: the prefill rank sends its block again, by one
+    send of its own outside the migration's path (on the world group's
+    communicator, as the migration's).  Every rank returns the fleet's
+    verdict."""
+    dist = torch.distributed
+    pre, dec = fl.replicas[0], fl.replicas[1]
+    pos = fl.engine.dc.pos
+    ok = True
+    if fl.me == 0:
+        op = dist.P2POp(dist.isend, slot_pages(
+            torch, fl.engine.cache, pslot).contiguous(), dec.ranks[pos])
+    else:
+        mine = slot_pages(torch, fl.engine.cache, dslot)
+        theirs = torch.empty_like(mine)
+        op = dist.P2POp(dist.irecv, theirs, pre.ranks[pos])
+    for req in dist.batch_isend_irecv([op]):
+        req.wait()
+    if fl.me != 0:
+        ok = bool(torch.equal(mine, theirs))
+    return all(gathered(torch, ok))
+
+
+@contextlib.contextmanager
+def piece_dropped():
+    """Planted: the migration's plan loses its first cross-rank piece
+    (prefill rank 0 → decode rank 0), on every rank."""
+    from ompi_tpu_torch.parallel import reshard
+    real = reshard._cross_plan
+
+    def drop(*args):
+        plan = real(*args)
+        first = next(i for i, p in enumerate(plan.pieces)
+                     if p.src_pos != p.dst_pos)
+        return dataclasses.replace(plan, pieces=plan.pieces[:first]
+                                   + plan.pieces[first + 1:])
+
+    with planted(reshard, "_cross_plan", drop):
+        yield
+
+
+@contextlib.contextmanager
+def last_page_zeroed(n_layers: int, npg: int):
+    """Planted: on the decode ranks the migrated block's last page that
+    holds prompt rows, of the last layer's k pool, is zeroed before it is
+    written."""
+    from ompi_tpu_torch.parallel import reshard
+    real = reshard.cross_reshard
+    page = (n_layers - 1) * npg + (FLEET_PROMPT - 1) // SERVE_PAGE
+
+    def zeroed(*args, **kw):
+        out = real(*args, **kw)
+        if out is not None:
+            out[0, :, page].zero_()
+        return out
+
+    with planted(reshard, "cross_reshard", zeroed):
+        yield
+
+
+def fleet_migration(torch, np, tfm, world: int, card: str, log_fn) -> dict:
+    """15b: a 1 + 1 fleet at tp world/2, bf16, full width: a FLEET_PROMPT
+    prompt prefilled and its pages migrated, the decode pools bitwise equal
+    to the prefill pools and seq_lens carried over; wire = plan = spc =
+    fleet_migrated_bytes, peak <= bound; two planted faults (a dropped
+    piece, the last page of prompt rows of one layer zeroed) each fail the
+    bitwise check;
+    then FLEET_MIGRATIONS timed migrations."""
+    from ompi_tpu_torch import serving
+    from ompi_tpu_torch.parallel import reshard
+    dist = torch.distributed
+    cfg = tfm.flagship_config()
+    tp = world // 2
+    t_build = time.perf_counter()
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    npg = serve_pages(FLEET_PROMPT + SERVE_NEW)
+    fl = fleet_of(params, cfg, 2, tp, 1, npg)
+    del params
+    pre, dec = fl.replicas
+    cache = fl.engine.cache
+    rng = np.random.default_rng(15)
+
+    def prefill(seed):
+        if fl.me != 0:
+            return None
+        prompt = np.random.default_rng(seed).integers(0, cfg.vocab,
+                                                      FLEET_PROMPT)
+        slot = cache.admit(FLEET_PROMPT, SERVE_NEW)
+        fl.engine.prefill(slot, prompt)
+        return slot
+
+    def migrate(pslot, rid):
+        return fl.migrate(pre, dec, pslot, FLEET_PROMPT, SERVE_NEW, rid=rid)
+
+    def release(pslot, dslot):
+        cache.release(pslot if fl.me == 0 else dslot)
+
+    # the checked migration
+    serving.reset()
+    serving.enable()
+    pslot = prefill(int(rng.integers(1 << 30)))
+    spc = fl.spc
+    arms0, wire0 = spc.get("coll_arm_native_count"), spc.get(
+        "coll_wire_bytes")
+    dslot = migrate(pslot, 0)
+    torch.cuda.synchronize()
+    last = reshard.report()["last"]
+    rep = serving.fleet_report()
+    serving.disable()
+    rows = 2 * cfg.n_layers * npg
+    plan = reshard.compile_cross_plan(
+        (2, tp, rows, SERVE_PAGE, cfg.n_heads // tp, cfg.head_dim),
+        cfg.dtype, ("fleet", "tp"), (None, "tp"), *fl._bridge(pre, dec))
+    seq = int(cache.seq_lens[pslot if fl.me == 0 else dslot])
+    b = {"phase": "fleet_check", "check": "migration", "tp": tp,
+         "prompt_tokens": FLEET_PROMPT, "pages": npg,
+         "bitwise": migration_bitwise(torch, fl, pslot, dslot),
+         "seq_lens": gathered(torch, seq),
+         "wire_bytes": last["wire_bytes"], "plan_wire_bytes":
+         plan.wire_bytes, "spc_wire_bytes": spc.get("coll_wire_bytes")
+         - wire0, "spc_native_arms": spc.get("coll_arm_native_count")
+         - arms0, "fleet_migrated_bytes": rep["migrated_bytes"],
+         "peak_bytes": last["peak_bytes"], "bound_bytes":
+         last["bound_bytes"], "pieces": len(plan.pieces)}
+    release(pslot, dslot)
+    faults = []
+    for i, (name, ctx) in enumerate((
+            ("a dropped piece", piece_dropped),
+            ("the last prompt page of one layer zeroed",
+             lambda: last_page_zeroed(cfg.n_layers, npg)))):
+        pslot = prefill(int(rng.integers(1 << 30)))
+        with ctx():
+            dslot = migrate(pslot, f"fault{i}")
+        torch.cuda.synchronize()
+        ok = migration_bitwise(torch, fl, pslot, dslot)
+        faults.append({"fault": name, "rejected": not ok})
+        release(pslot, dslot)
+    b["faults"] = faults
+    # timed: one migration after the checked one, FLEET_MIGRATIONS times
+    pslot = prefill(int(rng.integers(1 << 30)))
+    times = []
+    for i in range(FLEET_MIGRATIONS + 1):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dslot = migrate(pslot, f"timed{i}")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if fl.me == 1:
+            cache.release(dslot)
+    if fl.me == 0:
+        cache.release(pslot)
+    ms = statistics.median(times[1:])
+    b.update({"migrate_ms": ms, "migrate_ms_all": times,
+              "wire_GBps": b["wire_bytes"] / ms / 1e6,
+              "pair_GBps": b["wire_bytes"] / tp / ms / 1e6,
+              "seconds": time.perf_counter() - t_build, "card": card})
+    log_fn(b)
+    if not (b["bitwise"] and set(b["seq_lens"]) == {FLEET_PROMPT}
+            and b["wire_bytes"] == b["plan_wire_bytes"]
+            == b["spc_wire_bytes"] == b["fleet_migrated_bytes"] > 0
+            and b["spc_native_arms"] == 1
+            and b["peak_bytes"] <= b["bound_bytes"]
+            and all(f["rejected"] for f in faults)):
+        raise AssertionError(f"15b: migration on {world} cards: {b}")
+    del fl, cache
+    torch.cuda.empty_cache()
+    return {k: v for k, v in b.items() if k != "phase"}
+
+
+def fleet_tokens(torch, np, tfm, world: int, card: str, log_fn) -> dict:
+    """15c: 13a's four requests in f32 through the fleets of
+    FLEET_TOKEN_TOPOS: every request's tokens equal the first fleet's, and
+    each disaggregated fleet migrates every request that outlives its first
+    token."""
+    from ompi_tpu_torch import serving
+    cfg = dataclasses.replace(tfm.flagship_config(), dtype=torch.float32)
+    prompts = serve_prompts(np, cfg.vocab)
+    pages = serve_pages(max(SERVE_PROMPT_LENS) + SERVE_NEW)
+    t0 = time.perf_counter()
+    runs = []
+    for name, replicas, tp, prefill in FLEET_TOKEN_TOPOS:
+        params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+        fl = fleet_of(params, cfg, replicas, tp, prefill, pages)
+        del params
+        serving.reset()
+        serving.enable()
+        out = fl.run(spec_requests(np, prompts))
+        # the prefill lane's ledger (rank 0's) holds every migration
+        migrations = int(gathered(torch, serving.fleet_pvar_value(
+            "fleet_migrations"))[0])
+        serving.disable()
+        streams = [out["results"][i]["tokens"] for i in range(len(prompts))]
+        runs.append({"fleet": name, "replicas": replicas, "tp": tp,
+                     "prefill_replicas": prefill, "streams": streams,
+                     "completed": out["completed"],
+                     "decode_steps": out["decode_steps"],
+                     "migrations": migrations,
+                     "outlive_first_token": sum(len(s) > 1 for s in streams),
+                     "pages_used": fl.engine.cache.pages_used})
+        del fl
+        torch.cuda.empty_cache()
+    want = runs[0]["streams"]
+    for r in runs:
+        r["tokens_equal"] = r["streams"] == want
+        r["migrations_ok"] = r["migrations"] == (
+            r["outlive_first_token"] if r["prefill_replicas"] else 0)
+    c = {"phase": "fleet_check", "check": "fleet_tokens_f32",
+         "requests": len(prompts), "new_tokens": SERVE_NEW,
+         "runs": [{k: v for k, v in r.items() if k != "streams"}
+                  for r in runs],
+         "seconds": time.perf_counter() - t0, "card": card}
+    log_fn(c)
+    if not all(r["tokens_equal"] and r["migrations_ok"]
+               and r["completed"] == len(prompts) and not r["pages_used"]
+               for r in runs):
+        raise AssertionError(f"15c: fleet tokens on {world} cards: {c}")
+    return {k: v for k, v in c.items() if k != "phase"}
+
+
+@contextlib.contextmanager
+def host_token_times(stamps: dict):
+    """Each request's tokens on this process's host clock, into
+    ``stamps[rid]``: a serving replica's first token when its prefill
+    returns (colocated) or its pages land (a decode replica, at the end of
+    ``migrate``), every later token when the scheduler emits it."""
+    from ompi_tpu_torch.serving import fleet
+    on_token = fleet._ReplicaScheduler._on_token
+    migrate = fleet.ServingFleet.migrate
+
+    def note(rid):
+        stamps.setdefault(rid, []).append(time.perf_counter())
+
+    def token(self, st):
+        note(st.req.rid)
+        on_token(self, st)
+
+    def landed(self, *args, rid=None, **kw):
+        slot = migrate(self, *args, rid=rid, **kw)
+        if slot is not None:
+            note(rid)
+        return slot
+
+    with planted(fleet._ReplicaScheduler, "_on_token", token), \
+            planted(fleet.ServingFleet, "migrate", landed):
+        yield
+
+
+def fleet_timings(torch, np, tfm, world: int, card: str, log_fn) -> dict:
+    """15d: 13c's stream in bf16 through each fleet of FLEET_TIMED_TOPOS
+    on the same cards: tokens/s and ITL p50/p99 on the virtual clock and
+    on the host's (the command's wall time; the gaps between a request's
+    tokens on its serving replica's first rank), decode steps,
+    migrations, the command's share spent migrating, and every card's
+    idle share (one more run, profiled).  A measurement, not a check."""
+    from ompi_tpu_torch import serving
+    from ompi_tpu_torch.serving.fleet import _percentile
+    cfg = tfm.flagship_config()
+    pages = serve_pages(SCHED_PROMPT[1] + SCHED_NEW[1])
+    rows = []
+    for name, replicas, tp, prefill in FLEET_TIMED_TOPOS:
+        t_build = time.perf_counter()
+        params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+        fl = fleet_of(params, cfg, replicas, tp, prefill, pages)
+        del params
+        serving.reset()
+        serving.enable()
+        stamps = {}
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        with host_token_times(stamps):
+            out = fl.run(sched_stream(cfg))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        led = serving.fleet_report()
+        serving.disable()
+        migrate_ms = sum(m["dur_ms"] for m in led["migration_log"])
+        gaps = [b - a for ts in stamps.values() for a, b in zip(ts, ts[1:])]
+        _, spans, _ = traced(torch, lambda: fl.run(sched_stream(cfg)),
+                             warm=False, cpu=False)
+        idle = idle_shares(spans, wall_ms)
+        ranks = gathered(torch, {"migrations": led["migrations"],
+                                 "migrate_ms": migrate_ms,
+                                 "ledger_rows": len(led["migration_log"]),
+                                 "gaps": gaps, **idle})
+        # the host gaps of every serving replica, from its first rank
+        host_gaps = sorted(g for r in range(prefill, replicas)
+                           for g in ranks[r * tp]["gaps"])
+        r = {"phase": "fleet_numbers", "fleet": name, "replicas": replicas,
+             "tp": tp, "prefill_replicas": prefill, "cards": world,
+             "requests": SCHED_N, "qps": SCHED_QPS, "tokens": out["tokens"],
+             "completed": out["completed"], "wall_s": wall_ms / 1e3,
+             "tokens_per_wall_s": out["tokens"] / (wall_ms / 1e3),
+             "host_itl_p50_ms": 1e3 * _percentile(host_gaps, 0.50),
+             "host_itl_p99_ms": 1e3 * _percentile(host_gaps, 0.99),
+             "host_gaps": len(host_gaps),
+             "clock_s": out["clock_s"],
+             "tokens_per_s": out["tokens_per_s"],
+             "itl_p50_ms": out["itl"]["p50_ms"],
+             "itl_p99_ms": out["itl"]["p99_ms"],
+             "decode_steps": out["decode_steps"],
+             "migrations": ranks[0]["migrations"],
+             # rank 0 is on the prefill lane when there is one, and takes
+             # part in every migration; its ledger is capped at
+             # serve_fleet_table_cap rows
+             "migrate_share": ranks[0]["migrate_ms"] / wall_ms,
+             "migrate_ledger_rows": ranks[0]["ledger_rows"],
+             "idle_share_by_rank": [x["idle_share"] for x in ranks],
+             "compute_idle_share_by_rank": [x["compute_idle_share"]
+                                            for x in ranks],
+             "kernels_by_rank": [x["kernels"] for x in ranks],
+             "nccl_kernels_by_rank": [x["nccl_kernels"] for x in ranks],
+             "seconds": time.perf_counter() - t_build,
+             "per_replica": out["per_replica"], "card": card}
+        log_fn(r)
+        if None in r["idle_share_by_rank"]:
+            raise AssertionError(f"15d: {name}: a card's trace held no "
+                                 f"kernel in 3 tries: {r}")
+        rows.append({k: v for k, v in r.items() if k != "phase"})
+        del fl
+        torch.cuda.empty_cache()
+    return {"numbers": rows}
+
+
+def fleet_multi_card(torch, np, tfm, world: int, card: str, log_fn) -> dict:
+    """15b-d across the cards (module docstring)."""
+    row = {"migration": fleet_migration(torch, np, tfm, world, card, log_fn)}
+    row["tokens_f32"] = fleet_tokens(torch, np, tfm, world, card, log_fn)
+    row.update(fleet_timings(torch, np, tfm, world, card, log_fn))
+    return row
+
+
 # -- 11. the MPI surface: runtime, comm and coll/nccl under tpurun ----------
 
 # the entries coll/nccl serves (every one must be its provider)
@@ -3916,13 +4447,42 @@ def multi_card_worker(rank: int, world: int, init_method: str,
     torch.cuda.empty_cache()
     # 14c: the fused decode program on a {"tp": world} mesh
     decode = decode_multi_card(torch, np, tfm, world, card, out)
+    torch.cuda.empty_cache()
+    # 15b-d: the serving fleet across the cards
+    fleet = fleet_multi_card(torch, np, tfm, world, card, out)
     out({"collectives": rows})
     out({"mesh": mesh_rows})
     out({"grad_sync": sync})
     out({"fused": fused})
     out({"serve": serve})
     out({"decode": decode})
-    torch.distributed.destroy_process_group()
+    out({"fleet": fleet})
+    leave_world(torch, out)
+
+
+def leave_world(torch, log_fn, timeout_s: float = 60.0) -> None:
+    """End a multi-card rank: every rank's work on the card done, a
+    barrier, then the world torn down.  A teardown that has not returned
+    in ``timeout_s`` fails the run: the rank says so and exits with 1 at
+    once, without Python's own shutdown, which would wait on it."""
+    import os
+    import threading
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    done = threading.Thread(target=torch.distributed.destroy_process_group,
+                            daemon=True)
+    done.start()
+    done.join(timeout_s)
+    row = {"phase": "teardown", "destroyed": not done.is_alive(),
+           "seconds": time.perf_counter() - t0}
+    log_fn(row)
+    if done.is_alive():
+        print(f"chip_smoke: the world's teardown did not return in "
+              f"{timeout_s} s: {row}", file=sys.stderr)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
 
 
 def multi_card_main() -> int:
@@ -4242,6 +4802,11 @@ def main() -> int:
     # 14. speculative decoding in the same world: stream identity (f32),
     # its planted faults, decode_window beside decode_step (bf16)
     decode_row = decode_one_card(torch, np, tfm, card)
+    torch.cuda.empty_cache()
+
+    # 15. the serving fleet in the same world: a fleet of one replica
+    # against the bare scheduler
+    fleet_row = fleet_one_card(torch, np, tfm, attention, card)
     torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
 
@@ -4277,6 +4842,7 @@ def main() -> int:
     log({"grad_sync": sync_row})
     log({"serve": serve_row})
     log({"decode": decode_row})
+    log({"fleet": fleet_row})
     log({"kernels": [
         {"name": "flash_partials", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_partials.cu",
@@ -4329,7 +4895,7 @@ if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multi-card", action="store_true",
-                    help="run only phases 9, 10c, 11, 12d-f, 13e and 14c, "
-                         "across every visible card")
+                    help="run only phases 9, 10c, 11, 12d-f, 13e, 14c and "
+                         "15b-d, across every visible card")
     ns = ap.parse_args()
     sys.exit(multi_card_main() if ns.multi_card else main())

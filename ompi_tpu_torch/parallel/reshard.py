@@ -48,26 +48,40 @@ Each step is decided under the coll name ``reshard`` through
 ``coll/nccl.decide_mode`` (force var ``coll_nccl_reshard_mode``; native
 is the only arm a layout step has) and, with an spc table attached,
 counts ``coll_arm_<arm>_count`` and ``coll_wire_bytes``.  The trace
-event, the perf and traffic halves of the audit, the plan log that
-``comm_doctor --reshard`` reads and the cross-mesh planner
-(``compile_cross_plan``/``cross_reshard``) come with later slices (ROADMAP
-P16, P11c).  A dim sharded over a tuple of axes plans, but does not run:
-tuple axes come with P13.
+event and the perf and traffic halves of the audit come with ROADMAP P16.
+A dim sharded over a tuple of axes plans, but does not run: tuple axes
+come with P13.
+
+Cross-mesh mode (reference ``:736-1170``): ``compile_cross_plan`` cuts a
+move from a source mesh onto a destination mesh whose ranks are a subset
+of the source's into per-destination pieces, each a whole source block
+(or a crop of a replica), and ``cross_reshard`` runs it.  A mesh there is
+a ``RankMesh``: axis names and sizes and the world ranks in row-major
+order, the reference's ``mesh.devices``, so a plan needs no process group
+and a mesh may cover any subset of the world (the fleet's KV-page
+migration moves pages between two rows of its mesh).  Each piece whose
+source rank is not its destination rank is one send and one receive on
+the world group, in one ``batch_isend_irecv``; local pieces are copies;
+every piece lands in place in the destination block.  The cross path
+keeps the reference's plan log, counters and last-run audit
+(``report()``); the intra-mesh ``Resharder``'s rows in them come with P16.
 """
 
 from __future__ import annotations
 
 import math
 import threading
+from collections import deque
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import var as _var
-from .collectives import all_gather_axis, all_to_all_axis, ppermute
-from .mesh import axes_group, axis_rank, classify_axes
+from .collectives import _p2p, all_gather_axis, all_to_all_axis, ppermute
+from .mesh import axes_group, axis_rank, classify_axes, sim_dcn_axes
 
 _var.register("reshard", "", "peak_factor", 2.0, type=float, level=3,
               help="Peak-live-bytes bound for compiled reshard plans, "
@@ -77,6 +91,12 @@ _var.register("reshard", "", "peak_factor", 2.0, type=float, level=3,
                    "the single-step device_put plan.")
 
 _lock = threading.Lock()
+_counts: Dict[str, int] = {"reshard_plans": 0, "reshard_steps": 0,
+                           "reshard_bytes": 0}
+# compiled cross-plan summaries + the last executed cross plan's audit
+# (bounded: a cache view, not a history)
+_plan_log: "deque" = deque(maxlen=32)
+_last_run: Optional[Dict[str, Any]] = None
 
 
 class ReshardError(ValueError):
@@ -651,5 +671,404 @@ def reshard(x: torch.Tensor, src_spec, dst_spec, mesh,
     return resharder(mesh, spc=spc).run(x, src_spec, dst_spec, global_shape)
 
 
+# ---------------------------------------------------------------------------
+# cross-mesh planning mode (source mesh ⊃ dest mesh)
+# ---------------------------------------------------------------------------
+#
+# The reference's cross plan (``reshard.py:714-735``): the array lives on
+# the source mesh and must land on a mesh whose ranks are a subset of the
+# source's.  Each destination shard is tiled by whole source blocks (or
+# crops of replicas), moved point to point and assembled in place, so the
+# live set a rank holds stays within the single-mesh planner's contract:
+# resident src shard + assembled dst shard + one in-flight piece <=
+# reshard_peak_factor * max(src_shard, dst_shard) at the default factor 2.
+# Pieces whose source rank is dead are marked ``from_shadow``: the
+# reference sources them from ft/elastic's peer shadows, which come with
+# P14, so the port plans them and refuses to run them.
+
+Region = Tuple[Tuple[int, int], ...]
+
+
+@dataclass(frozen=True)
+class RankMesh:
+    """A mesh as plain data: ``axes`` ((name, size), …) and the world
+    ``ranks`` that fill it in row-major order — what the reference's
+    ``mesh.devices`` is to its cross planner."""
+    axes: Tuple[Tuple[str, int], ...]
+    ranks: Tuple[int, ...]
+
+    def __post_init__(self) -> None:
+        n = int(np.prod([s for _, s in self.axes])) if self.axes else 1
+        if n != len(self.ranks) or len(set(self.ranks)) != len(self.ranks):
+            raise ValueError(f"RankMesh: axes {dict(self.axes)} need {n} "
+                             f"distinct ranks, got {list(self.ranks)}")
+
+    @classmethod
+    def make(cls, axes: Dict[str, int], ranks: Sequence[int]) -> "RankMesh":
+        return cls(tuple((str(a), int(n)) for a, n in axes.items()),
+                   tuple(int(r) for r in ranks))
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(self.axes)
+
+
+@dataclass(frozen=True)
+class CrossPiece:
+    """One source block of a destination shard."""
+    dst_pos: int                  # flat position in the SOURCE mesh
+    src_pos: int                  # flat position in the SOURCE mesh
+    start: Tuple[int, ...]        # piece origin in global index space
+    sizes: Tuple[int, ...]        # piece extent per dim
+    nbytes: int
+    from_shadow: bool             # sourced from a replacement, not x
+
+
+@dataclass(frozen=True)
+class CrossMeshPlan:
+    key: tuple
+    shape: Tuple[int, ...]
+    dtype: str
+    src: Placement
+    dst: Placement
+    pieces: Tuple[CrossPiece, ...]
+    src_shard_bytes: int
+    dst_shard_bytes: int
+    peak_bytes: int               # modeled per-rank live-set maximum
+    wire_bytes: int               # modeled cross-rank piece bytes
+    bound_bytes: int
+    n_src: int
+    n_dst: int
+    fallback_reason: str = ""     # non-empty: no piece plan (see below)
+
+    @property
+    def label(self) -> str:
+        return (f"{_fmt_placement(self.src)}x{self.n_src}->"
+                f"{_fmt_placement(self.dst)}x{self.n_dst}"
+                f"/{self.dtype}{list(self.shape)}")
+
+    def describe(self) -> List[str]:
+        if self.fallback_reason:
+            return ["device_put"]
+        return [f"cross_migrate[{len(self.pieces)} piece(s), "
+                f"{sum(1 for p in self.pieces if p.from_shadow)} shadow]"]
+
+
+def _index_map(shape: Tuple[int, ...], pl: Placement,
+               mesh: RankMesh) -> Dict[int, Region]:
+    """{flat position: region} of a layout on ``mesh``: the reference's
+    ``devices_indices_map`` through ``_region``.  A dim over a tuple of
+    axes is cut over their row-major product; a dim its axes do not
+    divide gets ceiling-sized blocks (``_block``)."""
+    sizes = mesh.shape
+    for grp in pl:
+        for a in grp:
+            if a not in sizes:
+                raise ReshardError(f"cross_reshard: spec names axis {a!r} "
+                                   f"not on mesh {tuple(sizes)}")
+    dims = [s for _, s in mesh.axes]
+    names = [a for a, _ in mesh.axes]
+    out = {}
+    for p in range(len(mesh.ranks)):
+        coord = dict(zip(names, np.unravel_index(p, dims))) if dims else {}
+        reg = []
+        for d, grp in enumerate(pl):
+            n, i = 1, 0
+            for a in grp:
+                n *= sizes[a]
+                i = i * sizes[a] + int(coord[a])
+            start, size = _block(n, i, shape[d])
+            reg.append((start, start + size))
+        out[p] = tuple(reg)
+    return out
+
+
+def _contains(outer, inner) -> bool:
+    return all(o0 <= i0 and i1 <= o1
+               for (o0, o1), (i0, i1) in zip(outer, inner))
+
+
+def _rsize(reg) -> int:
+    n = 1
+    for a, b in reg:
+        n *= max(b - a, 0)
+    return n
+
+
+def compile_cross_plan(shape: Sequence[int], dtype, src_spec, dst_spec,
+                       src_mesh: RankMesh, dst_mesh: RankMesh,
+                       dead: Sequence[int] = (),
+                       peak_factor: Optional[float] = None
+                       ) -> CrossMeshPlan:
+    """Compile a source-mesh ⊃ dest-mesh move into per-rank piece moves.
+    ``dead`` holds flat positions (into ``src_mesh.ranks``) whose shards
+    must never be read — those pieces are marked ``from_shadow``.  Pure
+    host math, like :func:`compile_plan`; the reference's plan for the
+    same meshes, field for field."""
+    shape = tuple(int(s) for s in shape)
+    dt_name, itemsize = _dtype_of(dtype)
+    src = _norm(src_spec, len(shape))
+    dst = _norm(dst_spec, len(shape))
+    pos_of = {r: i for i, r in enumerate(src_mesh.ranks)}
+    dead_set = frozenset(int(p) for p in dead)
+    missing = [r for r in dst_mesh.ranks if r not in pos_of]
+    if missing:
+        raise ReshardError(
+            "cross_reshard: dest mesh is not a subset of the source mesh "
+            f"(ranks {missing} not on the source mesh)")
+    bad = [pos_of[r] for r in dst_mesh.ranks if pos_of[r] in dead_set]
+    if bad:
+        raise ReshardError(
+            f"cross_reshard: dest mesh includes dead device position(s) "
+            f"{sorted(bad)} — shrink to survivors first")
+    src_map = _index_map(shape, src, src_mesh)
+    dst_map = {pos_of[dst_mesh.ranks[p]]: reg for p, reg in
+               _index_map(shape, dst, dst_mesh).items()}
+    src_b = max(max((_rsize(r) for r in src_map.values()), default=1)
+                * itemsize, itemsize)
+    dst_b = max(max((_rsize(r) for r in dst_map.values()), default=1)
+                * itemsize, itemsize)
+    factor = float(peak_factor if peak_factor is not None
+                   else _var.get("reshard_peak_factor", 2.0))
+    bound = int(factor * max(src_b, dst_b))
+    key = (src, dst, shape, dt_name, src_mesh, dst_mesh, dead_set)
+
+    def _fallback(why: str) -> CrossMeshPlan:
+        if dead_set:
+            raise ReshardError(
+                f"cross_reshard: {why} — and dead position(s) "
+                f"{sorted(dead_set)} rule out the whole-array device_put "
+                "fallback (it would read their shards)")
+        return CrossMeshPlan(
+            key=key, shape=shape, dtype=dt_name, src=src, dst=dst,
+            pieces=(), src_shard_bytes=src_b, dst_shard_bytes=dst_b,
+            peak_bytes=src_b + dst_b, wire_bytes=dst_b, bound_bytes=bound,
+            n_src=len(src_mesh.ranks), n_dst=len(dst_mesh.ranks),
+            fallback_reason=why)
+
+    # group source holders by region (partial replication: several ranks
+    # may hold identical blocks)
+    holders: Dict[Region, List[int]] = {}
+    for p, reg in src_map.items():
+        holders.setdefault(reg, []).append(p)
+
+    pieces: List[CrossPiece] = []
+    peak = 0
+    wire = 0
+    for dpos, R in sorted(dst_map.items()):
+        cand = [(reg, ps) for reg, ps in holders.items()
+                if _contains(R, reg)]
+        if sum(_rsize(reg) for reg, _ in cand) != _rsize(R):
+            return _fallback(
+                "irregular tiling: a source shard straddles a dest shard "
+                "boundary (cross plans need dest shards tiled by whole "
+                "source blocks)")
+        dev_pieces: List[CrossPiece] = []
+        for reg, ps in sorted(cand):
+            alive = [p for p in sorted(ps) if p not in dead_set]
+            shadow = not alive
+            if shadow:
+                p = min(ps)                     # replacement keyed here
+            elif dpos in alive:
+                p = dpos                        # local copy: zero wire
+            else:
+                p = alive[0]
+            nb = _rsize(reg) * itemsize
+            dev_pieces.append(CrossPiece(
+                dst_pos=dpos, src_pos=p,
+                start=tuple(a for a, _ in reg),
+                sizes=tuple(b - a for a, b in reg),
+                nbytes=nb, from_shadow=shadow))
+            if shadow or p != dpos:
+                wire += nb
+        pieces.extend(dev_pieces)
+        # live-set model per dest rank: resident src shard + the
+        # assembled dst shard + one in-flight piece
+        max_piece = max((pc.nbytes for pc in dev_pieces), default=0)
+        if len(dev_pieces) == 1 and dev_pieces[0].src_pos == dpos \
+                and not dev_pieces[0].from_shadow \
+                and dev_pieces[0].nbytes == _rsize(src_map[dpos]) * itemsize:
+            live = src_b                        # pure alias, no assembly
+        else:
+            live = src_b + _rsize(R) * itemsize + max_piece
+        peak = max(peak, live)
+    if peak > bound:
+        return _fallback(
+            f"peak {peak}B over bound {bound}B "
+            f"(reshard_peak_factor={factor:g})")
+    return CrossMeshPlan(
+        key=key, shape=shape, dtype=dt_name, src=src, dst=dst,
+        pieces=tuple(pieces), src_shard_bytes=src_b, dst_shard_bytes=dst_b,
+        peak_bytes=peak, wire_bytes=wire, bound_bytes=bound,
+        n_src=len(src_mesh.ranks), n_dst=len(dst_mesh.ranks))
+
+
+_cross_plans: Dict[tuple, CrossMeshPlan] = {}
+_CROSS_CAP = 256
+
+
+def _cross_plan(shape, dtype, src_spec, dst_spec, src_mesh: RankMesh,
+                dst_mesh: RankMesh, dead) -> CrossMeshPlan:
+    """The plan cache: one compile per (specs, shape, dtype, meshes,
+    dead), each logged once with ``cross: True``."""
+    key = (_norm(src_spec, len(shape)), _norm(dst_spec, len(shape)),
+           tuple(int(s) for s in shape), _dtype_of(dtype)[0],
+           src_mesh, dst_mesh, frozenset(int(p) for p in dead))
+    hit = _cross_plans.get(key)
+    if hit is not None:
+        return hit
+    if len(_cross_plans) >= _CROSS_CAP:
+        _cross_plans.pop(next(iter(_cross_plans)))
+    plan = compile_cross_plan(shape, dtype, src_spec, dst_spec,
+                              src_mesh, dst_mesh, dead=dead)
+    _cross_plans[key] = plan
+    with _lock:
+        _counts["reshard_plans"] += 1
+        _plan_log.append({
+            "plan": plan.label, "steps": plan.describe(),
+            "wire_bytes": plan.wire_bytes, "peak_bytes": plan.peak_bytes,
+            "bound_bytes": plan.bound_bytes,
+            "src_shard_bytes": plan.src_shard_bytes,
+            "dst_shard_bytes": plan.dst_shard_bytes,
+            "fallback_reason": plan.fallback_reason,
+            "cross": True, "dead": sorted(int(p) for p in dead),
+            "mesh": {"src": src_mesh.shape, "dst": dst_mesh.shape}})
+    return plan
+
+
+def _crop(x: torch.Tensor, pc: CrossPiece, base: Region) -> torch.Tensor:
+    """The piece's block of the shard ``x`` whose region is ``base``."""
+    for d, (st, sz, (b0, _b1)) in enumerate(zip(pc.start, pc.sizes, base)):
+        if st != b0 or sz != x.shape[d]:
+            x = x.narrow(d, st - b0, sz)
+    return x
+
+
+def cross_reshard(x: Optional[torch.Tensor], shape: Sequence[int], dtype,
+                  src_spec, dst_spec, src_mesh: RankMesh,
+                  dst_mesh: RankMesh, *, dead: Sequence[int] = (),
+                  spc=None, plane: Optional[str] = None
+                  ) -> Optional[torch.Tensor]:
+    """Move a ``shape`` array from ``src_spec`` on ``src_mesh`` onto
+    ``dst_spec`` on ``dst_mesh`` (its ranks a subset of the source's).
+    Each rank of the source mesh passes its shard ``x`` and gets back its
+    destination shard, or None when it holds none; a rank off the source
+    mesh may call it and gets None.  Audited like the reference: one
+    ``decide_mode("reshard")`` with native the only arm (``plane``, 'ici'
+    or 'dcn', keys its rules rows; default 'dcn' when a source axis is a
+    simulated DCN axis), ``coll_arm_<arm>_count`` and the plan's wire
+    bytes into ``spc``, the counters and ``report()["last"]``.  CUDA
+    shards move over NCCL, CPU shards over gloo: the world's backend.
+
+    A plan with ``from_shadow`` pieces raises: their replacement holders
+    are ft/elastic's peer shadows (ROADMAP P14).  A plan that fell back
+    (``fallback_reason``) raises too, naming its reason: the port runs
+    piece plans only."""
+    global _last_run
+    shape = tuple(int(s) for s in shape)
+    plan = _cross_plan(shape, dtype, src_spec, dst_spec, src_mesh,
+                       dst_mesh, dead)
+    if plan.fallback_reason:
+        raise ReshardError(
+            f"cross_reshard: plan {plan.label} fell back to device_put "
+            f"({plan.fallback_reason}); the port runs cross plans of "
+            "whole source blocks only")
+    shadow = sorted({pc.src_pos for pc in plan.pieces if pc.from_shadow})
+    if shadow:
+        raise ReshardError(
+            f"cross_reshard: dead position(s) {shadow} hold the only copy "
+            "of their blocks; their peer-shadow replacements come with "
+            "ft/elastic (ROADMAP P14)")
+    me = dist.get_rank()
+    ranks = src_mesh.ranks
+    if me not in ranks:
+        return None
+    my_src = ranks.index(me)
+    src_map = _index_map(shape, plan.src, src_mesh)
+    want = tuple(b - a for a, b in src_map[my_src])
+    if x is None or tuple(x.shape) != want:
+        raise ValueError(
+            f"cross_reshard: rank {me} holds source position {my_src}, "
+            f"whose block is {want}; got "
+            f"{None if x is None else tuple(x.shape)}")
+    if _dtype_of(x.dtype)[0] != plan.dtype:
+        raise ValueError(f"cross_reshard: shard of {x.dtype}, plan of "
+                         f"{plan.dtype}")
+    out = region = None
+    if me in dst_mesh.ranks:
+        region = _index_map(shape, plan.dst,
+                            dst_mesh)[dst_mesh.ranks.index(me)]
+        mine = [pc for pc in plan.pieces if pc.dst_pos == my_src]
+        if len(mine) == 1 and mine[0].src_pos == my_src \
+                and mine[0].sizes == want:
+            out = x                             # pure alias
+        else:
+            out = torch.empty(tuple(b - a for a, b in region),
+                              dtype=x.dtype, device=x.device)
+    # one decision for the move, before it runs
+    from ..coll import nccl as _nccl
+    wire = plan.wire_bytes
+    if plane is None:
+        plane = ("dcn" if any(a in sim_dcn_axes() for a in src_mesh.shape)
+                 else "ici")
+    arm, reason, _chain = _nccl.decide_mode(
+        "reshard", wire, plan.n_src, x.device.type,
+        _nccl._load_device_rules(), allowed=("native",), quant_ok=False,
+        dtype=None, op=None, plane=plane, hier_ok=False,
+        hier_why="cross-mesh migrate is a fixed point-to-point schedule")
+    sends, recvs, later = [], [], []
+    for pc in plan.pieces:
+        if pc.src_pos == my_src and pc.dst_pos != my_src:
+            sends.append((_crop(x, pc, src_map[my_src]),
+                          ranks[pc.dst_pos], 0))
+        if pc.dst_pos == my_src and out is not x:
+            view = out
+            for d, (st, sz, (a, _b)) in enumerate(zip(pc.start, pc.sizes,
+                                                      region)):
+                view = view.narrow(d, st - a, sz)
+            if pc.src_pos == my_src:
+                view.copy_(_crop(x, pc, src_map[my_src]))
+            elif view.is_contiguous():
+                recvs.append((view, ranks[pc.src_pos], 0))
+            else:
+                tmp = torch.empty_like(view,
+                                       memory_format=torch.contiguous_format)
+                recvs.append((tmp, ranks[pc.src_pos], 0))
+                later.append((view, tmp))
+    _p2p(dist.group.WORLD, sends, recvs)
+    for view, tmp in later:
+        view.copy_(tmp)
+    # -- audit: the decision's arm, the counters, the last run -------------
+    with _lock:
+        _counts["reshard_steps"] += 1
+        _counts["reshard_bytes"] += int(wire)
+    if spc is not None:
+        spc.inc(f"coll_arm_{arm}_count")
+        if wire:
+            spc.inc("coll_wire_bytes", int(wire))
+    with _lock:
+        _last_run = {"plan": plan.label,
+                     "steps": [{"step": 0, "op": plan.describe()[0],
+                                "arm": arm,
+                                "reason": reason, "wire_bytes": int(wire),
+                                "dur_us": None}],
+                     "wire_bytes": int(wire),
+                     "peak_bytes": plan.peak_bytes,
+                     "bound_bytes": plan.bound_bytes,
+                     "fallback_reason": plan.fallback_reason}
+    return out
+
+
+def report() -> Dict[str, Any]:
+    """The cross plans compiled (``plans``, each ``cross: True``), the
+    counters and the last cross plan's audit (``last``)."""
+    with _lock:
+        return {"counters": dict(_counts),
+                "plans": list(_plan_log),
+                "last": dict(_last_run) if _last_run else None}
+
+
 __all__ = ["ReshardError", "PlanStep", "ReshardPlan", "compile_plan",
-           "Resharder", "resharder", "reshard"]
+           "Resharder", "resharder", "reshard", "RankMesh", "CrossPiece",
+           "CrossMeshPlan", "compile_cross_plan", "cross_reshard",
+           "report"]

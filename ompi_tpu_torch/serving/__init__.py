@@ -1,11 +1,10 @@
 """Serving plane — continuous-batching decode observability.
 
-Counterpart of ``ompi_tpu/serving/__init__.py`` without the fleet
-(``note_route``, ``note_migration`` and the fleet table: ROADMAP P11c).
-The serving tier is a continuous-batching inference engine over the
-decode weight layout (``models/transformer.decode_param_specs``), with the
-decode matmul combines dispatched as the audited coll names ``decode_ag``
-/ ``decode_rs`` so the decision layer's native|quant arms apply.  This
+Counterpart of ``ompi_tpu/serving/__init__.py``.  The serving tier is a
+continuous-batching inference engine over the decode weight layout
+(``models/transformer.decode_param_specs``), with the decode matmul
+combines dispatched as the audited coll names ``decode_ag`` /
+``decode_rs`` so the decision layer's native|quant arms apply.  This
 module is the plane's ledger:
 
 * **counters** — ``serve_tokens`` / ``serve_active_seqs`` /
@@ -20,19 +19,28 @@ module is the plane's ledger:
   (``note_spec``): the MEASURED acceptance rate.
 * **dispatch split** — eager decode collectives against fused-program
   rings (``note_dispatch``).
+* **fleet ledger** — the replica table, the KV-page migration log and the
+  router's decisions (``note_migration``, ``note_route``,
+  ``update_replica``, ``fleet_report``; ``FLEET_PVARS``), and the
+  per-replica admission bias the router reads on every assignment
+  (``apply_route_weight``; the policy plane that sets it from the
+  ``hot_replica`` sentry is ROADMAP P16).  The ledger is per process:
+  the fleet feeds every process the same rows, so each holds the same
+  table.
 
 The compute pieces live in the submodules: ``cache`` (the paged KV
 cache), ``engine`` (prefill/decode_step/decode_window and the decode_ag/rs
 dispatch), ``fused`` (the fused decode program), ``scheduler``
-(continuous vs static batching, speculative windows and the Poisson
-request stream), loaded lazily.  Every entry point is behind one
-``serving.enabled`` attribute read.
+(continuous vs static batching, speculative windows, the Poisson request
+stream and the fleet router), ``fleet`` (replicas, prefill/decode
+disaggregation and the KV-page migration), loaded lazily.  Every entry
+point is behind one ``serving.enabled`` attribute read.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 from ..core import var as _var
 
@@ -47,11 +55,16 @@ _var.register("serve", "", "latency_window", 4096, type=int, level=3,
 _var.register("serve", "", "table_cap", 64, type=int, level=3,
               help="Request-lifecycle rows kept for the per-request "
                    "table (oldest finished rows drop first).")
+_var.register("serve", "fleet", "table_cap", 64, type=int, level=3,
+              help="Router-decision and migration-ledger rows kept "
+                   "(oldest rows drop first).")
 
 enabled: bool = bool(_var.get("serve_enabled", False))
 
 PVARS = ("serve_tokens", "serve_active_seqs", "serve_evictions",
          "serve_kv_pages_used")
+FLEET_PVARS = ("fleet_replicas", "fleet_migrations",
+               "fleet_migrated_bytes", "fleet_rebalances")
 
 _lock = threading.Lock()
 
@@ -73,6 +86,16 @@ _itl: List[float] = []       # inter-token deltas, seconds
 _requests: "dict[Any, Dict[str, Any]]" = {}
 _finished_order: List[Any] = []
 _dispatches: Dict[str, int] = {"eager": 0}
+
+# fleet ledger (multi-replica tier)
+_fleet_replicas = 0          # replicas in the most recent fleet
+_fleet_migrations = 0        # KV-page migrations (cross_reshard hops)
+_fleet_migrated_bytes = 0    # wire bytes those migrations moved
+_fleet_rebalances = 0        # route_weight applications (policy action)
+_fleet_rows: Dict[int, Dict[str, Any]] = {}      # replica -> stats row
+_fleet_migration_log: List[Dict[str, Any]] = []  # bounded ledger
+_fleet_routes: List[Dict[str, Any]] = []         # bounded decision table
+_fleet_route_bias: Dict[int, float] = {}         # replica -> multiplier
 
 
 def enable() -> None:
@@ -97,8 +120,18 @@ _var.watch("serve_enabled", _on_enabled_var)
 def reset() -> None:
     global _tokens, _evictions, _active, _pages_used, _prefills, \
         _decode_steps, _prefill_s, _decode_s, _host_s, _occ_sum, \
-        _spec_drafted, _spec_accepted, _spec_windows
+        _spec_drafted, _spec_accepted, _spec_windows, \
+        _fleet_replicas, _fleet_migrations, _fleet_migrated_bytes, \
+        _fleet_rebalances
     with _lock:
+        _fleet_replicas = 0
+        _fleet_migrations = 0
+        _fleet_migrated_bytes = 0
+        _fleet_rebalances = 0
+        _fleet_rows.clear()
+        _fleet_migration_log.clear()
+        _fleet_routes.clear()
+        _fleet_route_bias.clear()
         _tokens = 0
         _evictions = 0
         _active = 0
@@ -221,9 +254,120 @@ def note_dispatch(mode: str, n: int = 1) -> None:
         _dispatches[mode] = _dispatches.get(mode, 0) + int(n)
 
 
+# -- fleet ledger (multi-replica tier) --------------------------------------
+
+def set_fleet_replicas(n: int) -> None:
+    global _fleet_replicas
+    with _lock:
+        _fleet_replicas = int(n)
+
+
+def note_migration(rid: Any, src: int, dst: int, pages: int,
+                   nbytes: int, peak_bytes: int, bound_bytes: int,
+                   dur_s: float) -> None:
+    """One KV-page migration: prefill replica ``src`` handed ``pages``
+    finished pages (``nbytes`` on the wire through cross_reshard) to
+    decode replica ``dst``; peak/bound come from the reshard plan, so the
+    ledger shows every migration's standing under the
+    ``reshard_peak_factor`` contract."""
+    global _fleet_migrations, _fleet_migrated_bytes
+    with _lock:
+        _fleet_migrations += 1
+        _fleet_migrated_bytes += int(nbytes)
+        _fleet_migration_log.append({
+            "rid": rid, "src": int(src), "dst": int(dst),
+            "pages": int(pages), "bytes": int(nbytes),
+            "peak_bytes": int(peak_bytes),
+            "bound_bytes": int(bound_bytes),
+            "within_bound": int(peak_bytes) <= int(bound_bytes),
+            "dur_ms": 1e3 * float(dur_s),
+        })
+        cap = int(_var.get("serve_fleet_table_cap", 64))
+        if len(_fleet_migration_log) > cap:
+            del _fleet_migration_log[: len(_fleet_migration_log) - cap]
+
+
+def note_route(rid: Any, replica: int, weights: List[float]) -> None:
+    """One router admission decision: request ``rid`` assigned to
+    ``replica`` under the effective (bias-adjusted) weight vector."""
+    with _lock:
+        _fleet_routes.append({"rid": rid, "replica": int(replica),
+                              "weights": [round(float(w), 6)
+                                          for w in weights]})
+        cap = int(_var.get("serve_fleet_table_cap", 64))
+        if len(_fleet_routes) > cap:
+            del _fleet_routes[: len(_fleet_routes) - cap]
+
+
+def update_replica(replica: int, row: Dict[str, Any]) -> None:
+    """Merge a per-replica stats row (role, requests, tokens, goodput,
+    ITL percentiles, occupancy) into the fleet table."""
+    with _lock:
+        cur = _fleet_rows.setdefault(int(replica),
+                                     {"replica": int(replica)})
+        cur.update(row)
+
+
+def fleet_route_bias(replica: int) -> float:
+    """Admission-weight multiplier for ``replica`` (1.0 until a
+    route_weight action downweights it)."""
+    with _lock:
+        return float(_fleet_route_bias.get(int(replica), 1.0))
+
+
+def apply_route_weight(replica: int, scale: float) -> Optional[float]:
+    """The ``route_weight`` action: scale ``replica``'s admission bias by
+    ``scale`` (the router reads the bias on every assignment).  Returns
+    the new bias, or None when the replica is unknown to the fleet table
+    (a no-op).  Every process of a fleet applies it, so that their
+    routers stay the same."""
+    global _fleet_rebalances
+    with _lock:
+        if _fleet_rows and int(replica) not in _fleet_rows:
+            return None
+        new = _fleet_route_bias.get(int(replica), 1.0) * float(scale)
+        _fleet_route_bias[int(replica)] = new
+        _fleet_rebalances += 1
+        return new
+
+
+def fleet_pvar_value(name: str) -> float:
+    with _lock:
+        if name == "fleet_replicas":
+            return float(_fleet_replicas)
+        if name == "fleet_migrations":
+            return float(_fleet_migrations)
+        if name == "fleet_migrated_bytes":
+            return float(_fleet_migrated_bytes)
+        if name == "fleet_rebalances":
+            return float(_fleet_rebalances)
+    raise KeyError(name)
+
+
+def fleet_report() -> Dict[str, Any]:
+    """Structured fleet state: the replica table (with each replica's
+    route bias), the migration ledger and the router's decisions."""
+    with _lock:
+        rows = [dict(_fleet_rows[r]) for r in sorted(_fleet_rows)]
+        for row in rows:
+            row["route_bias"] = float(
+                _fleet_route_bias.get(int(row["replica"]), 1.0))
+        return {
+            "replicas": _fleet_replicas,
+            "migrations": _fleet_migrations,
+            "migrated_bytes": _fleet_migrated_bytes,
+            "rebalances": _fleet_rebalances,
+            "replica_rows": rows,
+            "migration_log": [dict(m) for m in _fleet_migration_log],
+            "routes": [dict(r) for r in _fleet_routes],
+        }
+
+
 # -- pvar read-through + report ---------------------------------------------
 
 def pvar_value(name: str) -> float:
+    if name in FLEET_PVARS:
+        return fleet_pvar_value(name)
     with _lock:
         if name == "serve_tokens":
             return float(_tokens)
@@ -295,7 +439,11 @@ def __getattr__(name: str):
     if name == "PagedKVCache":
         from .cache import PagedKVCache
         return PagedKVCache
-    if name in ("ContinuousBatchingScheduler", "Request", "poisson_stream"):
+    if name in ("ContinuousBatchingScheduler", "Request", "poisson_stream",
+                "FleetRouter"):
         from . import scheduler as _sched
         return getattr(_sched, name)
+    if name == "ServingFleet":
+        from .fleet import ServingFleet
+        return ServingFleet
     raise AttributeError(name)

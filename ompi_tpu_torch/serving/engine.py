@@ -44,10 +44,11 @@ embedding) are laid out once at construction by ``parallel/reshard``.
 ``decode_window`` runs a k-token teacher-forced verify window on either
 path (speculative decoding, ``serving/scheduler``'s ``spec_k``).
 
-Left for later slices: the trace, perf, traffic and simulated-DCN halves
-of the audit (ROADMAP P16, P13), the static proof of the fused program's
-wire (``verify_decode_program``: ``analysis/commgraph``, P17), the fleet
-(P11c) and the MoE decode path (P12; ``Config`` refuses ``mlp="moe"``).
+Replicas of the engine make a fleet (``serving/fleet``).  Left for later
+slices: the trace, perf, traffic and simulated-DCN halves of the audit
+(ROADMAP P16, P13), the static proof of the fused program's wire
+(``verify_decode_program``: ``analysis/commgraph``, P17) and the MoE
+decode path (P12; ``Config`` refuses ``mlp="moe"``).
 
 Prefill runs the prompt at its own length: the reference pads it to a
 power-of-two bucket only to bound its JIT compiles, and the padded

@@ -1,7 +1,7 @@
 """Request-level continuous batching over the ServingEngine.
 
 Counterpart of ``ompi_tpu/serving/scheduler.py`` (``Request``,
-``poisson_stream``, ``ContinuousBatchingScheduler``).  The scheduler is
+``poisson_stream``, ``ContinuousBatchingScheduler``, ``FleetRouter``).  The scheduler is
 pure host orchestration — admission, eviction and the per-step device
 batch are integer bookkeeping against the paged cache; all device work
 happens inside the engine's prefill/decode_step.  Two policies share the
@@ -28,8 +28,9 @@ Speculative decoding (``spec_k >= 2``): each step drafts ``spec_k − 1``
 tokens a slot by an n-gram self-draft over the request's own history and
 verifies them in one ``engine.decode_window``; the longest prefix the
 model's greedy output agrees with is accepted, so the streams are the
-non-speculative ones.  The fleet router comes with ROADMAP P11c, the
-per-request ledger (``serving/requests.py``) with P16.
+non-speculative ones.  ``FleetRouter`` assigns a stream's requests to
+the replicas of a ``serving/fleet`` fleet.  The per-request ledger
+(``serving/requests.py``) comes with ROADMAP P16.
 """
 
 from __future__ import annotations
@@ -113,6 +114,10 @@ class ContinuousBatchingScheduler:
         self.occ_sum = 0.0
         self.results: Dict[int, Dict[str, Any]] = {}
 
+    def _on_token(self, st: _Active) -> None:
+        """Subclass hook: one emitted token for ``st`` at ``self.clock``
+        (the fleet's per-replica ITL attribution overrides this)."""
+
     # -- lifecycle ---------------------------------------------------------
 
     def _admit_one(self, req: Request) -> None:
@@ -131,6 +136,7 @@ class ContinuousBatchingScheduler:
         if serving.enabled:
             serving.note_prefill(dur, len(req.prompt))
             serving.note_token(req.rid, self.clock)
+        self._on_token(st)
         self._maybe_finish(st, first)
 
     def _finish(self, st: _Active, reason: str) -> None:
@@ -231,6 +237,7 @@ class ContinuousBatchingScheduler:
             st.last = tok
             if serving.enabled:
                 serving.note_token(st.req.rid, self.clock)
+            self._on_token(st)
             self._maybe_finish(st, tok)
         host = time.perf_counter() - th0
         self.clock += host
@@ -324,6 +331,7 @@ class ContinuousBatchingScheduler:
                 emitted += 1
                 if serving.enabled:
                     serving.note_token(st.req.rid, self.clock)
+                self._on_token(st)
                 if self._maybe_finish(st, tok):
                     finished = True
                     break
@@ -345,3 +353,65 @@ class ContinuousBatchingScheduler:
             "tokens_per_s": toks / self.clock if self.clock else 0.0,
             "results": self.results,
         }
+
+
+class FleetRouter:
+    """Deterministic weighted admission across fleet replicas.
+
+    Deficit weighted round-robin: every assignment credits each replica
+    its share of the effective weight vector and picks the replica with
+    the largest accumulated credit (ties break to the LOWEST replica id),
+    then debits the winner one unit.  The decision is a pure function of
+    the weight/credit history, so two routers fed identical streams under
+    identical weights make identical assignments: every process of a
+    fleet runs its own router, and they agree because their weights are
+    fed the same agreed rows.
+
+    Two inputs move the weights: ``update(replica, tokens_per_s,
+    itl_p99_ms)`` feeds a replica's goodput/ITL (a replica with high tail
+    latency per unit goodput loses share), and the per-replica bias of
+    ``serving.apply_route_weight`` (``serving.fleet_route_bias``), read on
+    EVERY assignment."""
+
+    def __init__(self, n: int,
+                 weights: Optional[List[float]] = None) -> None:
+        if n < 1:
+            raise ValueError(f"n={n} (want >= 1 replicas)")
+        if weights is not None and len(weights) != n:
+            raise ValueError(f"{len(weights)} weights for {n} replicas")
+        self.n = int(n)
+        self.weights = ([1.0] * n if weights is None
+                        else [float(w) for w in weights])
+        self._credits = [0.0] * n
+
+    def set_weight(self, replica: int, w: float) -> None:
+        self.weights[int(replica)] = max(float(w), 0.0)
+
+    def update(self, replica: int, tokens_per_s: float,
+               itl_p99_ms: float) -> None:
+        """Live reweighting from a replica's serving stats: goodput per
+        unit of tail latency, so slow-tail replicas shed admission share
+        proportionally."""
+        self.weights[int(replica)] = (max(float(tokens_per_s), 0.0)
+                                      / max(float(itl_p99_ms), 1e-3))
+
+    def effective_weights(self) -> List[float]:
+        eff = [max(self.weights[i], 0.0)
+               * serving.fleet_route_bias(i) for i in range(self.n)]
+        if not any(w > 0.0 for w in eff):
+            eff = [1.0] * self.n           # all-zero: fall back to even
+        return eff
+
+    def assign(self, rid: Any) -> int:
+        eff = self.effective_weights()
+        tot = sum(eff)
+        for i in range(self.n):
+            self._credits[i] += eff[i] / tot
+        pick = 0
+        for i in range(1, self.n):
+            if self._credits[i] > self._credits[pick] + 1e-12:
+                pick = i
+        self._credits[pick] -= 1.0
+        if serving.enabled:
+            serving.note_route(rid, pick, eff)
+        return pick

@@ -52,7 +52,7 @@ def test_every_module_is_listed():
                  "parallel.collectives", "coll.quant", "parallel.overlap",
                  "ops.collective_matmul", "parallel.reshard", "serving",
                  "serving.cache", "serving.engine", "serving.fused",
-                 "serving.scheduler"):
+                 "serving.scheduler", "parallel.simdcn", "serving.fleet"):
         assert f"ompi_tpu_torch.{name}" in MODULES
 
 
