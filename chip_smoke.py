@@ -211,10 +211,46 @@ clock (tokens over the command's wall time; the gaps between a request's
 tokens on its serving replica) and on the fleet's virtual clock, decode
 steps, migrations, the share of the command spent migrating, every card's
 idle share from one more, profiled run (fleet_numbers lines).  The
-fleets of one layout share its mesh and pair groups (made once).  Then
-the fleet line, and each rank ends through leave_world: a teardown line,
-and a teardown of the world that does not return within 60 s fails the
-run.
+fleets of one layout share its mesh and pair groups (made once).
+Phase 16 across the cards, after phase 15, seed-0 weights at full width,
+the axes named in HIER_SIM_AXES on the simulated slow plane (each
+layout's mesh made once for the world, world_mesh), in a world of its own
+(spawned once phase 15's has torn down: one world for both did not tear
+down within 60 s): (a) a DeviceComm over
+("outer", "inner") on {"outer": 2, "inner": 2}: phase 9's checks of every
+flat method (coll_check lines); hierarchical_allreduce exact at counts 7
+and 1,000,003 (f32, bf16) and hierarchical_psum_quant within the codec's
+model, a skipped outer stage rejected by both (hier_check lines); the
+hierarchical allreduce at 1, 16 and 64 MB a rank beside the flat NCCL
+allreduce with hier_wire_bytes' split, the shim off (hier_numbers); (c)
+the flagship step on {"dpo": 2, "dp": 2}, attn "flash", bucketed, its
+bucket arms forced native, decided, forced hier and hier+quant: against
+native's gradients (hier SYNC_GRAD_RMS, hier+quant the codec's model), a
+skipped hier bucket and a zeroed scale block rejected, three losses
+against one card's, K1-K3 12/6/6 a step, each arm timed under "dots" and
+"none" beside 12d's native (hier_sync_check, hier_sync_numbers); (d)
+ulysses_attention at (4, 2048, 16, 128) bf16 causal on {"sp": 4}, with
+flash_mha and the dense default, against one card's flash_mha on the
+whole tensors, the sequence's chunks out of order rejected, timed beside
+ring_attention (ulysses_check, ulysses_numbers); (e) the mesh step with
+attn "flash" and "dense" at (1, 2, 2) and (2, 2, 1) against the one-card
+step within 10c's bounds, the dp × sp sum and the heads->seq exchange
+each skipped and rejected, K1-K3 counted, timed beside "ring"
+(mesh_step, ulysses_mesh_numbers); (f) pipeline() of the six layers in
+two stages on {"dp": 2, "pp": 2}, four microbatches of one sequence,
+against the layers in order, a dropped shift rejected, K1-K3 30/15/15,
+timed, the bubble 0.2 (pipeline_check).  Each world's ranks end through
+leave_world (after the fleet line, and after the hier line): a teardown
+line, and a teardown of a world that does not return within 60 s fails
+the run.  After
+phase 11, (b) tpurun -np 4 --gpus-per-rank 1 runs the hier rank program:
+comm_world attached to ("dpo", "dp"), comm.coll.allreduce decided (native)
+and forced hier and hier+quant, the arm counts and spc wire =
+hier_wire_bytes' total, a MAX allreduce refused the hier arm with the
+reference's reason, the simulated-DCN charges (hier: the outer bytes;
+native: the ring's dcn share of its wire), each arm timed at 1, 16 and 64
+MB a rank with the shim off and at HIER_US_PER_MIB (hier_mpi_check,
+hier_mpi_numbers lines, then the hier_mpi line).
 """
 
 from __future__ import annotations
@@ -1408,11 +1444,14 @@ def coll_cases(torch, np, dc, R: int):
     return cases
 
 
-def coll_check(torch, np, dc, R: int, log_fn) -> int:
-    """Every DeviceComm method on the card against its numpy result; each
-    comparison must also reject the result with one row planted wrong."""
+def coll_check(torch, np, dc, R: int, log_fn, skip=()) -> int:
+    """Every DeviceComm method on the card against its numpy result (but
+    the cases named in ``skip``); each comparison must also reject the
+    result with one row planted wrong."""
     checked = 0
     for name, run, want, rtol in coll_cases(torch, np, dc, R):
+        if name in skip:
+            continue
         got = run()
         ok = coll_agree(np, got, want, rtol)
         bad = got.copy()
@@ -1810,9 +1849,10 @@ def planted(obj, name: str, value):
 def mesh_faults(torch, tfm, cfg, mesh) -> dict:
     """The faults the mesh gradient check must reject, by name, each a
     context that plants it: the gradient sum over dp × sp skipped (where
-    that group has more than one member), and with attn "ring" every
-    rank's last hop dropped (its partials those of a block that sees no
-    key)."""
+    that group has more than one member), with attn "ring" every rank's
+    last hop dropped (its partials those of a block that sees no key), and
+    with attn "flash" or "dense" on sp > 1 the Ulysses heads->seq exchange
+    skipped."""
     from ompi_tpu_torch.parallel import ring
     dims = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     faults = {}
@@ -1831,6 +1871,8 @@ def mesh_faults(torch, tfm, cfg, mesh) -> dict:
 
         faults["last_hop_dropped"] = lambda: planted(
             ring, "ring_block", last_hop_dropped)
+    if cfg.attn != "ring" and dims.get("sp", 1) > 1:
+        faults["heads_to_seq_skipped"] = heads_to_seq_skipped
     return faults
 
 
@@ -1841,12 +1883,15 @@ def mesh_grads(tfm, optim, cfg, mesh, pristine, tokens) -> list:
 
 
 def mesh_losses(torch, tfm, optim, attention, cfg, mesh, pristine, tokens,
-                ref_losses, want_launches, log_fn=log) -> dict:
+                ref_losses, want_launches, log_fn=log, bounds=None) -> dict:
     """The mesh step from ``pristine`` against the mesh-free step: the
     first step's gradients within MESH_GRAD_RMS, each planted fault
     outside it; then MESH_STEPS steps, the first step's K1-K4 launches
     ``want_launches``, the losses falling and within MESH_LOSS_REL of
-    ``ref_losses`` (the mesh-free step's)."""
+    ``ref_losses`` (the mesh-free step's).  ``bounds`` = (loss, gradient)
+    bounds in place of those two."""
+    loss_bound, grad_bound = bounds or (MESH_LOSS_REL[cfg.attn],
+                                        MESH_GRAD_RMS[cfg.attn])
     want = tfm.value_and_grad(clone_tree(optim, pristine), tokens, cfg)[1]
     grad_rel = grads_rel_rms(
         mesh_grads(tfm, optim, cfg, mesh, pristine, tokens), want)
@@ -1873,17 +1918,17 @@ def mesh_losses(torch, tfm, optim, attention, cfg, mesh, pristine, tokens,
     row = {"phase": "mesh_step", "attn": cfg.attn, "mesh": dict(zip(
         mesh.mesh_dim_names, mesh.mesh.shape)), "losses": losses,
         "mesh_free_losses": ref_losses, "loss_max_rel_diff": rel,
-        "loss_bound": MESH_LOSS_REL[cfg.attn], "grad_rel_rms": grad_rel,
-        "grad_bound": MESH_GRAD_RMS[cfg.attn],
+        "loss_bound": loss_bound, "grad_rel_rms": grad_rel,
+        "grad_bound": grad_bound,
         "planted_grad_rel_rms": planted_rel,
         "k1_k2_k3_k4_launches_per_step": list(launches)}
     log_fn(row)
     if launches != want_launches:
         raise AssertionError(f"mesh step {cfg.attn}: K1/K2/K3/K4 launches "
                              f"{launches}, want {want_launches}")
-    bound_ = MESH_GRAD_RMS[cfg.attn]
+    bound_ = grad_bound
     if not (all(math.isfinite(x) for x in losses)
-            and losses[-1] < losses[0] and rel < MESH_LOSS_REL[cfg.attn]
+            and losses[-1] < losses[0] and rel < loss_bound
             and grad_rel < bound_
             and all(x > bound_ for x in planted_rel.values())):
         raise AssertionError(f"mesh step: {row}")
@@ -1929,7 +1974,6 @@ def mesh_multi_card(torch, np, tfm, optim, world: int, card: str,
     cards, each layout of MULTI_LAYOUTS against the one-card step from the
     same weights and tokens, and timed."""
     from ompi_tpu_torch.ops import attention
-    from ompi_tpu_torch.parallel import make_mesh
     cfg = dataclasses.replace(tfm.flagship_config(), attn="ring")
     pristine = tfm.init_params(torch.Generator().manual_seed(0), cfg)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
@@ -1949,7 +1993,7 @@ def mesh_multi_card(torch, np, tfm, optim, world: int, card: str,
     torch.cuda.empty_cache()
     rows = []
     for dp, sp, tp in MULTI_LAYOUTS:
-        mesh = make_mesh({"dp": dp, "sp": sp, "tp": tp})
+        mesh = world_mesh({"dp": dp, "sp": sp, "tp": tp})
         row = mesh_losses(torch, tfm, optim, attention, cfg, mesh, pristine,
                           tokens, ref, (0, 0, 0, 0), log_fn)
         torch.cuda.empty_cache()
@@ -3962,6 +4006,810 @@ def fleet_multi_card(torch, np, tfm, world: int, card: str, log_fn) -> dict:
     return row
 
 
+# -- 16. hierarchy and sequence parallelism (P13) -----------------------------
+
+# The simulated slow plane of phase 16: "outer" (16a) and "dpo" (16b, 16c)
+# classify as DCN (OMPI_TPU_topo_sim_dcn_axes); four cards of one host are
+# one NVLink plane, so the two-tier arms are eligible only under it.
+HIER_SIM_AXES = "outer,dpo"
+# 16a: counts a rank the inner size (2) does not divide, f32 and bf16
+HIER_COUNTS = (7, 1_000_003)
+# 16a, 16b: the timed sizes, MB a rank (f32)
+HIER_SIZES_MB = (1, 16, 64)
+# 16b: the shim's stated cost in its timed rows: 40 µs a MiB, about 25 GB/s
+# (a 200 Gb/s host NIC); 0 in every other timed row
+HIER_US_PER_MIB = 40.0
+# 16d: the flagship's attention shape on {"sp": 4}, bf16 causal
+ULYSSES_SP = 4
+# 16f: the flagship's layers in PIPE_STAGES stages, PIPE_MICRO microbatches
+# of one sequence; the pipeline runs the same layer calls on the same
+# microbatches as the layers applied in order, so its outputs and gradients
+# differ from those only by the order of the gradient sums over
+# microbatches (f32): relative RMS PIPE_REL
+PIPE_STAGES, PIPE_MICRO = 2, 4
+PIPE_REL = 1e-3
+# phase 9's checks a tuple-axis comm does not run: the cartesian exchange
+# needs one line's geometry (as in the reference)
+CART_CASES = ("neighbor_allgather_cart", "neighbor_alltoall_cart")
+
+_WORLD_MESHES: dict = {}
+
+
+def world_mesh(axes: dict):
+    """One mesh per layout for the life of the world: its groups (and the
+    product groups ``axes_group`` makes on it) are made once, by every
+    rank, in the same order."""
+    from ompi_tpu_torch.parallel import make_mesh
+    key = tuple(axes.items())
+    if key not in _WORLD_MESHES:
+        _WORLD_MESHES[key] = make_mesh(dict(axes))
+    return _WORLD_MESHES[key]
+
+
+@contextlib.contextmanager
+def outer_stage_skipped():
+    """Planted: the hierarchical allreduce's outer stage skipped (each
+    rank keeps its inner partial sum)."""
+    from ompi_tpu_torch.parallel import hierarchy
+    real = hierarchy._stages
+
+    def skipped(x, inner, outer, mesh, outer_stage):
+        return real(x, inner, outer, mesh, lambda t, group: t)
+
+    with planted(hierarchy, "_stages", skipped):
+        yield
+
+
+def hier_quant_allow(np, x, n_outer: int):
+    """hierarchical_psum_quant's error allowance, elementwise and
+    conservative: the outer stage rounds each of the n_outer inner
+    partial sums once and the reduced chunk once, each within half a step
+    (amax / 254) of its block (the reduced chunk's amax within the first
+    roundings of the exact sum's); the global amax bounds every block's."""
+    parts = x.reshape(n_outer, -1, x.shape[-1]).sum(axis=1)
+    first = np.abs(parts).max(axis=-1).sum() / 254.0
+    return first + (np.abs(x.sum(axis=0)).max() + first) / 254.0
+
+
+def hier_collectives(torch, np, card: str, log_fn) -> dict:
+    """16a: a DeviceComm over ("outer", "inner") on {"outer": 2,
+    "inner": 2}: phase 9's checks of every flat method; the hierarchical
+    allreduce against numpy and its quantized form against the codec's
+    error model, each rejecting a planted skipped outer stage; the
+    hierarchical allreduce timed beside the flat native one over the same
+    four ranks with hier_wire_bytes' split, the shim off."""
+    from ompi_tpu_torch.parallel import DeviceComm, hierarchy
+    mesh = world_mesh({"outer": 2, "inner": 2})
+    dc = DeviceComm(mesh, ("outer", "inner"))
+    checked = coll_check(torch, np, dc, COLL_ROWS, log_fn, skip=CART_CASES)
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        for count in HIER_COUNTS:
+            rng = np.random.default_rng(count)
+            x = rng.integers(-8, 9, (dc.n, count)).astype(np.float32)
+            mine = torch.from_numpy(x[dc.pos]).to(
+                getattr(torch, dtype)).cuda()
+            run = lambda: hierarchy.hierarchical_allreduce(
+                mine, mesh, "inner", "outer").float().cpu().numpy()
+            got = run()
+            with outer_stage_skipped():
+                bad = run()
+            want = x.sum(axis=0)
+            rtol = COLL_RTOL[dtype]
+            row = {"phase": "hier_check", "what": "hierarchical_allreduce",
+                   "dtype": dtype, "count": count, "rtol": rtol,
+                   "max_abs_err": float(np.abs(got - want).max()),
+                   "ok": coll_agree(np, got, want, rtol),
+                   "planted_outer_skipped_passes": coll_agree(
+                       np, bad, want, rtol), "card": card}
+            log_fn(row)
+            rows.append(row)
+    for count in HIER_COUNTS:
+        x = np.random.default_rng(count + 1).standard_normal(
+            (dc.n, count)).astype(np.float32)
+        mine = torch.from_numpy(x[dc.pos]).cuda()
+        run = lambda: hierarchy.hierarchical_psum_quant(
+            mine, "inner", "outer", 2, mesh=mesh).cpu().numpy()
+        got = run()
+        with outer_stage_skipped():
+            bad = run()
+        allow = hier_quant_allow(np, x, 2)
+        exact = x.sum(axis=0)
+        row = {"phase": "hier_check", "what": "hierarchical_psum_quant",
+               "dtype": "float32", "count": count,
+               "max_abs_err": float(np.abs(got - exact).max()),
+               "allowance": float(allow),
+               "ok": bool(np.abs(got - exact).max() <= allow),
+               "planted_outer_skipped_passes": bool(
+                   np.abs(bad - exact).max() <= allow), "card": card}
+        log_fn(row)
+        rows.append(row)
+    for row in rows:
+        if not row["ok"] or row["planted_outer_skipped_passes"]:
+            raise AssertionError(f"16a: {row}")
+    times = []
+    for mb in HIER_SIZES_MB:
+        count = (mb << 20) // 4
+        t = torch.randn(count, device="cuda")
+        hw = hierarchy.hier_wire_bytes(count, torch.float32, 2, 2)
+        kw = dict(n=10, warmup=3, reps=KERNEL_REPS)
+        hier_ms = median_ms(lambda: hierarchy.hierarchical_psum(
+            t, "inner", "outer", mesh), **kw)
+        flat_ms = median_ms(lambda: dc.allreduce(t[None]), **kw)
+        row = {"phase": "hier_numbers", "bytes_per_rank": count * 4,
+               "cards": dc.n, "sim_dcn_us_per_mib": 0.0,
+               "hier_ms": hier_ms, "flat_native_ms": flat_ms,
+               "hier_over_flat": hier_ms / flat_ms,
+               "inner_bytes": hw["inner_bytes"],
+               "outer_bytes": hw["outer_bytes"],
+               "hier_wire_bytes": hw["total_bytes"],
+               "flat_wire_bytes": 2 * (dc.n - 1) * count * 4 // dc.n,
+               "card": card}
+        log_fn(row)
+        times.append(row)
+        del t
+        torch.cuda.empty_cache()
+    return {"coll_checked": checked, "checks": len(rows), "numbers": times}
+
+
+@contextlib.contextmanager
+def grad_sync_forced(arm):
+    """The bucketed sync's arm forced (None: decided)."""
+    from ompi_tpu_torch.coll import nccl  # noqa: F401 (its variables)
+    from ompi_tpu_torch.core import var
+    if arm is not None:
+        var.registry.set_override("coll_nccl_grad_sync_mode", arm)
+    try:
+        yield
+    finally:
+        var.registry.reset_cache()
+
+
+@contextlib.contextmanager
+def hier_bucket_skipped(which: int):
+    """Planted: the ``which``-th bucket's hierarchical allreduce not run,
+    on every rank alike (the bucket keeps this rank's own gradient)."""
+    from ompi_tpu_torch.parallel import hierarchy
+    real, seen = hierarchy.hierarchical_psum, [0]
+
+    def psum(x, *args, **kwargs):
+        seen[0] += 1
+        return x.clone() if seen[0] == which + 1 else real(x, *args,
+                                                            **kwargs)
+
+    with planted(hierarchy, "hierarchical_psum", psum):
+        yield
+
+
+def hier_quant_use(torch, grads, local, mesh, plan, block: int) -> float:
+    """The hier+quant buckets against the codec's error model: for each
+    bucket, this rank's chunk of the inner (dp) sums of every rank's own
+    gradients, the outer (dpo) ranks' chunks all-gathered, and the
+    synced chunk (× n) within half a step of each contribution's block
+    and of the output's block (its amax within the first roundings of the
+    exact sum's) from their exact sum.  Returns the largest
+    error over its allowance (<= 1 passes).  Collective."""
+    from ompi_tpu_torch.coll import quant
+    from ompi_tpu_torch.parallel.mesh import axis_rank, axis_size
+    dist = torch.distributed
+    gi, go = mesh.get_group("dp"), mesh.get_group("dpo")
+    ni, no = axis_size(mesh, "dp"), axis_size(mesh, "dpo")
+    me, n = axis_rank(mesh, "dp"), ni * no
+    pad = torch.nn.functional.pad
+    worst = 0.0
+    for b in plan.buckets:
+        flat = torch.cat([local[j].reshape(-1).float() for j in b.indices])
+        got = torch.cat([grads[j].reshape(-1).float()
+                         for j in b.indices]) * n
+        extra = (-flat.numel()) % ni
+        part = pad(flat, (0, extra))
+        dist.all_reduce(part, group=gi)
+        c = part.numel() // ni
+        mine = part[me * c:(me + 1) * c].contiguous()
+        contrib = torch.empty((no, c), device=mine.device)
+        dist.all_gather_into_tensor(contrib.view(-1), mine, group=go)
+        exact = contrib.sum(dim=0)
+        out = pad(got, (0, extra))[me * c:(me + 1) * c]
+        qpad = quant.padded_len(c, no, block) - c
+        blocks = lambda t: pad(t, (0, qpad)).reshape(
+            t.shape[:-1] + (-1, block))
+        first = blocks(contrib).abs().amax(dim=-1).sum(dim=0) / 254.0
+        allow = first + (blocks(exact).abs().amax(dim=-1) + first) / 254.0
+        err = (blocks(out) - blocks(exact)).abs().amax(dim=-1)
+        worst = max(worst, float((err / (allow * (1 + 1e-4) + 1e-12))
+                                 .max()))
+        del flat, got, part, contrib, exact
+    return worst
+
+
+def hier_grad_sync(torch, np, tfm, optim, world: int, card: str, sync,
+                   log_fn) -> dict:
+    """16c: the flagship train step at full width on {"dpo": 2, "dp": 2},
+    attn "flash", grad_sync="bucketed": each bucket arm (forced native,
+    decided, forced hier, forced hier+quant) against the native arm's
+    gradients (hier within SYNC_GRAD_RMS, hier+quant within the codec's
+    error model), a skipped hier bucket and a zeroed scale block rejected,
+    SYNC_STEPS losses against one card's, K1-K3 launches counted, every
+    arm timed under remat "dots" and "none" beside native on {"dp": 4}
+    from phase 12d (``sync``)."""
+    from ompi_tpu_torch.ops import attention
+    from ompi_tpu_torch.parallel import overlap
+    cfg = dataclasses.replace(tfm.flagship_config(), grad_sync="bucketed",
+                              grad_bucket_bytes=4 << 20)
+    pristine = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (BATCH, cfg.seq + 1))).cuda()
+    mesh = world_mesh({"dpo": 2, "dp": 2})
+    leaves = optim.tree_leaves(pristine)
+    plan = overlap.bucket_plan(leaves, cfg.grad_bucket_bytes)
+    ref = run_steps(tfm, dataclasses.replace(cfg, grad_sync="native"),
+                    clone_tree(optim, pristine), tokens, SYNC_STEPS)
+    torch.cuda.empty_cache()
+    vg = tfm.make_value_and_grad(cfg, mesh)
+    with grad_sync_forced("native"):
+        native = vg(clone_tree(optim, pristine), tokens)[1]
+    local = tfm.value_and_grad(clone_tree(optim, pristine),
+                               overlap.dp_batch(tokens, mesh), cfg)[1]
+    n = cfg.n_layers
+    checks = []
+    for arm in ("native", None, "hier", "hier+quant"):
+        decided = []
+        real = overlap._decide_buckets
+
+        def spy(*args, **kwargs):
+            decided[:] = real(*args, **kwargs)
+            return tuple(decided)
+
+        zero_counts(attention)
+        with grad_sync_forced(arm), planted(overlap, "_decide_buckets",
+                                            spy):
+            grads = vg(clone_tree(optim, pristine), tokens)[1]
+            torch.cuda.synchronize()
+        launches = launch_counts(attention)
+        want_arm = arm or "native"
+        row = {"phase": "hier_sync_check", "arm": arm or "decided",
+               "mesh": {"dpo": 2, "dp": 2}, "buckets": plan.n_buckets,
+               "bucket_arms": sorted(set(decided)),
+               "k1_k2_k3_k4_launches_per_step": list(launches),
+               "grad_rel_rms_vs_native": grads_rel_rms(grads, native)}
+        ok = decided == [want_arm] * plan.n_buckets
+        if want_arm == "hier+quant":
+            row["error_model_use"] = hier_quant_use(
+                torch, grads, local, mesh, plan, cfg.grad_sync_block)
+            with grad_sync_forced(arm), scale_block_zeroed():
+                bad = vg(clone_tree(optim, pristine), tokens)[1]
+            row["planted_scale_zeroed_use"] = hier_quant_use(
+                torch, bad, local, mesh, plan, cfg.grad_sync_block)
+            ok = ok and (row["error_model_use"] <= 1.0
+                         and row["planted_scale_zeroed_use"] > 1.0)
+        else:
+            ok = ok and row["grad_rel_rms_vs_native"] <= SYNC_GRAD_RMS
+            if want_arm == "hier":
+                with grad_sync_forced(arm), \
+                        hier_bucket_skipped(plan.n_buckets // 2):
+                    bad = vg(clone_tree(optim, pristine), tokens)[1]
+                row["planted_bucket_skipped_rel_rms"] = grads_rel_rms(
+                    bad, native)
+                ok = ok and (row["planted_bucket_skipped_rel_rms"]
+                             > SYNC_GRAD_RMS)
+        bad = None
+        del grads
+        torch.cuda.empty_cache()
+        init_opt, step = tfm.make_train_step(cfg, mesh, learning_rate=1e-3)
+        params = clone_tree(optim, pristine)
+        state, losses = init_opt(params), []
+        with grad_sync_forced(arm):
+            for _ in range(SYNC_STEPS):
+                params, state, loss = step(params, state, tokens)
+                losses.append(float(loss))
+        del params, state
+        torch.cuda.empty_cache()
+        row["losses"], row["one_card_losses"] = losses, ref
+        row["loss_max_rel_diff"] = max(abs(a - b) / abs(b)
+                                       for a, b in zip(losses, ref))
+        ok = (ok and row["loss_max_rel_diff"] < TRAIN_LOSS_REL
+              and launches == (2 * n, n, n, 0))
+        row["ok"] = ok
+        row["card"] = card
+        log_fn(row)
+        checks.append(row)
+        if not ok:
+            raise AssertionError(f"16c {row['arm']}: {row}")
+    del native, local
+    torch.cuda.empty_cache()
+    numbers = {}
+    for remat in ("dots", "none"):
+        times = {}
+        for arm in ("native", None, "hier", "hier+quant"):
+            c = dataclasses.replace(cfg, remat=remat)
+            with grad_sync_forced(arm):
+                t = time_train(torch, tfm, optim, c, pristine, tokens, card,
+                               mesh=mesh, log_fn=log_fn)
+            torch.cuda.empty_cache()
+            times[arm or "decided"] = {k: t[k] for k in (
+                "step_ms", "host_issue_ms", "tokens_per_s", "mfu")}
+        dp4 = (sync["numbers"][remat]["native"]["step_ms"] if sync
+               else None)
+        numbers[remat] = times
+        log_fn({"phase": "hier_sync_numbers", "remat": remat,
+                "mesh": {"dpo": 2, "dp": 2}, "arms": times,
+                "dp4_native_step_ms": dp4, "card": card})
+    return {"checks": [{k: v for k, v in r.items() if k != "phase"}
+                       for r in checks], "numbers": numbers}
+
+
+@contextlib.contextmanager
+def sequence_out_of_order():
+    """Planted: after the seq->heads exchange, the sequence's chunks one
+    member along (a causal check must see it)."""
+    from ompi_tpu_torch.parallel import ulysses
+    real = ulysses._seq_to_heads
+
+    def rolled(x, group, n):
+        out = real(x, group, n)
+        b, s, h, d = out.shape
+        return out.reshape(b, n, s // n, h, d).roll(1, dims=1).reshape(
+            b, s, h, d)
+
+    with planted(ulysses, "_seq_to_heads", rolled):
+        yield
+
+
+@contextlib.contextmanager
+def heads_to_seq_skipped():
+    """Planted: the heads->seq exchange skipped: each member keeps its own
+    heads' output on its own sequence block, in every head slot."""
+    from ompi_tpu_torch.parallel import ulysses
+    dist = __import__("torch").distributed
+
+    def local(x, group, n):
+        me = dist.get_rank(group)
+        s = x.shape[1] // n
+        return x[:, me * s:(me + 1) * s].repeat(1, 1, n, 1)
+
+    with planted(ulysses, "_heads_to_seq", local):
+        yield
+
+
+def ulysses_phase(torch, np, cfg, card: str, log_fn) -> dict:
+    """16d: ulysses_attention at the flagship's attention shape, (BATCH,
+    seq, heads, head_dim) bf16 causal, on {"sp": 4}: with flash_mha (K1,
+    then K2/K3) and with the dense default, the output and q/k/v
+    gradients of this rank's shard against one card's flash_mha on the
+    whole tensors (GRAD_RMS_BF16; the dense default within
+    FLASH_VS_DENSE_RMS), a planted out-of-order sequence rejected; ms
+    beside ring_attention at the same shape."""
+    from ompi_tpu_torch.ops import attention
+    from ompi_tpu_torch.parallel import ring, ulysses
+    mesh = world_mesh({"sp": ULYSSES_SP})
+    n, pos = ULYSSES_SP, mesh.get_local_rank("sp")
+    shape = (BATCH, cfg.seq, cfg.n_heads, cfg.head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(4))
+    q = q * Q_SCALE
+    sl = cfg.seq // n
+    shard = lambda t: t[:, pos * sl:(pos + 1) * sl].contiguous()
+    flash = lambda a, b, c: attention.flash_mha(a, b, c, True)
+    out1 = flash(q, k, v)
+    grads1 = mha_grads(torch, flash, q, k, v, g)
+    want = [shard(t) for t in (out1, *grads1)]
+    del out1, grads1
+    qs, ks, vs, gs = (shard(t) for t in (q, k, v, g))
+    fns = {"flash": lambda a, b, c: ulysses.ulysses_attention(
+               a, b, c, mesh, "sp", attn_fn=flash),
+           "dense": lambda a, b, c: ulysses.ulysses_attention(
+               a, b, c, mesh, "sp", causal=True),
+           "ring": lambda a, b, c: ring.ring_attention(
+               a, b, c, mesh, "sp", causal=True)}
+
+    def run(fn):
+        a, b, c = (t.detach().requires_grad_() for t in (qs, ks, vs))
+        out = fn(a, b, c)
+        return [out.detach()] + list(torch.autograd.grad(out, (a, b, c),
+                                                         gs))
+
+    def errs(got):
+        return [rel_rms(x.float(), w.float()) for x, w in zip(got, want)]
+
+    rows = []
+    for name, tol in (("flash", GRAD_RMS_BF16),
+                      ("dense", FLASH_VS_DENSE_RMS)):
+        zero_counts(attention)
+        got = run(fns[name])
+        torch.cuda.synchronize()
+        launches = launch_counts(attention)
+        with sequence_out_of_order():
+            bad = run(fns[name])
+        e, pe = errs(got), errs(bad)
+        want_launches = (1, 1, 1, 0) if name == "flash" else (0, 0, 0, 0)
+        row = {"phase": "ulysses_check", "attn_fn": name,
+               "shape": list(shape), "sp": n,
+               "rel_rms_out_dq_dk_dv": e, "tol": tol,
+               "planted_out_of_order_rel_rms": pe,
+               "k1_k2_k3_k4_launches": list(launches),
+               "ok": (max(e) < tol and min(pe[:1]) > tol
+                      and launches == want_launches), "card": card}
+        log_fn(row)
+        rows.append(row)
+        if not row["ok"]:
+            raise AssertionError(f"16d {name}: {row}")
+        del got, bad
+    torch.cuda.empty_cache()
+    timing = {}
+    for name, fn in fns.items():
+        with torch.no_grad():
+            fwd = median_ms(lambda: fn(qs, ks, vs), n=10, warmup=2)
+        both = median_ms(lambda: run(fn), n=10, warmup=2)
+        timing[name] = {"forward_ms": fwd, "forward_backward_ms": both}
+    one = median_ms(lambda: mha_grads(torch, flash, q, k, v, g), n=10,
+                    warmup=2)
+    row = {"phase": "ulysses_numbers", "shape": list(shape), "sp": n,
+           "ms": timing, "one_card_flash_mha_forward_backward_ms": one,
+           "card": card}
+    log_fn(row)
+    return {"checks": rows, "numbers": row}
+
+
+def ulysses_mesh_steps(torch, np, tfm, optim, world: int, card: str,
+                       log_fn) -> list:
+    """16e: the flagship's mesh step, attn "flash" and "dense", at each
+    layout of MULTI_LAYOUTS from 10c's weights and tokens, against the
+    one-card step within 10c's bounds (the gradient sum over dp × sp
+    skipped and the heads->seq exchange skipped each rejected), K1/K2/K3
+    launches a rank counted; step ms, tokens/s and MFU a card beside attn
+    "ring" on the same mesh."""
+    from ompi_tpu_torch.ops import attention
+    base = tfm.flagship_config()
+    pristine = tfm.init_params(torch.Generator().manual_seed(0), base)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, base.vocab, (BATCH, base.seq + 1))).cuda()
+    n = base.n_layers
+    rows = []
+    refs = {}
+    for attn in ("flash", "dense"):
+        refs[attn] = run_steps(tfm, dataclasses.replace(base, attn=attn),
+                               clone_tree(optim, pristine), tokens,
+                               MESH_STEPS)
+    torch.cuda.empty_cache()
+    for dp, sp, tp in MULTI_LAYOUTS:
+        mesh = world_mesh({"dp": dp, "sp": sp, "tp": tp})
+        row = {"mesh": {"dp": dp, "sp": sp, "tp": tp}, "cards": world}
+        for attn in ("flash", "dense"):
+            cfg = dataclasses.replace(base, attn=attn)
+            want = (2 * n, n, n, 0) if attn == "flash" else (0, 0, 0, 0)
+            check = mesh_losses(torch, tfm, optim, attention, cfg, mesh,
+                                pristine, tokens, refs[attn], want, log_fn,
+                                bounds=(TRAIN_LOSS_REL, TRAIN_GRAD_RMS))
+            torch.cuda.empty_cache()
+            row[attn] = {k: check[k] for k in (
+                "loss_max_rel_diff", "grad_rel_rms", "planted_grad_rel_rms",
+                "k1_k2_k3_k4_launches_per_step")}
+        for attn in ("flash", "dense", "ring"):
+            cfg = dataclasses.replace(base, attn=attn)
+            t = time_train(torch, tfm, optim, cfg, pristine, tokens, card,
+                           mesh=mesh, log_fn=log_fn)
+            torch.cuda.empty_cache()
+            row.setdefault(attn, {}).update(
+                {k: t[k] for k in ("step_ms", "host_issue_ms",
+                                   "tokens_per_s", "mfu", "peak_bytes")})
+        log_fn({"phase": "ulysses_mesh_numbers", **row, "card": card})
+        rows.append(row)
+    return rows
+
+
+@contextlib.contextmanager
+def shift_dropped(which: int):
+    """Planted: the pipeline's ``which``-th stage shift delivers zeros (on
+    every rank alike; the hop stays in the graph)."""
+    from ompi_tpu_torch.parallel import pipeline
+    real, seen = pipeline.ring_hop, [0]
+
+    def hop(y, *args, **kwargs):
+        seen[0] += 1
+        out = real(y, *args, **kwargs)
+        return out * 0 if seen[0] == which + 1 else out
+
+    with planted(pipeline, "ring_hop", hop):
+        yield
+
+
+def pipeline_phase(torch, np, tfm, card: str, log_fn) -> dict:
+    """16f: pipeline() of the flagship's layers, attn "flash", in
+    PIPE_STAGES stages on {"dp": 2, "pp": 2}, PIPE_MICRO microbatches of
+    one sequence (the embedded tokens, bf16): the output and this stage's
+    parameter gradients of sum(out · cot) against the layers applied in
+    order on this card (PIPE_REL), one dropped shift rejected, K1/K2/K3
+    launches counted, the run's ms beside the layers in order and the
+    GPipe bubble (P - 1) / (M + P - 1)."""
+    from ompi_tpu_torch import optim
+    from ompi_tpu_torch.ops import attention
+    from ompi_tpu_torch.parallel import pipeline as pp
+    cfg = tfm.flagship_config()
+    mesh = world_mesh({"dp": 2, "pp": PIPE_STAGES})
+    stage = mesh.get_local_rank("pp")
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    layers = params["layers"]
+    per = len(layers) // PIPE_STAGES
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (PIPE_MICRO, cfg.seq))).cuda()
+    mbs = params["embed"].to(cfg.dtype)[tokens][:, None]   # (M, 1, s, d)
+    cot = torch.randn(mbs.shape, generator=torch.Generator(
+        device="cuda").manual_seed(17), device="cuda").to(cfg.dtype)
+    mine = pp.shard_stage_params(pp.stack_stage_params(layers, PIPE_STAGES),
+                                 mesh, "pp")
+    del params
+
+    def stage_fn(p, x):
+        for i in range(per):
+            x = tfm._layer_apply(x, {k: w[i] for k, w in p.items()}, cfg)
+        return x
+
+    leaves = optim.tree_leaves(mine)
+
+    def run():
+        for t in leaves:
+            t.requires_grad_(True)
+        out = pp.pipeline(stage_fn, mine, mbs, mesh, "pp")
+        loss = (out.float() * cot.float()).sum()
+        grads = torch.autograd.grad(loss, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        return out.detach(), grads
+
+    # the layers in order on this card: each microbatch through every
+    # layer, the same calls the stages make
+    own = layers[stage * per:(stage + 1) * per]
+    own_leaves = [t for lay in own for t in optim.tree_leaves(lay)]
+
+    def sequential():
+        for t in own_leaves:
+            t.requires_grad_(True)
+        outs = []
+        for m in range(PIPE_MICRO):
+            h = mbs[m]
+            for lay in layers:
+                h = tfm._layer_apply(h, lay, cfg)
+            outs.append(h)
+        out = torch.stack(outs)
+        loss = (out.float() * cot.float()).sum()
+        grads = torch.autograd.grad(loss, own_leaves)
+        for t in own_leaves:
+            t.requires_grad_(False)
+        return out.detach(), grads
+
+    zero_counts(attention)
+    out, grads = run()
+    torch.cuda.synchronize()
+    launches = launch_counts(attention)
+    ticks = PIPE_MICRO + PIPE_STAGES - 1
+    want_launches = (2 * per * ticks, per * ticks, per * ticks, 0)
+    ref_out, ref_grads = sequential()
+    # the stacked leaves hold (per, ...) of each name; the layers' own
+    # leaves are per layer: regroup them by name
+    names = sorted(own[0])
+    ref_by_name = {}
+    for i, lay in enumerate(own):
+        for k, gr in zip(sorted(lay), ref_grads[i * len(names):
+                                                (i + 1) * len(names)]):
+            ref_by_name.setdefault(k, []).append(gr)
+    want_grads = [torch.stack(ref_by_name[k]) for k in names]
+    out_rel = rel_rms(out.float(), ref_out.float())
+    grad_rel = grads_rel_rms(grads, want_grads)
+    with shift_dropped(PIPE_STAGES - 1):
+        bad_out, bad_grads = run()
+    planted_rel = rel_rms(bad_out.float(), ref_out.float())
+    del bad_out, bad_grads, grads, want_grads, ref_grads
+    torch.cuda.empty_cache()
+    pipe_ms = median_ms(run, n=3, warmup=1)
+    seq_ms = median_ms(sequential, n=3, warmup=1)
+    row = {"phase": "pipeline_check", "stages": PIPE_STAGES,
+           "microbatches": PIPE_MICRO, "microbatch": [1, cfg.seq],
+           "layers": len(layers), "mesh": {"dp": 2, "pp": PIPE_STAGES},
+           "stage": stage, "out_rel_rms": out_rel,
+           "grad_rel_rms": grad_rel, "bound": PIPE_REL,
+           "planted_shift_dropped_out_rel_rms": planted_rel,
+           "k1_k2_k3_k4_launches": list(launches),
+           "want_launches": list(want_launches),
+           "pipeline_ms": pipe_ms, "layers_in_order_ms": seq_ms,
+           "bubble_fraction": (PIPE_STAGES - 1) / ticks,
+           "card": card}
+    row["ok"] = (out_rel < PIPE_REL and grad_rel < PIPE_REL
+                 and planted_rel > PIPE_REL and launches == want_launches)
+    log_fn(row)
+    if not row["ok"]:
+        raise AssertionError(f"16f: {row}")
+    return {k: v for k, v in row.items() if k != "phase"}
+
+
+def p13_multi_card(torch, np, tfm, optim, world: int, card: str, sync,
+                   log_fn) -> dict:
+    """Phase 16 across the cards (module docstring), after phase 15, with
+    the simulated slow plane HIER_SIM_AXES."""
+    import os
+    from ompi_tpu_torch.parallel.mesh import SIM_DCN_ENV
+    os.environ[SIM_DCN_ENV] = HIER_SIM_AXES
+    out = {"collectives": hier_collectives(torch, np, card, log_fn)}
+    torch.cuda.empty_cache()
+    out["grad_sync"] = hier_grad_sync(torch, np, tfm, optim, world, card,
+                                      sync, log_fn)
+    torch.cuda.empty_cache()
+    out["ulysses"] = ulysses_phase(torch, np, tfm.flagship_config(), card,
+                                   log_fn)
+    torch.cuda.empty_cache()
+    out["mesh_steps"] = ulysses_mesh_steps(torch, np, tfm, optim, world,
+                                           card, log_fn)
+    torch.cuda.empty_cache()
+    out["pipeline"] = pipeline_phase(torch, np, tfm, card, log_fn)
+    torch.cuda.empty_cache()
+    return out
+
+
+def hier_rank(torch, np) -> None:
+    """16b, one rank of the tpurun program: runtime.init(),
+    init_device_plane(ctx), a {"dpo": 2, "dp": 2} mesh with dpo on the
+    simulated slow plane, attach_mesh(comm_world, mesh, ("dpo", "dp")),
+    then comm.coll.allreduce on CUDA tensors as decided and with the arm
+    forced hier and hier+quant: results, arm counts, spc wire =
+    hier_wire_bytes' total; a MAX allreduce refused the hier arm; with
+    the shim on, its charges; timed at HIER_SIZES_MB with the shim off and
+    at HIER_US_PER_MIB.  Every rank checks; rank 0 prints."""
+    import os
+    from ompi_tpu_torch import op as ops
+    from ompi_tpu_torch import runtime
+    from ompi_tpu_torch.coll import quant
+    from ompi_tpu_torch.core import var
+    from ompi_tpu_torch.parallel import (attach_mesh, hierarchy,
+                                         init_device_plane, make_mesh,
+                                         simdcn)
+    from ompi_tpu_torch.parallel.mesh import SIM_DCN_ENV
+    os.environ[SIM_DCN_ENV] = "dpo"
+    ctx = runtime.init()
+    out = log if ctx.rank == 0 else (lambda obj: None)
+    init_device_plane(ctx)
+    comm = ctx.comm_world
+    mesh = make_mesh({"dpo": 2, "dp": 2})
+    attach_mesh(comm, mesh, ("dpo", "dp"))
+    dc = comm.device_comm
+    card = card_line()
+    spc = ctx.spc._v
+    keys = ("coll_arm_native_count", "coll_arm_hier_count",
+            "coll_arm_hier+quant_count", "coll_wire_bytes")
+    snap = lambda: [spc.get(k, 0) for k in keys]
+    force = lambda arm: var.registry.set_override(
+        "coll_nccl_allreduce_mode", arm or "")
+    if (comm.device_plane, comm.coll.provider("allreduce")) != ("dcn",
+                                                                 "nccl"):
+        raise AssertionError(f"16b: plane {comm.device_plane}, provider "
+                             f"{comm.coll.provider('allreduce')}")
+    count = HIER_COUNTS[-1]
+    rng = np.random.default_rng(0)
+    x = rng.integers(-8, 9, (dc.n, count)).astype(np.float32)
+    xq = rng.standard_normal((dc.n, count)).astype(np.float32)
+    dev = lambda a: torch.from_numpy(a[dc.pos:dc.pos + 1]).cuda()
+    f32 = torch.float32
+    wires = {None: quant.wire_bytes("allreduce", count, dc.n,
+                                    f32)["native_bytes"],
+             "hier": hierarchy.hier_wire_bytes(count, f32, 2, 2)[
+                 "total_bytes"],
+             "hier+quant": hierarchy.hier_wire_bytes(
+                 count, f32, 2, 2, quant=True)["total_bytes"]}
+    checks = []
+    for arm in (None, "hier", "hier+quant"):
+        data = xq if arm == "hier+quant" else x
+        force(arm)
+        before = snap()
+        got = comm.coll.allreduce(comm, dev(data)).cpu().numpy()
+        delta = [a - b for a, b in zip(snap(), before)]
+        force(None)
+        exact = data.sum(axis=0)[None]
+        if arm == "hier+quant":
+            allow = hier_quant_allow(np, data, 2)
+            err = float(np.abs(got - exact).max())
+            ok = err <= allow
+            bad = got.copy()
+            bad[0, -1] = bad[0, -1] * 1.1 + 1
+            planted_passes = bool(np.abs(bad - exact).max() <= allow)
+        else:
+            err = float(np.abs(got - exact).max())
+            ok = coll_agree(np, got, exact, COLL_RTOL["float32"])
+            bad = got.copy()
+            bad[0, -1] = bad[0, -1] * 1.1 + 1
+            planted_passes = coll_agree(np, bad, exact, COLL_RTOL["float32"])
+        want_delta = [1 if arm is None else 0, 1 if arm == "hier" else 0,
+                      1 if arm == "hier+quant" else 0, wires[arm]]
+        row = {"phase": "hier_mpi_check", "arm": arm or "decided",
+               "count": count, "max_abs_err": err,
+               "native_hier_hierquant_wire_delta": delta,
+               "want_delta": want_delta,
+               "planted_row_passes": planted_passes,
+               "ok": ok and not planted_passes and delta == want_delta,
+               "card": card}
+        out(row)
+        checks.append(row)
+        if not row["ok"]:
+            raise AssertionError(f"16b {row['arm']}: {row}")
+    # a MAX allreduce: the hier arm refused with the reference's reason
+    force("hier")
+    try:
+        comm.coll.allreduce(comm, dev(x), op=ops.MAX)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    force(None)
+    reason = "op max has no hierarchical reduce (psum stages are sum-only)"
+    out({"phase": "hier_mpi_check", "arm": "hier, op max",
+         "refused": refused, "ok": refused is not None and reason in refused,
+         "card": card})
+    if refused is None or reason not in refused:
+        raise AssertionError(f"16b: a MAX allreduce forced hier: {refused}")
+    # the shim on: hier pays its outer stage, native the DCN share of its
+    # ring's wire
+    charged = []
+    real_charge = simdcn.charge
+
+    def charge(nbytes):
+        charged.append(int(nbytes))
+        real_charge(nbytes)
+
+    var.registry.set_override("topo_sim_dcn_us_per_mib", HIER_US_PER_MIB)
+    frac = simdcn.ring_dcn_fraction(mesh, ("dpo", "dp"),
+                                    kinds=comm.device_kinds)
+    simdcn.charge = charge
+    try:
+        for arm in ("native", "hier"):
+            force(arm)
+            charged.clear()
+            comm.coll.allreduce(comm, dev(x))
+            want = ([hierarchy.hier_wire_bytes(count, f32, 2, 2)[
+                "outer_bytes"]] if arm == "hier"
+                else [int(wires[None] * frac)])
+            row = {"phase": "hier_mpi_check", "arm": f"{arm}, shim on",
+                   "sim_dcn_us_per_mib": HIER_US_PER_MIB,
+                   "charged_bytes": list(charged), "want": want,
+                   "ok": charged == want, "card": card}
+            out(row)
+            checks.append(row)
+            if charged != want:
+                raise AssertionError(f"16b shim: {row}")
+    finally:
+        simdcn.charge = real_charge
+        force(None)
+        var.registry.set_override("topo_sim_dcn_us_per_mib", 0.0)
+    numbers = []
+    for us in (0.0, HIER_US_PER_MIB):
+        var.registry.set_override("topo_sim_dcn_us_per_mib", us)
+        for mb in HIER_SIZES_MB:
+            n_el = (mb << 20) // 4
+            t = torch.randn((1, n_el), device="cuda")
+            ms = {}
+            for arm in ("native", "hier", "hier+quant"):
+                force(arm)
+                ms[arm] = median_ms(lambda: comm.coll.allreduce(comm, t),
+                                    n=10, warmup=3)
+            force(None)
+            hw = hierarchy.hier_wire_bytes(n_el, f32, 2, 2)
+            hq = hierarchy.hier_wire_bytes(n_el, f32, 2, 2, quant=True)
+            row = {"phase": "hier_mpi_numbers", "bytes_per_rank": n_el * 4,
+                   "cards": dc.n, "sim_dcn_us_per_mib": us,
+                   "native_ms": ms["native"], "hier_ms": ms["hier"],
+                   "hier_quant_ms": ms["hier+quant"],
+                   "native_wire_bytes": 2 * (dc.n - 1) * n_el * 4 // dc.n,
+                   "hier_inner_bytes": hw["inner_bytes"],
+                   "hier_outer_bytes": hw["outer_bytes"],
+                   "hier_quant_outer_bytes": hq["outer_bytes"],
+                   "card": card}
+            out(row)
+            numbers.append(row)
+            del t
+            torch.cuda.empty_cache()
+    var.registry.set_override("topo_sim_dcn_us_per_mib", 0.0)
+    comm.barrier()
+    out({"hier_rank0": {"checks": checks, "numbers": numbers}})
+    torch.distributed.destroy_process_group()
+    runtime.finalize()
+
+
 # -- 11. the MPI surface: runtime, comm and coll/nccl under tpurun ----------
 
 # the entries coll/nccl serves (every one must be its provider)
@@ -4349,12 +5197,15 @@ sys.exit(chip_smoke.rank_main(sys.argv[1:]))
 
 def rank_main(argv) -> int:
     """Entry of phase 11's rank programs: ``device R_PER TIMED HOST`` or
-    ``ring LAPS``."""
+    ``ring LAPS``; and of phase 16b's, ``hier``."""
     import numpy as np
     if argv[0] == "ring":
         ring_rank(np, int(argv[1]))
         return 0
     import torch
+    if argv[0] == "hier":
+        hier_rank(torch, np)
+        return 0
     mpi_rank(torch, np, int(argv[1]), argv[2].split(","), argv[3] == "1")
     return 0
 
@@ -4411,10 +5262,11 @@ def mpi_phase(r_per: int, np_: int, timed, host_timed: bool,
 
 
 def multi_card_worker(rank: int, world: int, init_method: str,
-                      card: str) -> None:
+                      card: str, sync_path: str) -> None:
     """One rank of the multi-card run: an NCCL world of ``world``
     processes, one card each.  Phase 9 (R = 8 rank rows over the cards),
-    then phase 10c, the mesh step across them."""
+    then phases 10c, 12d-e, 13e, 14c and 15b-d across them; rank 0 leaves
+    12d's timings at ``sync_path`` for phase 16."""
     import numpy as np
     import torch
     from ompi_tpu_torch.models import transformer as tfm
@@ -4450,6 +5302,9 @@ def multi_card_worker(rank: int, world: int, init_method: str,
     torch.cuda.empty_cache()
     # 15b-d: the serving fleet across the cards
     fleet = fleet_multi_card(torch, np, tfm, world, card, out)
+    if rank == 0:
+        with open(sync_path, "w") as fh:
+            json.dump({"numbers": sync["numbers"]}, fh)
     out({"collectives": rows})
     out({"mesh": mesh_rows})
     out({"grad_sync": sync})
@@ -4457,6 +5312,28 @@ def multi_card_worker(rank: int, world: int, init_method: str,
     out({"serve": serve})
     out({"decode": decode})
     out({"fleet": fleet})
+    leave_world(torch, out)
+
+
+def hier_card_worker(rank: int, world: int, init_method: str, card: str,
+                     sync_path: str) -> None:
+    """One rank of phase 16 (but 16b) across the cards, in an NCCL world
+    of its own: the world of phases 9-15 with phase 16's groups added did
+    not tear down within leave_world's 60 s on four H100s, where each
+    alone tears down in about 10 s."""
+    import numpy as np
+    import torch
+    from ompi_tpu_torch import optim
+    from ompi_tpu_torch.models import transformer as tfm
+    from ompi_tpu_torch.parallel import init_device_plane
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_device_plane(rank=rank, world_size=world, init_method=init_method,
+                      timeout_s=600)
+    out = log if rank == 0 else (lambda obj: None)
+    with open(sync_path) as fh:
+        sync = json.load(fh)
+    hier = p13_multi_card(torch, np, tfm, optim, world, card, sync, out)
+    out({"hier": hier})
     leave_world(torch, out)
 
 
@@ -4486,10 +5363,10 @@ def leave_world(torch, log_fn, timeout_s: float = 60.0) -> None:
 
 
 def multi_card_main() -> int:
-    """Phases 9 and 10c across the host's MULTI_CARDS cards, one spawned
-    process a card: the collectives' check, the timed sweep (without its
-    staged arm) and the gradient allreduce, then the flagship's mesh
-    step."""
+    """Phases 9, 10c, 12d-e, 13e, 14c and 15b-d across the host's
+    MULTI_CARDS cards, one spawned process a card; phase 16 (but 16b) in
+    a second such world; then phases 11 and 16b under tpurun, one rank
+    bound to each card."""
     import os
     import tempfile
     import torch
@@ -4507,13 +5384,21 @@ def multi_card_main() -> int:
     log({"phase": "device", "card": card, "cards": world,
          "torch": torch.__version__, "cuda": torch.version.cuda})
     with tempfile.TemporaryDirectory() as tmp:
-        init = "file://" + os.path.join(tmp, "store")
-        mp.spawn(multi_card_worker, args=(world, init, card),
-                 nprocs=world)
+        sync_path = os.path.join(tmp, "sync.json")
+        mp.spawn(multi_card_worker, args=(
+            world, "file://" + os.path.join(tmp, "store"), card, sync_path),
+            nprocs=world)
+        # 16a, 16c-f: hierarchy and sequence parallelism, a world of its own
+        mp.spawn(hier_card_worker, args=(
+            world, "file://" + os.path.join(tmp, "store16"), card,
+            sync_path), nprocs=world)
     # 11. the MPI surface across the cards, one rank bound to each
     log({"mpi": mpi_phase(1, world, ["allreduce", "bcast", "allgather",
                                      "alltoall"], True,
                           extra=("--gpus-per-rank", "1"))})
+    # 16b: comm.coll.allreduce on a comm attached to ("dpo", "dp")
+    lines = tpurun(world, ["hier"], extra=("--gpus-per-rank", "1"))
+    log({"hier_mpi": last_json(lines, "hier_rank0")})
     log(card)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
@@ -4895,7 +5780,7 @@ if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multi-card", action="store_true",
-                    help="run only phases 9, 10c, 11, 12d-f, 13e, 14c and "
-                         "15b-d, across every visible card")
+                    help="run only phases 9, 10c, 11, 12d-f, 13e, 14c, "
+                         "15b-d and 16, across every visible card")
     ns = ap.parse_args()
     sys.exit(multi_card_main() if ns.multi_card else main())

@@ -27,11 +27,16 @@ allgather on the same communicator; nothing crosses in a world of one),
 the numpy fold and an H2D — counted in ``device_stage_out_bytes``,
 ``device_stage_in_bytes`` and ``coll_staged_fallbacks``; ``quant`` is the
 block-quantized tier (``coll/quant``, ``DeviceComm.quant``) for float
-SUM/AVG reductions and allgather.  The hierarchical arms (P13) and the
-learned rules source (P18) are later slices: where the JAX package would
-run them, the port raises ``NotImplementedError`` naming the slice.  Each
+SUM/AVG reductions and allgather; ``hier`` and ``hier+quant`` are the
+two-tier HAN allreduce (``parallel/hierarchy``: reduce-scatter over the
+inner level, allreduce over the outer one on the scattered 1/n_inner,
+quantized for ``hier+quant``, allgather over the inner level), eligible
+on a comm whose tuple of axes spans a fast and a slow level.  The
+learned rules source (P18) is a later slice: where the JAX package would
+read it, the port raises ``NotImplementedError`` naming the slice.  Each
 dispatch leaves one audit record, ``coll_arm_<arm>_count`` and
-``coll_wire_bytes``, in the context's spc; the ``decide:`` trace event
+``coll_wire_bytes``, in the context's spc, and charges the simulated-DCN
+shim (``parallel/simdcn``) when it is on; the ``decide:`` trace event
 comes with P16.
 
 The port of ``ompi_tpu/coll/xla.py`` (decision layer, native and staged
@@ -147,20 +152,11 @@ _var.register("coll", "nccl", "decode_rs_mode", "", type=str, level=3,
 _MODES = _rules_grammar.MODES
 _PLANES = _rules_grammar.PLANES
 
-# the arms (and the rules source) a later slice brings, by name
+# the rules source a later slice brings, by name
 _LACKING = {
-    "hier": "the hierarchical arm comes with ROADMAP P13 (tuple axes)",
-    "hier+quant": "the hierarchical quantized arm comes with ROADMAP P13 "
-                  "(tuple axes)",
     "learned": "coll_nccl_rules=learned reads the perf cost model, which "
                "comes with ROADMAP P18",
 }
-
-
-def check_runnable(coll: str, arm: str) -> None:
-    """Refuse, by its slice's name, an arm the port cannot run yet."""
-    if arm in _LACKING:
-        raise NotImplementedError(f"{coll}: {_LACKING[arm]}")
 
 
 def _load_device_rules(path: Optional[str] = None):
@@ -216,10 +212,8 @@ def decide_mode(coll: str, nbytes: int, ndev: int, platform: str,
     ``coll/xla.decide_mode`` with the ``coll_nccl_*`` variables: given the
     same arguments it returns the same (arm, reason, chain), with
     ``platform`` the device type (``"cuda"`` decides as every non-CPU
-    platform there).  It may name an arm the port cannot run yet (quant,
-    hier, hier+quant, bidir); ``NcclModule`` refuses those by name, and the
-    ``learned`` rules source raises here.  The chain is returned as
-    (arm, reason, chain): per-entry force var >
+    platform there).  The ``learned`` rules source raises here.  The
+    chain is returned as (arm, reason, chain): per-entry force var >
     blanket coll_nccl_mode > blanket COLL_QUANT > platform default, then
     DEVICE_RULES rows (later lines win; quant rows vetoed by the off
     switch, the coll_quant_min_bytes floor, or op/dtype/layout
@@ -406,13 +400,20 @@ def _staged_allgatherv(h: np.ndarray, counts) -> np.ndarray:
 
 class NcclModule(CollModule):
     def __init__(self, comm) -> None:
+        from ..parallel.hierarchy import hier_axes
         self.dc = comm.device_comm
         self.dc.spc = getattr(comm.ctx, "spc", None)
         self.host = TunedModule(comm)   # fallback for host buffers
         self._comm = comm
         self._rules = _load_device_rules()
         self._platform = self.dc.device.type
+        # two-tier context, fixed at attach: whether the comm's axes span
+        # a fast inner and a slow outer level (the hier arms' eligibility),
+        # and the plane that keys '<coll>@<plane>' rows
+        self._kinds = comm.device_kinds
         self._plane = comm.device_plane
+        self._hier_inner, self._hier_outer, self._hier_why = hier_axes(
+            self.dc.mesh, self.dc.axis, kinds=self._kinds)
 
     @property
     def spc(self):
@@ -425,25 +426,43 @@ class NcclModule(CollModule):
     def _mode(self, coll: str, x, op: Op = None,
               allowed=_ALL_ARMS) -> str:
         """Pick per (collective, PER-RANK bytes) with the JAX module's
-        arguments, so the pick is the one the JAX package would make;
-        refuse an arm the port lacks.  Every device dispatch funnels through
-        here exactly once: one audit record per collective."""
+        arguments, so the pick is the one the JAX package would make.
+        Every device dispatch funnels through here exactly once: one audit
+        record per collective."""
         rows = max(x.shape[0], 1)
         nbytes = x.numel() * x.element_size() // rows
         quant_ok = coll in _QUANT_COLLS and quantizable(op or SUM, x.dtype)
-        # the hierarchical arm needs two levels, so tuple axes (P13): the
-        # JAX package's ineligibility reasons for a one-axis comm
-        hier_why = ("entry has no hierarchical kernel"
-                    if coll != "allreduce"
-                    else "single-axis comm (no inner/outer levels; tuple "
-                         "axes come with ROADMAP P13)")
+        hier_ok, hier_why = self._hier_eligible(coll, op)
         pick, _reason, _chain = decide_mode(
             coll, nbytes, self.dc.n, self._platform, self._rules, allowed,
             quant_ok=quant_ok, dtype=x.dtype, op=op, plane=self._plane,
-            hier_ok=False, hier_why=hier_why)
-        check_runnable(coll, pick)
+            hier_ok=hier_ok, hier_why=hier_why)
         self._audit(coll, x, pick, nbytes)
         return pick
+
+    def _hier_eligible(self, coll: str, op: Op = None) -> tuple:
+        """(ok, why-not) for the hierarchical arm on this entry: only
+        allreduce has a hierarchical form, the comm must span a real
+        two-tier axis split (``hier_axes``), and the stages are sums."""
+        if coll != "allreduce":
+            return False, "entry has no hierarchical kernel"
+        if self._hier_inner is None:
+            return False, self._hier_why
+        if (op or SUM).name != "sum":
+            return False, (f"op {(op or SUM).name} has no hierarchical "
+                           "reduce (psum stages are sum-only)")
+        return True, ""
+
+    def _hier_wire(self, x, quant: bool) -> dict:
+        """``hier_wire_bytes`` of one hierarchical allreduce of this
+        rank's payload (a row of x)."""
+        from ..parallel.hierarchy import hier_wire_bytes
+        from ..parallel.mesh import axis_size
+        rows = max(x.shape[0], 1)
+        return hier_wire_bytes(
+            max(x.numel() // rows, 1), x.dtype,
+            axis_size(self.dc.mesh, self._hier_inner),
+            axis_size(self.dc.mesh, self._hier_outer), quant=quant)
 
     # modeled wire-byte collectives: coll -> ring model name
     _WIRE_MODEL = {"allreduce": "allreduce",
@@ -453,11 +472,19 @@ class NcclModule(CollModule):
 
     def _audit(self, coll: str, x, arm: str, nbytes: int) -> None:
         """ONE audit record per device-dispatched collective: the arm count
-        and the per-rank wire bytes (coll/quant's ring model of the native
-        or quantized arm where there is one, else the per-rank payload)."""
+        and the per-rank wire bytes (the HAN stage math for a hierarchical
+        arm, coll/quant's ring model of the native or quantized arm where
+        there is one, else the per-rank payload); then the simulated-DCN
+        charge when the shim is on (a hierarchical arm pays its outer
+        stage, a flat arm the DCN fraction of its ring's wire)."""
+        from ..parallel import simdcn
         wire = nbytes
+        outer = None
         model = self._WIRE_MODEL.get(coll)
-        if model is not None and arm in ("native", "quant"):
+        if arm in ("hier", "hier+quant"):
+            hw = self._hier_wire(x, quant=(arm == "hier+quant"))
+            wire, outer = hw["total_bytes"], hw["outer_bytes"]
+        elif model is not None and arm in ("native", "quant"):
             rows = max(x.shape[0], 1)
             try:
                 wb = wire_bytes(model, max(x.numel() // rows, 1),
@@ -470,6 +497,12 @@ class NcclModule(CollModule):
         if spc is not None:
             spc.inc(f"coll_arm_{arm}_count")
             spc.inc("coll_wire_bytes", wire)
+        if simdcn.us_per_mib() > 0:
+            if outer is not None:
+                simdcn.charge(outer)
+            elif arm != "staged":
+                simdcn.charge(int(wire * simdcn.ring_dcn_fraction(
+                    self.dc.mesh, self.dc.axis, kinds=self._kinds)))
 
     # -- the staged arm: D2H, host exchange, numpy fold, H2D ----------------
 
@@ -527,6 +560,9 @@ class NcclModule(CollModule):
                           allowed=self._ALL_ARMS
                           if op.name in _NP_FOLD
                           else ("native", "quant"))
+        if mode in ("hier", "hier+quant"):
+            return self._hier_allreduce(sendbuf, op,
+                                        quant=(mode == "hier+quant"))
         if mode == "quant":
             return self.dc.quant.allreduce(sendbuf, op)
         if mode == "staged":
@@ -534,6 +570,27 @@ class NcclModule(CollModule):
             red = _NP_FOLD[op.name](h, axis=0)
             return self._stage_in(np.broadcast_to(red, h.shape), sendbuf)
         return self.dc.allreduce(sendbuf, op)
+
+    def _hier_allreduce(self, x, op: Op, quant: bool):
+        """The two-tier HAN arm on this process's rows (r, *e): the local
+        fold, then reduce_scatter over the inner level → allreduce over
+        the outer level on the scattered 1/n_inner (quantized when
+        ``quant``) → allgather over the inner level, every row the sum.
+        Reached only when the decision said so: a two-tier comm, op sum."""
+        from ..parallel.collectives import _repeat_rows
+        from ..parallel.hierarchy import (hierarchical_psum,
+                                          hierarchical_psum_quant)
+        from ..parallel.mesh import axis_size
+        dc = self.dc
+        inner, outer = self._hier_inner, self._hier_outer
+        red = dc._fold_local(x, op)
+        flat = red.reshape(-1)
+        if quant:
+            out = hierarchical_psum_quant(
+                flat, inner, outer, axis_size(dc.mesh, outer), mesh=dc.mesh)
+        else:
+            out = hierarchical_psum(flat, inner, outer, mesh=dc.mesh)
+        return _repeat_rows(out.reshape(red.shape), x.shape[0])
 
     def reduce(self, comm, sendbuf, recvbuf=None, op: Op = None,
                root: int = 0):

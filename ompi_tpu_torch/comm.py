@@ -135,6 +135,7 @@ class Communicator:
         self.errhandler = None               # None = ERRORS_ARE_FATAL (raise)
         self.device_comm = None              # parallel.attach_mesh sets it
         self.device_plane = None             # "ici" | "dcn", ditto
+        self.device_kinds = None             # {axis: "ici" | "dcn"}, ditto
         self._attach_coll()
 
     @property

@@ -26,8 +26,15 @@ tp rank t holds heads [t·h/tp, (t+1)·h/tp) of each of q, k and v.  Each
 column-parallel product takes its input through *f* and each row-parallel
 one ends in *g* (``parallel.collectives``); the lookup and the
 cross-entropy are vocab-parallel; ``attn="ring"`` runs ``ring_attention``
-over sp with global RoPE positions; tokens are cut over dp (batch) and sp
-(sequence); the gradients sum over dp × sp (``grad_sync="native"``).
+over sp with global RoPE positions, and ``attn="flash"`` or ``"dense"`` on
+sp > 1 run ``ulysses_attention`` over sp on this rank's h/tp heads (the
+full sequence of (h/tp)/sp heads a rank: ``flash_mha``, so K1 forward and
+K2/K3 backward, or ``attention_reference``), where the reference
+replicates them over sp under GSPMD: the same values; tokens are cut over
+dp (batch) and sp (sequence); the gradients sum over dp × sp
+(``grad_sync="native"``).  An outer ``dpo`` axis is replicated by the
+native step, as in the reference, and is part of the dp sync domain of
+the other ``grad_sync`` modes (``parallel/overlap``).
 ``attn="ring"`` without a mesh is ``attention_reference``, as in the
 reference.
 
@@ -55,10 +62,10 @@ reference's per-row RoPE and paged decode attention.
 whose tp combines are the collective-matmul rings (``serving/fused``).
 
 Not yet ported, refused with the ROADMAP slice that brings it:
-``mlp="moe"`` (P12) and the reference's two-tier ``dpo`` axis (P13).  The
-port's own refusal: ``attn="flash"`` or ``"dense"`` on a mesh whose sp
-axis is larger than 1 (the reference replicates them over sp under GSPMD;
-the port shards the sequence over sp).
+``mlp="moe"`` (P12).  The port's own refusals: ``attn="flash"`` or
+``"dense"`` on sp > 1 when this rank's h/tp heads do not divide over sp
+(Ulysses splits them), and ``tp_overlap="fused"`` on sp > 1 (the fused
+layer attends its rank's sequence; the reference replicates it over sp).
 """
 
 from __future__ import annotations
@@ -86,6 +93,7 @@ from ..parallel.collectives import (copy_to, gather_from, pmax, reduce_from,
 from ..parallel.mesh import axes_group, axis_rank, axis_size, sharded
 from ..parallel.reshard import resharder
 from ..parallel.ring import attention_reference, ring_attention
+from ..parallel.ulysses import ulysses_attention
 
 _NOT_YET = {
     ("mlp", "moe"): "the MoE block comes with ROADMAP slice P12",
@@ -347,6 +355,9 @@ class _Plan:
         self.dp_rank, self.sp_rank, self.tp_rank = (
             axis_rank(mesh, a) for a in ("dp", "sp", "tp"))
         self.ring = cfg.attn == "ring" and "sp" in mesh.mesh_dim_names
+        # flash and dense attend the whole sequence: over sp > 1 through
+        # the Ulysses exchange
+        self.ulysses = cfg.attn != "ring" and self.sp > 1
         self.fused = cfg.tp_overlap == "fused"
         # every leaf is replicated over dp and sp: its gradient sums there
         self.data = (axes_group(mesh, ("dp", "sp"))
@@ -430,12 +441,13 @@ def _plan(mesh: Optional[DeviceMesh], cfg: Config) -> Optional[_Plan]:
     sp, tp = axis_size(mesh, "sp"), axis_size(mesh, "tp")
     if cfg.tp_overlap == "fused":
         _check_fused(cfg, mesh)
-    if cfg.attn != "ring" and sp > 1:
-        raise NotImplementedError(
-            f"attn={cfg.attn!r} on a mesh with sp={sp}: the port shards the "
-            f"sequence over sp, where only attn='ring' runs (the reference "
-            f"replicates it over sp; still to port, ROADMAP Queue 1)")
     _check_tp(cfg, tp)
+    if cfg.attn != "ring" and sp > 1 and (cfg.n_heads // tp) % sp:
+        raise ValueError(
+            f"attn={cfg.attn!r} on a mesh with sp={sp} runs Ulysses "
+            f"attention over sp, which splits this rank's "
+            f"{cfg.n_heads // tp} heads (n_heads {cfg.n_heads} / tp={tp}): "
+            f"they are not divisible by sp={sp}")
     return _Plan(mesh, cfg)
 
 
@@ -459,6 +471,13 @@ def _check_fused(cfg: Config, mesh: Optional[DeviceMesh]) -> None:
         raise ValueError(
             f"tp_overlap='fused' needs n_heads ({cfg.n_heads}) and d_ff "
             f"({cfg.d_ff}) divisible by tp={tp}")
+    if axis_size(mesh, "sp") > 1:
+        # the fused layer attends its rank's whole running sequence; the
+        # reference replicates it over sp, the port shards tokens over sp
+        raise ValueError(
+            f"tp_overlap='fused' runs on sp = 1 only (mesh axes: {dims}): "
+            f"its attention is this rank's sequence, and the port cuts the "
+            f"sequence over sp")
 
 
 def _check_tp(cfg: Config, tp: int) -> None:
@@ -543,15 +562,20 @@ def _attn_apply(x, layer, cfg: Config, mesh: Optional[_Plan] = None):
                for t in qkv.chunk(3, dim=-1))
     q = _rope(q, positions, cfg.rope_base)
     k = _rope(k, positions, cfg.rope_base)
+    if cfg.attn == "flash":
+        attn = lambda q, k, v: flash_mha(
+            q, k, v, True, None, cfg.attn_block, cfg.attn_block, None,
+            cfg.attn_bwd_block, cfg.attn_bwd_block)
+    else:
+        attn = lambda q, k, v: attention_reference(q, k, v, causal=True)
     if mesh is not None and mesh.ring:
         att = ring_attention(q, k, v, mesh.mesh, "sp", causal=True,
                              batch_axis=mesh.axis("dp"),
                              head_axis=mesh.axis("tp"))
-    elif cfg.attn == "flash":
-        att = flash_mha(q, k, v, True, None, cfg.attn_block, cfg.attn_block,
-                        None, cfg.attn_bwd_block, cfg.attn_bwd_block)
+    elif mesh is not None and mesh.ulysses:
+        att = ulysses_attention(q, k, v, mesh.mesh, "sp", attn_fn=attn)
     else:
-        att = attention_reference(q, k, v, causal=True)
+        att = attn(q, k, v)
     att = att.reshape(b, s, heads * cfg.head_dim)
     out = att @ layer["wo"].to(cfg.dtype)
     return x + (out if mesh is None else mesh.from_tp(out))
@@ -810,6 +834,14 @@ def _quant_grad_sync(cfg: Config, mesh: DeviceMesh,
     from ..coll.quant import psum_quant
 
     n = overlap.check_dp_mesh(mesh, "grad_sync='quant'")
+    if axis_size(mesh, "dpo") > 1:
+        # the reference's per-leaf quant sync is over dp alone, so it
+        # refuses an outer dpo axis as it refuses any other
+        raise ValueError(
+            "grad_sync='quant' is dp-only: the sync over dp would "
+            f"replicate axis 'dpo' (size {axis_size(mesh, 'dpo')}) and undo "
+            "its parameter sharding; use grad_sync='native' on dp×tp/sp "
+            "meshes")
     group = mesh.get_group("dp")
 
     def vg(params, tokens):

@@ -14,7 +14,8 @@ Two levels, as in the reference:
     reference names an axis inside ``shard_map``; ``ring_hop``,
     ``reduce_from`` and ``copy_to`` are the differentiable ones the mesh
     train step needs (a ring hop, Megatron's *g* and *f*);
-  * ``DeviceComm`` — MPI-shaped collectives over one mesh axis.
+  * ``DeviceComm`` — MPI-shaped collectives over one mesh axis, or over
+    the product of a tuple of axes.
 
 Layout of DeviceComm.  The reference holds one global (R, *elem) array,
 row i being rank i's buffer, with each device owning r = R/n rows.  Here
@@ -67,11 +68,17 @@ def _check_backend(device_type: str, backend: str) -> None:
 
 
 def _group_of(axis, mesh=None):
-    """A process group, or a mesh axis name resolved on ``mesh``."""
+    """A process group, or a mesh axis name (or a tuple of them, the
+    product group ``mesh.axes_group`` makes) resolved on ``mesh``."""
     if isinstance(axis, str):
         if mesh is None:
             raise ValueError(f"axis {axis!r} named without its mesh")
         return mesh.get_group(axis)
+    if isinstance(axis, tuple):
+        if mesh is None:
+            raise ValueError(f"axes {axis!r} named without their mesh")
+        from .mesh import axes_group
+        return axes_group(mesh, axis)
     return axis
 
 
@@ -468,19 +475,37 @@ def _ragged_arange(starts, counts, device) -> torch.Tensor:
 class DeviceComm:
     """Collectives over one axis of a mesh (see the module docstring for
     the layout).  ``n`` = processes along ``axis``; ``pos`` = this
-    process's position on it.  Tuple axes (a comm over the product of
-    several axes) come with ROADMAP P13."""
+    process's position on it.
 
-    def __init__(self, mesh, axis: str) -> None:
-        if not isinstance(axis, str):
-            raise NotImplementedError(
-                "DeviceComm over a tuple of axes comes with ROADMAP P13")
+    ``axis`` may also be a TUPLE of axis names: the comm then spans the
+    row-major product of those axes (outer to inner), which is how a
+    two-tier comm presents one flat rank space while the hierarchical arm
+    of ``coll/nccl`` still addresses the levels by name.  Every flat
+    collective runs on the product group (``mesh.axes_group``), whose
+    ranks follow the mesh's order, so the tuple must name its axes in the
+    mesh's order.  The cartesian neighbourhood exchange, which needs one
+    line's geometry, keeps requiring one named axis, as in the reference
+    (whose ``mesh.shape[axis]`` cannot read a tuple)."""
+
+    def __init__(self, mesh, axis) -> None:
         if mesh.device_type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DeviceComm on a cuda mesh and no CUDA device "
                                "is available")
+        if isinstance(axis, (tuple, list)):
+            axis = tuple(axis)
+            names = tuple(mesh.mesh_dim_names)
+            missing = [a for a in axis if a not in names]
+            if missing or len(set(axis)) != len(axis):
+                raise ValueError(f"axes {axis} are not distinct axes of the "
+                                 f"mesh's {names}")
+            if list(axis) != [a for a in names if a in axis]:
+                raise ValueError(
+                    f"axes {axis} must follow the mesh's axis order {names}: "
+                    f"the product group ranks its members row-major in "
+                    f"that order")
         self.mesh = mesh
         self.axis = axis
-        self.group = mesh.get_group(axis)
+        self.group = _group_of(axis, mesh)
         self.backend = dist.get_backend(self.group)
         _check_backend(mesh.device_type, self.backend)
         self.n = dist.get_world_size(self.group)
@@ -508,6 +533,12 @@ class DeviceComm:
 
     def cache_info(self) -> Dict[str, int]:
         return {"entries": len(self._idx_cache)}
+
+    def _one_axis(self, what: str) -> str:
+        if isinstance(self.axis, tuple):
+            raise ValueError(f"{what} needs a single named axis (one "
+                             f"line's geometry), not the tuple {self.axis}")
+        return self.axis
 
     @property
     def quant(self):
@@ -1109,6 +1140,7 @@ class DeviceComm:
         return perms
 
     def _check_cart(self, x, topo) -> None:
+        self._one_axis("the device cart exchange")
         if not all(topo.periods):
             raise ValueError("device cart exchange requires a fully "
                              "periodic topology (host path otherwise)")

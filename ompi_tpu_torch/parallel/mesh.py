@@ -90,11 +90,14 @@ _AXES_GROUPS: "weakref.WeakKeyDictionary[DeviceMesh, dict]" = \
 
 def axes_group(mesh: DeviceMesh, axes: Sequence[str]):
     """The process group over the product of ``axes``: the ranks that
-    differ from this one only along them.  The first call for a mesh and a
-    set of axes makes every such group of the mesh, so every rank makes
-    that call, in the same order."""
+    differ from this one only along them, in the mesh's row-major order.
+    One axis is the mesh's own group of that axis (``get_group``).  The
+    first call for a mesh and a set of several axes makes every such group
+    of the mesh, so every rank makes that call, in the same order."""
     names = mesh.mesh_dim_names
     key = tuple(a for a in names if a in axes)
+    if len(key) == 1:
+        return mesh.get_group(key[0])
     groups = _AXES_GROUPS.setdefault(mesh, {})
     if key not in groups:
         keep = [names.index(a) for a in key]
@@ -109,8 +112,34 @@ def axes_group(mesh: DeviceMesh, axes: Sequence[str]):
     return groups[key]
 
 
-def classify_axes(mesh: DeviceMesh,
-                  axis: Optional[str] = None) -> Dict[str, str]:
+def axes_position(mesh: DeviceMesh, axes: Sequence[str]) -> int:
+    """This process's row-major index over ``axes`` in the order given
+    (outer to inner): a tuple axis's rank order."""
+    pos = 0
+    for a in axes:
+        pos = pos * axis_size(mesh, a) + axis_rank(mesh, a)
+    return pos
+
+
+def group_order(mesh: DeviceMesh, axes: Sequence[str]) -> np.ndarray:
+    """For the product group of ``axes`` (``axes_group``, ranks in the
+    mesh's order), ``perm[j]``: the group rank of the member at row-major
+    index j over ``axes`` in the order given.  The identity when ``axes``
+    follow the mesh's order."""
+    names = mesh.mesh_dim_names
+    in_mesh = [a for a in names if a in axes]
+    sizes = [axis_size(mesh, a) for a in axes]
+    perm = np.empty(int(np.prod(sizes)), np.int64)
+    for j in range(perm.size):
+        coord = dict(zip(axes, np.unravel_index(j, sizes)))
+        g = 0
+        for a in in_mesh:
+            g = g * axis_size(mesh, a) + int(coord[a])
+        perm[j] = g
+    return perm
+
+
+def classify_axes(mesh: DeviceMesh, axis=None) -> Dict[str, str]:
     """Classify each axis as 'ici' (its ranks share a host) or 'dcn' (it
     crosses hosts), the han intra/inter split.  Every rank here is its own
     process, so the reference's test, whether an axis crosses a process,
@@ -120,16 +149,20 @@ def classify_axes(mesh: DeviceMesh,
     ``OMPI_TPU_topo_sim_dcn_axes`` override names simulated slow axes.
     Collective: every rank of the world calls it.
 
-    With ``axis``, only that axis is classified, from a gather over its
-    own group (this rank's line of it): the form ``attach_mesh`` uses,
-    where only the communicator's ranks take part."""
+    With ``axis`` (one name or a tuple), only those axes are classified,
+    each from a gather over its own group (this rank's line of it): the
+    form ``attach_mesh`` uses, where only the communicator's ranks take
+    part."""
     sim = sim_dcn_axes()
     if axis is not None:
-        group = mesh.get_group(axis)
-        hosts = [None] * dist.get_world_size(group)
-        dist.all_gather_object(hosts, socket.gethostname(), group=group)
-        crosses = axis in sim or len(set(hosts)) > 1
-        return {axis: "dcn" if crosses else "ici"}
+        out = {}
+        for a in ((axis,) if isinstance(axis, str) else tuple(axis)):
+            group = mesh.get_group(a)
+            hosts = [None] * dist.get_world_size(group)
+            dist.all_gather_object(hosts, socket.gethostname(), group=group)
+            crosses = a in sim or len(set(hosts)) > 1
+            out[a] = "dcn" if crosses else "ici"
+        return out
     hosts = [None] * dist.get_world_size()
     dist.all_gather_object(hosts, socket.gethostname())
     ids = {h: i for i, h in enumerate(dict.fromkeys(hosts))}
@@ -187,5 +220,5 @@ def sharded(mesh: DeviceMesh, *spec: Optional[str]) -> Sharding:
 
 
 __all__ = ["make_mesh", "axis_index_of", "axis_size", "axis_rank",
-           "axes_group", "classify_axes", "sim_dcn_axes", "Sharding",
-           "sharded"]
+           "axes_group", "axes_position", "group_order", "classify_axes",
+           "sim_dcn_axes", "Sharding", "sharded"]

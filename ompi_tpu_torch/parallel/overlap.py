@@ -22,11 +22,16 @@ whose hook fires early waits for the ones before it), so every rank issues
 the same collectives in the same order, as NCCL requires.  The step waits
 for every bucket before it returns the gradients (and so before AdamW).
 
-Like the reference, the sync runs over ``dp`` only: on a mesh whose tp or
-sp axis is larger than 1 it would replicate those axes' parameter shards,
-so such meshes are refused.  The reference's ``dpo`` outer axis (the
-two-tier sync domain and its hierarchical arms) comes with ROADMAP P13;
-its ``decide:`` events, spans, traffic and numerics hooks with P16.
+Like the reference, the sync runs over the data-parallel axes only: on a
+mesh whose tp or sp axis is larger than 1 it would replicate those axes'
+parameter shards, so such meshes are refused.  An outer ``dpo`` axis is
+part of the sync domain (``dp_sync_axes``: the dpo×dp product, the batch
+cut row-major over it): on a two-tier domain (``dpo`` slow, ``dp`` fast,
+``parallel/hierarchy.hier_axes``) a bucket may also take the
+hierarchical arms, ``hier`` (reduce-scatter over dp, allreduce over dpo
+on the scattered 1/n_dp, allgather over dp) and ``hier+quant`` (the outer
+stage block-quantized).  The reference's ``decide:`` events, spans,
+traffic and numerics hooks come with P16.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ import torch.distributed as dist
 
 from ..core import var as _var
 from ..optim import tree_leaves
-from .mesh import axis_rank, axis_size
+from .mesh import axes_group, axes_position, axis_size, classify_axes
 
 GRAD_SYNC_MODES = ("perleaf", "bucketed", "unsynced")
 
@@ -159,12 +164,13 @@ def resolve_bucket_bytes(bucket_bytes: Optional[int] = None) -> int:
 
 # -- decision -----------------------------------------------------------------
 
-def _decide_buckets(plan: BucketPlan, ndev: int,
-                    platform: str) -> Tuple[str, ...]:
+def _decide_buckets(plan: BucketPlan, ndev: int, platform: str,
+                    plane: Optional[str] = None, hier_ok: bool = False,
+                    hier_why: str = "") -> Tuple[str, ...]:
     """One decision-layer pass per bucket (coll name ``grad_sync``, arms
-    native|quant; the hierarchical arms need the two-tier dpo×dp domain,
-    ROADMAP P13, and record the reference's ``ineligible:hier`` veto) and
-    the bucket pvars.  Runs once per built sync."""
+    native|quant|hier|hier+quant — the hier arms only when the sync spans
+    a two-tier dpo×dp split) and the bucket pvars.  Runs once per built
+    sync."""
     from ..coll import nccl
 
     rules = nccl._load_device_rules()
@@ -173,9 +179,7 @@ def _decide_buckets(plan: BucketPlan, ndev: int,
         arm, _reason, _chain = nccl.decide_mode(
             "grad_sync", b.nbytes, ndev, platform, rules,
             allowed=("native", "quant"), quant_ok=True, dtype=np.float32,
-            hier_ok=False,
-            hier_why="single-axis comm (no inner/outer levels)")
-        nccl.check_runnable("grad_sync", arm)
+            plane=plane, hier_ok=hier_ok, hier_why=hier_why)
         arms.append(arm)
     _PVARS["grad_bucket_count"] = plan.n_buckets
     _PVARS["grad_bucket_bytes"] = plan.total_bytes
@@ -184,35 +188,46 @@ def _decide_buckets(plan: BucketPlan, ndev: int,
 
 # -- the sync -----------------------------------------------------------------
 
+def dp_sync_axes(mesh):
+    """The sync domain: ``("dpo", "dp")`` when the mesh carries an outer
+    data-parallel axis (the two-tier shape the hier arms address by
+    level), else plain ``"dp"``."""
+    return ("dpo", "dp") if "dpo" in mesh.mesh_dim_names else "dp"
+
+
 def check_dp_mesh(mesh, what: str) -> int:
     """The dp-only contract shared with the quant grad sync: a sync over the
-    data-parallel axis replicates every other axis, which would undo tp/sp
-    parameter sharding — refuse instead.  Returns the dp size."""
+    data-parallel axes replicates every other axis, which would undo tp/sp
+    parameter sharding — refuse instead.  An optional ``dpo`` outer axis
+    is part of the sync domain, not a sharded dimension.  Returns the
+    domain's size."""
     names = tuple(mesh.mesh_dim_names)
     if "dp" not in names:
         raise ValueError(
             f"{what} needs a 'dp' mesh axis to sync over "
             f"(mesh axes: {names})")
+    n = axis_size(mesh, "dp")
     for a in names:
         if a == "dpo":
-            raise NotImplementedError(
-                f"{what} over an outer 'dpo' axis syncs over the dpo×dp "
-                "tuple of axes, which comes with ROADMAP P13")
-        if a != "dp" and axis_size(mesh, a) > 1:
+            n *= axis_size(mesh, a)
+        elif a != "dp" and axis_size(mesh, a) > 1:
             raise ValueError(
                 f"{what} is dp-only: the sync over dp would replicate axis "
                 f"{a!r} (size {axis_size(mesh, a)}) and undo its parameter "
                 "sharding; use grad_sync='native' on dp×tp/sp meshes")
-    return axis_size(mesh, "dp")
+    return n
 
 
 def dp_batch(tokens: torch.Tensor, mesh) -> torch.Tensor:
-    """This rank's rows of the whole batch, cut over dp (the reference's
-    data spec)."""
-    n, pos = axis_size(mesh, "dp"), axis_rank(mesh, "dp")
+    """This rank's rows of the whole batch, cut over the sync domain (the
+    reference's data spec: row-major over dpo×dp where dpo exists)."""
+    axes = dp_sync_axes(mesh)
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    n = int(np.prod([axis_size(mesh, a) for a in axes]))
+    pos = axes_position(mesh, axes)
     if tokens.shape[0] % n:
         raise ValueError(f"batch of {tokens.shape[0]} does not divide over "
-                         f"dp={n}")
+                         f"{'×'.join(axes)}={n}")
     b = tokens.shape[0] // n
     return tokens[pos * b:(pos + 1) * b]
 
@@ -231,9 +246,11 @@ class _Buckets:
     bucket is issued in plan order, ``finish`` waits and splits."""
 
     def __init__(self, plan: BucketPlan, arms, leaves, group, n: int,
-                 quant_block: int) -> None:
+                 quant_block: int, mesh=None, levels=None) -> None:
         self.plan, self.arms, self.leaves = plan, arms, leaves
         self.group, self.n, self.block = group, n, quant_block
+        # (inner, outer, n_outer) of a two-tier domain, for the hier arms
+        self.mesh, self.levels = mesh, levels
         self.ready: List[Optional[torch.Tensor]] = [None] * plan.n_buckets
         self.out: List[Optional[torch.Tensor]] = [None] * plan.n_buckets
         self.works = []
@@ -267,7 +284,19 @@ class _Buckets:
                and self.ready[self.next] is not None):
             i, self.next = self.next, self.next + 1
             flat, self.ready[i] = self.ready[i], None
-            if self.arms[i] == "quant":
+            if self.arms[i] in ("hier", "hier+quant"):
+                # the HAN shape over the two-tier domain, then the mean
+                from .hierarchy import (hierarchical_psum,
+                                        hierarchical_psum_quant)
+                inner, outer, n_outer = self.levels
+                if self.arms[i] == "hier+quant":
+                    flat = hierarchical_psum_quant(
+                        flat, inner, outer, n_outer, block=self.block,
+                        mesh=self.mesh) / self.n
+                else:
+                    flat = hierarchical_psum(flat, inner, outer,
+                                             mesh=self.mesh) / self.n
+            elif self.arms[i] == "quant":
                 from ..coll.quant import psum_quant
                 flat = psum_quant(flat, self.group, self.n, avg=True,
                                   block=self.block)
@@ -292,7 +321,7 @@ class _Buckets:
         synced: List[Optional[torch.Tensor]] = [None] * len(grads)
         for i, b in enumerate(self.plan.buckets):
             flat = self.out[i]
-            if self.arms[i] != "quant" and self.n > 1:
+            if self.arms[i] == "native" and self.n > 1:
                 flat = flat / self.n
             off = 0
             for j in b.indices:
@@ -329,8 +358,21 @@ def make_grad_sync(mode: str, mesh, local_loss: Callable,
         raise ValueError(f"unknown grad sync mode {mode!r} "
                          f"(expected one of {GRAD_SYNC_MODES})")
     n = check_dp_mesh(mesh, f"grad_sync={mode!r}")
-    group = mesh.get_group("dp")
+    sync_axes = dp_sync_axes(mesh)
+    group = axes_group(mesh, (sync_axes,) if isinstance(sync_axes, str)
+                       else sync_axes)
     nb = resolve_bucket_bytes(bucket_bytes)
+    plane, hier_ok, hier_why, levels = None, False, \
+        "single-axis comm (no inner/outer levels)", None
+    if isinstance(sync_axes, tuple):
+        # the two-tier context feeds the hier arms and '@<plane>' rows
+        from .hierarchy import hier_axes
+        kinds = classify_axes(mesh, sync_axes)
+        plane = "dcn" if "dcn" in kinds.values() else "ici"
+        inner, outer, why = hier_axes(mesh, sync_axes, kinds=kinds)
+        hier_ok, hier_why = inner is not None, why or ""
+        if hier_ok:
+            levels = (inner, outer, axis_size(mesh, outer))
 
     def vg(params, batch):
         leaves = tree_leaves(params)
@@ -338,12 +380,14 @@ def make_grad_sync(mode: str, mesh, local_loss: Callable,
         buckets = None
         if mode == "bucketed":
             plan = bucket_plan(leaves, nb)
-            arms = _decide_buckets(plan, n, mesh.device_type)
+            arms = _decide_buckets(plan, n, mesh.device_type, plane,
+                                   hier_ok, hier_why)
         for p in leaves:
             p.requires_grad_(True)
         try:
             if mode == "bucketed":
-                buckets = _Buckets(plan, arms, leaves, group, n, quant_block)
+                buckets = _Buckets(plan, arms, leaves, group, n, quant_block,
+                                   mesh, levels)
             with torch.enable_grad():
                 loss = local_loss(params, local)
                 grads = torch.autograd.grad(loss, leaves)
@@ -382,6 +426,6 @@ def decide_collmm(kind: str, nbytes: int, mesh, axis: str,
 
 
 __all__ = ["GRAD_SYNC_MODES", "Bucket", "BucketPlan", "bucket_plan",
-           "resolve_bucket_bytes", "check_dp_mesh", "make_grad_sync",
-           "decide_collmm", "add_post_sync_hook", "remove_post_sync_hook",
-           "pvar_value"]
+           "resolve_bucket_bytes", "dp_sync_axes", "check_dp_mesh",
+           "make_grad_sync", "decide_collmm", "add_post_sync_hook",
+           "remove_post_sync_hook", "pvar_value"]

@@ -49,8 +49,9 @@ Each step is decided under the coll name ``reshard`` through
 is the only arm a layout step has) and, with an spc table attached,
 counts ``coll_arm_<arm>_count`` and ``coll_wire_bytes``.  The trace
 event and the perf and traffic halves of the audit come with ROADMAP P16.
-A dim sharded over a tuple of axes plans, but does not run: tuple axes
-come with P13.
+A dim sharded over a tuple of axes is cut in row-major blocks over their
+product, and a step over several axes runs on their product group
+(``mesh.axes_group``); such a dim must divide over the product.
 
 Cross-mesh mode (reference ``:736-1170``): ``compile_cross_plan`` cuts a
 move from a source mesh onto a destination mesh whose ranks are a subset
@@ -80,8 +81,10 @@ import torch
 import torch.distributed as dist
 
 from ..core import var as _var
-from .collectives import _p2p, all_gather_axis, all_to_all_axis, ppermute
-from .mesh import axes_group, axis_rank, classify_axes, sim_dcn_axes
+from .collectives import (_p2p, _wire, all_gather_axis, all_to_all_axis,
+                          ppermute)
+from .mesh import (axes_group, axes_position, axis_rank, classify_axes,
+                   group_order, sim_dcn_axes)
 
 _var.register("reshard", "", "peak_factor", 2.0, type=float, level=3,
               help="Peak-live-bytes bound for compiled reshard plans, "
@@ -486,26 +489,40 @@ def _block(n: int, i: int, extent: int) -> Tuple[int, int]:
     return start, min(c, extent - start)
 
 
+def _grp_block(mesh, grp: Tuple[str, ...], extent: int) -> Tuple[int, int]:
+    """(start, size) of this rank's block of a dim of ``extent`` laid out
+    over the axes ``grp``: blocks over their row-major product."""
+    if not grp:
+        return 0, int(extent)
+    sizes = _axis_sizes(mesh)
+    n = int(np.prod([sizes[a] for a in grp]))
+    return _block(n, axes_position(mesh, grp), int(extent))
+
+
 def _local_shape(shape: Sequence[int], spec, mesh) -> Tuple[int, ...]:
     """This rank's block shape of a ``shape`` array laid out by ``spec``
-    (one axis name or None per dim) on ``mesh``."""
-    sizes = _axis_sizes(mesh)
-    out = []
-    for d, grp in enumerate(_norm(spec, len(shape))):
-        if not grp:
-            out.append(int(shape[d]))
-            continue
-        _check_single(grp)
-        out.append(_block(sizes[grp[0]], axis_rank(mesh, grp[0]),
-                          int(shape[d]))[1])
-    return tuple(out)
+    (one axis name, a tuple of them, or None per dim) on ``mesh``."""
+    return tuple(_grp_block(mesh, grp, int(shape[d]))[1]
+                 for d, grp in enumerate(_norm(spec, len(shape))))
 
 
-def _check_single(grp: Tuple[str, ...]) -> None:
-    if len(grp) > 1:
-        raise NotImplementedError(
-            f"reshard: a dim sharded over the tuple of axes {grp} runs with "
-            "ROADMAP P13 (tuple axes); its plan compiles")
+def _check_tuple_dims(plan: "ReshardPlan", sizes: Dict[str, int]) -> None:
+    """A dim laid out over a tuple of axes at any point of the plan must
+    divide over their product: the steps then cut it in nested blocks
+    equal to the product's blocks (a ragged dim's nested and flat
+    ceiling blocks differ)."""
+    ndim = len(plan.shape)
+    placements = [plan.src, plan.dst] + [
+        _norm(sp, ndim) for st in plan.steps
+        for sp in (st.in_spec, st.out_spec)]
+    for pl in placements:
+        for d, grp in enumerate(pl):
+            n = int(np.prod([sizes[a] for a in grp])) if grp else 1
+            if len(grp) > 1 and plan.shape[d] % n:
+                raise ValueError(
+                    f"reshard: dim {d} ({plan.shape[d]}) laid out over the "
+                    f"tuple of axes {grp} must divide over their {n} "
+                    f"members")
 
 
 class Resharder:
@@ -559,14 +576,60 @@ class Resharder:
                              x.shape[d])
         return x.narrow(d, start, size)
 
+    def _tuple_group(self, grp: Tuple[str, ...]):
+        """The product group of ``grp`` and ``perm`` (``perm[j]``: the
+        group rank of the member at row-major index j over ``grp``)."""
+        return axes_group(self.mesh, grp), group_order(self.mesh, grp)
+
+    def _gather_grp(self, x: torch.Tensor, grp: Tuple[str, ...], d: int,
+                    extent: int) -> torch.Tensor:
+        """All-gather dim d over the axes ``grp`` (row-major blocks)."""
+        if len(grp) == 1:
+            return self._gather_dim(x, grp[0], d, extent)
+        group, perm = self._tuple_group(grp)
+        full = all_gather_axis(x.movedim(d, 0).contiguous(), group,
+                               tiled=False)
+        full = full[torch.as_tensor(perm, device=x.device)]
+        return full.reshape((-1,) + tuple(full.shape[2:]))[:extent].movedim(
+            0, d)
+
+    def _slice_grp(self, x: torch.Tensor, grp: Tuple[str, ...],
+                   d: int) -> torch.Tensor:
+        start, size = _grp_block(self.mesh, grp, x.shape[d])
+        return x.narrow(d, start, size)
+
+    def _a2a_grp(self, x: torch.Tensor, grp: Tuple[str, ...], split_dim: int,
+                 concat_dim: int) -> torch.Tensor:
+        """Tiled all-to-all over the axes ``grp``: block j of
+        ``split_dim`` to the member at row-major index j over ``grp``,
+        the blocks received concatenated on ``concat_dim`` in that
+        order."""
+        if len(grp) == 1:
+            return all_to_all_axis(x, grp[0], split_dim=split_dim,
+                                   concat_dim=concat_dim, mesh=self.mesh)
+        group, perm = self._tuple_group(grp)
+        m = len(perm)
+        moved = x.movedim(split_dim, 0)
+        blocks = moved.reshape((m, moved.shape[0] // m)
+                               + tuple(moved.shape[1:]))
+        # send to group rank g the block of its index: blocks[argsort(perm)]
+        idx = torch.as_tensor(np.argsort(perm), device=x.device)
+        send = blocks[idx].contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(_wire(recv), _wire(send), group=group)
+        got = recv[torch.as_tensor(perm, device=x.device)]
+        return torch.cat([b.movedim(0, split_dim) for b in got.unbind(0)],
+                         dim=concat_dim)
+
     def _step(self, plan: ReshardPlan, step: PlanStep,
               x: torch.Tensor) -> torch.Tensor:
         if step.op == "all_to_all":
-            return all_to_all_axis(x, step.axes[0], split_dim=step.dim,
-                                   concat_dim=step.src_dim, mesh=self.mesh)
+            return self._a2a_grp(x, step.axes, step.dim, step.src_dim)
         if step.op == "all_gather":
-            return self._gather_dim(x, step.axes[0], step.dim,
-                                    plan.shape[step.dim])
+            # the dim's extent once gathered: its block under the axes left
+            after = _norm(step.out_spec, len(plan.shape))[step.dim]
+            extent = _grp_block(self.mesh, after, plan.shape[step.dim])[1]
+            return self._gather_dim(x, step.axes[0], step.dim, extent)
         if step.op == "slice":
             return self._slice_dim(x, step.axes[0], step.dim)
         if step.op == "ppermute":
@@ -578,10 +641,10 @@ class Resharder:
         if step.op == "device_put":
             for d, grp in enumerate(plan.src):
                 if grp:
-                    x = self._gather_dim(x, grp[0], d, plan.shape[d])
+                    x = self._gather_grp(x, grp, d, plan.shape[d])
             for d, grp in enumerate(plan.dst):
                 if grp:
-                    x = self._slice_dim(x, grp[0], d)
+                    x = self._slice_grp(x, grp, d)
             return x
         raise ReshardError(f"unknown plan op {step.op!r}")   # closed grammar
 
@@ -617,10 +680,8 @@ class Resharder:
                              f"{self._platform}")
         src = _norm(src_spec, x.dim())
         dst = _norm(dst_spec, x.dim())
-        for grp in src + dst:
-            _check_single(grp)
         if global_shape is None:
-            global_shape = [s * (self._sizes[g[0]] if g else 1)
+            global_shape = [s * int(np.prod([self._sizes[a] for a in g]))
                             for s, g in zip(x.shape, src)]
         shape = tuple(int(s) for s in global_shape)
         want = _local_shape(shape, src, self.mesh)
@@ -629,6 +690,7 @@ class Resharder:
                              f"rank's block {want} of {shape} under "
                              f"{_spec_of(src)}")
         plan = self.plan(shape, x.dtype, src, dst)
+        _check_tuple_dims(plan, self._sizes)
         for step in plan.steps:
             ndev = 1
             for a in step.axes:

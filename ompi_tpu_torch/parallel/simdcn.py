@@ -12,8 +12,10 @@ sleep proportional to the bytes they move across a simulated DCN boundary
 The model is a bandwidth-proportional penalty with no contention: its
 only job is to order arms the way a two-tier fabric would.  Its callers
 in the port: the fleet's KV-page migration (``serving/fleet``), charged
-when the fleet axis classifies as DCN.  The decision layer's audit
-charge comes with the hierarchical arms (ROADMAP P13).
+when the fleet axis classifies as DCN; the decision layer's audit
+(``coll/nccl``: a hierarchical arm pays its outer stage's bytes, a flat
+arm the DCN fraction of its ring's wire); and the serving engine's decode
+audit.
 """
 
 from __future__ import annotations
@@ -52,20 +54,23 @@ def us_per_mib() -> float:
         return 0.0
 
 
-def ring_dcn_fraction(mesh, axis: AxisLike) -> float:
+def ring_dcn_fraction(mesh, axis: AxisLike,
+                      kinds: Optional[Dict[str, str]] = None) -> float:
     """Fraction of the axis ring's hops that cross a DCN boundary.
 
     The ring runs over the flattened (row-major) product of the named
     axes, and a hop crosses DCN when the coordinate changes along any
-    DCN-classified axis (hosts, or the sim override).  The first call for
-    a mesh classifies its axes, which is collective over the world
+    DCN-classified axis (hosts, or the sim override).  ``kinds`` is the
+    axes' classification where the caller holds it (a communicator
+    classifies its own axes when it is made); without it the first call
+    for a mesh classifies every axis, which is collective over the world
     (``classify_axes``): every rank makes it, in the same order."""
     key = (id(mesh), axis_tuple(axis), tuple(sorted(sim_dcn_axes())))
     got = _FRAC_CACHE.get(key)
     if got is not None:
         return got
     axes = axis_tuple(axis)
-    kinds = classify_axes(mesh)
+    kinds = classify_axes(mesh) if kinds is None else kinds
     sizes = [axis_size(mesh, a) for a in axes]
     n = int(np.prod(sizes))
     dcn_dims = [k for k, a in enumerate(axes) if kinds.get(a) == "dcn"]

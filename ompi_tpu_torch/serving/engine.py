@@ -45,10 +45,10 @@ embedding) are laid out once at construction by ``parallel/reshard``.
 path (speculative decoding, ``serving/scheduler``'s ``spec_k``).
 
 Replicas of the engine make a fleet (``serving/fleet``).  Left for later
-slices: the trace, perf, traffic and simulated-DCN halves of the audit
-(ROADMAP P16, P13), the static proof of the fused program's wire
-(``verify_decode_program``: ``analysis/commgraph``, P17) and the MoE
-decode path (P12; ``Config`` refuses ``mlp="moe"``).
+slices: the trace, perf and traffic halves of the audit (ROADMAP P16;
+the audit charges the simulated-DCN shim), the static proof of the fused
+program's wire (``verify_decode_program``: ``analysis/commgraph``, P17)
+and the MoE decode path (P12; ``Config`` refuses ``mlp="moe"``).
 
 Prefill runs the prompt at its own length: the reference pads it to a
 power-of-two bucket only to bound its JIT compiles, and the padded
@@ -69,6 +69,7 @@ import torch
 from .. import optim, serving
 from ..device import check_on, resolve_device
 from ..models.transformer import _rms_norm, decode_attention, rope_rows
+from ..parallel import simdcn
 from ..parallel.mesh import classify_axes
 from ..parallel.ring import attention_reference
 from .cache import PagedKVCache
@@ -190,10 +191,20 @@ def _decide_serve_coll(dc, coll: str, nbytes: int, dtype, plane: str,
                        hier_why="decode collectives are single-stage")
 
 
-def _audit_serve_coll(dc, coll: str, arm: str, x: torch.Tensor) -> int:
+def _charge_simdcn(dc, kinds, wire: int) -> None:
+    """The simulated-DCN delay shim (``parallel/simdcn``), when it is on:
+    the DCN fraction of the comm's ring of ``wire`` bytes."""
+    if simdcn.us_per_mib() > 0:
+        simdcn.charge(int(wire * simdcn.ring_dcn_fraction(
+            dc.mesh, dc.axis, kinds=kinds)))
+
+
+def _audit_serve_coll(dc, coll: str, arm: str, x: torch.Tensor,
+                      kinds=None) -> int:
     """ONE audit record per decode collective: the arm's wire bytes
     (``coll/quant.wire_bytes``'s figure for this rank's payload), counted
-    as ``coll_arm_<arm>_count`` and ``coll_wire_bytes`` in the comm's spc."""
+    as ``coll_arm_<arm>_count`` and ``coll_wire_bytes`` in the comm's spc,
+    then the simulated-DCN charge of the comm's axes (``kinds``)."""
     from ..coll.quant import wire_bytes
     nbytes = x.numel() * x.element_size()
     qcoll = "allgather" if coll == "decode_ag" else "reduce_scatter"
@@ -208,6 +219,7 @@ def _audit_serve_coll(dc, coll: str, arm: str, x: torch.Tensor) -> int:
     if spc is not None:
         spc.inc(f"coll_arm_{arm}_count")
         spc.inc("coll_wire_bytes", int(wire))
+    _charge_simdcn(dc, kinds, int(wire))
     return int(wire)
 
 
@@ -256,8 +268,10 @@ class ServingEngine:
         self.dc = dc
         self.cfg = cfg
         self.max_seqs = int(max_seqs)
-        # the plane that keys '<coll>@<plane>' rules rows, fixed here
-        self._plane = classify_axes(dc.mesh, dc.axis)[dc.axis]
+        # the comm's axes' classification and the plane that keys
+        # '<coll>@<plane>' rules rows, fixed here
+        self._kinds = classify_axes(dc.mesh, dc.axis)
+        self._plane = "dcn" if "dcn" in self._kinds.values() else "ici"
 
         def can(w):
             # weight-stationary: store in the compute dtype (the same cast
@@ -328,7 +342,8 @@ class ServingEngine:
         else:
             out = (self.dc.quant.reduce_scatter(x) if arm == "quant"
                    else self.dc.reduce_scatter(x))
-        self.wire_bytes += _audit_serve_coll(self.dc, coll, arm, x)
+        self.wire_bytes += _audit_serve_coll(self.dc, coll, arm, x,
+                                             self._kinds)
         self.dispatches[coll] += 1
         if serving.enabled:
             serving.note_dispatch("eager")
@@ -374,13 +389,14 @@ class ServingEngine:
         wire figure is exact (``ring_schedule``): counted as
         ``coll_arm_<arm>_count`` and ``coll_wire_bytes`` in the comm's spc,
         in ``dispatches`` and ``wire_bytes``, and as a ``"fused"``
-        dispatch in the serve plane.  The trace decision event, the perf
-        sample and the traffic ring-edge charge wait for ROADMAP P16, the
-        simulated-DCN charge for P13."""
+        dispatch in the serve plane; then the simulated-DCN charge.  The
+        trace decision event, the perf sample and the traffic ring-edge
+        charge wait for ROADMAP P16."""
         spc = self.dc.spc
         if spc is not None:
             spc.inc(f"coll_arm_{arm}_count")
             spc.inc("coll_wire_bytes", int(wire))
+        _charge_simdcn(self.dc, self._kinds, int(wire))
         self.dispatches["decode_collmm"] += 1
         self.wire_bytes += int(wire)
         if serving.enabled:

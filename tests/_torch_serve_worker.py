@@ -35,14 +35,19 @@ def _mesh(axes):
 
 def block(x: np.ndarray, sizes: dict, coords: dict, spec) -> np.ndarray:
     """The block of x a rank at ``coords`` holds under ``spec`` (one axis
-    name or None per dim): ceiling-sized blocks, the last short or empty,
-    as a NamedSharding lays out a dim its axis does not divide."""
+    name, a tuple of them, or None per dim): ceiling-sized blocks over the
+    axes' row-major product, the last short or empty, as a NamedSharding
+    lays out a dim its axes do not divide."""
     for d, axis in enumerate(spec):
         if axis is None:
             continue
-        extent, n = x.shape[d], sizes[axis]
+        n, pos = 1, 0
+        for a in (tuple(axis) if isinstance(axis, (tuple, list))
+                  else (axis,)):
+            n, pos = n * sizes[a], pos * sizes[a] + coords[a]
+        extent = x.shape[d]
         c = -(-extent // n)
-        start = min(coords[axis] * c, extent)
+        start = min(pos * c, extent)
         idx = [slice(None)] * x.ndim
         idx[d] = slice(start, start + min(c, extent - start))
         x = x[tuple(idx)]
@@ -88,12 +93,16 @@ def reshard_cases(dc, axes, host, cases, dtype="float32",
 
 
 def reshard_tuple_refused(dc, axes, host):
+    """A dim laid out over a tuple of axes that does not divide over their
+    product: the refusal's message."""
     mesh = _mesh(axes)
     rs = Resharder(mesh)
+    sizes, coords = dict(axes), _coords(mesh)
+    src = (tuple(axes), None)
     try:
-        rs.run(torch.from_numpy(host), (tuple(axes), None), (None, None),
-               global_shape=(host.shape[0] * dc.n, host.shape[1]))
-    except NotImplementedError as e:
+        rs.run(torch.from_numpy(block(host, sizes, coords, src)), src,
+               (None, None), global_shape=host.shape)
+    except ValueError as e:
         return str(e)
     return None
 

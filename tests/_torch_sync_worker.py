@@ -137,8 +137,14 @@ def refusals(dc, cfg_kw):
             tfm.Config(**{**cfg_kw, "dtype": torch.float32,
                           "grad_sync": "nope"}), _mesh({"dp": dc.n}),
             device="cpu"),
+        # a two-tier dpo×dp domain: the bucketed sync builds over it, the
+        # per-leaf quant sync refuses its dpo axis as the reference does
         "dpo": lambda: overlap.make_grad_sync(
-            "bucketed", layout((2, 4), ("dpo", "dp")), loss),
+            "bucketed", _mesh({"dpo": 2, "dp": dc.n // 2}), loss),
+        "quant_dpo": lambda: tfm.make_train_step(
+            tfm.Config(**{**cfg_kw, "dtype": torch.float32,
+                          "grad_sync": "quant"}),
+            _mesh({"dpo": 2, "dp": dc.n // 2}), device="cpu"),
     }
     out = {}
     for name, fn in cases.items():

@@ -6,8 +6,9 @@ package's ``coll/xla``.
   planes × force variables × rules files (``DEVICE_RULES.txt`` and
   temporary ones with plane rows), ``"cuda"`` standing for the JAX
   package's non-CPU platform and ``coll_nccl_*`` for ``coll_xla_*``.
-* The arms and the rules source the port lacks raise, naming their slice;
-  the quant and bidir arms run, decided as the JAX package decides them.
+* The rules source the port lacks raises, naming its slice; the quant,
+  bidir and hierarchical arms are decided as the JAX package decides
+  them.
 * ``tpurun -np 2 --device-plane cpu``: ``comm.coll.<entry>`` on device
   rows selects ``nccl`` (``xla`` there) and gives the JAX package's
   per-rank results and arm counts; the staged arm runs across processes.
@@ -144,40 +145,35 @@ def test_rules_files_parse_alike(rules_files, tmp_path):
     ("quant", "P8"), ("hier", "P13"), ("hier+quant", "P13"),
     ("bidir", "P9")])
 def test_lacking_arms_raise_naming_their_slice(arm, slice_):
-    """Where the JAX package would run an arm the port lacks (a force or a
-    rules row that survives its gates), the module refuses it by name.
-    The arms the slice named by ``slice_`` brought (quant with P8, bidir
-    with P9) now run: the force gives the JAX package's decision and the
-    module accepts the arm."""
-    t_nccl.check_runnable("allreduce", "native")
-    t_nccl.check_runnable("allreduce", "staged")
-    if arm in ("hier", "hier+quant"):
-        with pytest.raises(NotImplementedError, match=slice_):
-            t_nccl.check_runnable("allreduce", arm)
-    else:
-        t_nccl.check_runnable("allreduce", arm)
+    """Every arm the JAX package runs now runs in the port, brought by the
+    slice ``slice_`` names (quant with P8, bidir with P9, hier and
+    hier+quant with P13): a per-entry force gives the JAX package's
+    decision.  The hierarchical arms are gated by the comm's two-tier
+    context: forced on an eligible comm they are picked, forced on a
+    one-axis comm they raise the JAX package's ValueError (ineligible),
+    never native; the module that runs them is held in
+    ``tests/test_torch_hier.py``."""
     coll = "collmm" if arm == "bidir" else "allreduce"
     allowed = (("native", "bidir") if arm == "bidir"
                else ("native", "staged", "quant"))
+    hier = arm in ("hier", "hier+quant")
     _set(f"{coll}_mode", arm)
     try:
-        if arm in ("hier", "hier+quant"):
-            # a per-entry force of hier on a one-axis comm: the JAX
-            # package's own ValueError (ineligible), never native
+        if hier:
             with pytest.raises(ValueError, match="ineligible"):
                 t_nccl.decide_mode("allreduce", 4096, 2, "cuda", [],
                                    allowed, quant_ok=True, hier_ok=False,
                                    hier_why="single-axis comm")
-        else:
-            want = j_xla.decide_mode(coll, 4096, 2, "tpu", [], allowed,
-                                     quant_ok=arm == "quant",
-                                     dtype=np.float32)
-            got = t_nccl.decide_mode(coll, 4096, 2, "cuda", [], allowed,
-                                     quant_ok=arm == "quant",
-                                     dtype=np.float32)
-            assert got == (want[0], _map(want[1]), want[2])
-            assert got[0] == arm
-            t_nccl.check_runnable(coll, got[0])
+        want = j_xla.decide_mode(coll, 4096, 2, "tpu", [], allowed,
+                                 quant_ok=arm != "bidir", dtype=np.float32,
+                                 plane="dcn" if hier else None,
+                                 hier_ok=hier)
+        got = t_nccl.decide_mode(coll, 4096, 2, "cuda", [], allowed,
+                                 quant_ok=arm != "bidir", dtype=np.float32,
+                                 plane="dcn" if hier else None,
+                                 hier_ok=hier)
+        assert got == (want[0], _map(want[1]), want[2])
+        assert got[0] == arm
     finally:
         _clear([f"{coll}_mode"])
 
@@ -298,12 +294,14 @@ PROGRAM = """
     info["quant_counts"] = {{k: ctx.spc._v.get(k, 0) - before.get(k, 0)
                             for k in KEYS + ("coll_wire_bytes",)}}
     if PKG == "port":
+        # a forced hier on this one-axis comm: the JAX package's
+        # ineligibility, never a silent native
         var.registry.set_override("coll_nccl_allreduce_mode", "hier")
         try:
             comm.coll.allreduce(comm, dev_in(data["x"][lo:hi]))
             raise SystemExit("a forced hier ran")
         except ValueError as exc:
-            assert "P13" in str(exc), exc
+            assert "ineligible: single-axis comm" in str(exc), exc
         var.registry.reset_cache()
     if R_PER > 1:
         # the single-card regime: every entry again on the staged arm

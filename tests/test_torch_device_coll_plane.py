@@ -119,12 +119,21 @@ def test_init_device_plane_without_cuda_raises():
 
 def test_cudaless_device_comm_refuses():
     """A comm on a cuda mesh with no CUDA device raises at once, before it
-    touches a group; a tuple of axes waits for P13."""
-    mesh = types.SimpleNamespace(device_type="cuda", mesh_dim_names=("x",))
+    touches a group, whether it spans one axis or a tuple of them (a
+    tuple-axis comm runs: ``tests/test_torch_hier.py``); a tuple out of
+    the mesh's axis order, or naming an axis the mesh lacks, is refused
+    before any group too."""
+    mesh = types.SimpleNamespace(device_type="cuda",
+                                 mesh_dim_names=("x", "y"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         coll.DeviceComm(mesh, "x")
-    with pytest.raises(NotImplementedError, match="P13"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         coll.DeviceComm(mesh, ("x", "y"))
+    cpu = types.SimpleNamespace(device_type="cpu", mesh_dim_names=("x", "y"))
+    with pytest.raises(ValueError, match="axis order"):
+        coll.DeviceComm(cpu, ("y", "x"))
+    with pytest.raises(ValueError, match="distinct axes"):
+        coll.DeviceComm(cpu, ("x", "z"))
 
 
 @pytest.mark.parametrize("device_type,backend,ok", [

@@ -52,7 +52,9 @@ def test_every_module_is_listed():
                  "parallel.collectives", "coll.quant", "parallel.overlap",
                  "ops.collective_matmul", "parallel.reshard", "serving",
                  "serving.cache", "serving.engine", "serving.fused",
-                 "serving.scheduler", "parallel.simdcn", "serving.fleet"):
+                 "serving.scheduler", "parallel.simdcn", "serving.fleet",
+                 "parallel.hierarchy", "parallel.ulysses",
+                 "parallel.pipeline"):
         assert f"ompi_tpu_torch.{name}" in MODULES
 
 

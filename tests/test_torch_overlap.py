@@ -311,12 +311,19 @@ def test_train_steps_match_jax(weights, mode):
 
 def test_validation_errors(world):
     """The reference's refusals: a dp×tp mesh (dp-only), a mesh without
-    dp, an unknown mode, no mesh, an unknown grad_sync; and the port's own
-    for the two-tier dpo axis (ROADMAP P13)."""
+    dp, an unknown mode, no mesh, an unknown grad_sync, the per-leaf quant
+    sync on a dpo×dp mesh; and what the reference builds, the bucketed
+    sync over a two-tier dpo×dp domain (its arms are held in
+    ``tests/test_torch_overlap_hier.py``)."""
     n, pool, _ = world
     jmesh = make_mesh({"dp": 2, "tp": 4})
+    jmesh_dpo = make_mesh({"dpo": 2, "dp": n // 2},
+                          devices=jax.devices()[:n])
+    j_overlap.make_grad_sync("bucketed", jmesh_dpo, lambda p, t: 0.0)
     want = {}
     for name, fn in {
+            "quant_dpo": lambda: jax_tfm.make_train_step(
+                _cfgs(grad_sync="quant")[0], mesh=jmesh_dpo),
             "dp_tp": lambda: j_overlap.make_grad_sync(
                 "bucketed", jmesh, lambda p, t: 0.0),
             "tp_only": lambda: j_overlap.make_grad_sync(
@@ -339,5 +346,4 @@ def test_validation_errors(world):
             # has no shard_map to name after it)
             head = msg.split(":")[0]
             assert text.startswith(head), (name, text, msg)
-        assert got["dpo"][0] == "NotImplementedError"
-        assert "P13" in got["dpo"][1]
+        assert got["dpo"] is None

@@ -294,10 +294,33 @@ def test_two_axis_steps_bitwise(pool4):
     _check(bf, cases[:2], want, axes)
 
 
+TUPLE_CASES = [((("a", "b"), None), (None, None)),
+               ((None, None), (("a", "b"), None)),
+               ((("a", "b"), None), (None, ("a", "b"))),
+               ((("b", "a"), None), (None, None)),
+               ((("b", "a"), None), (("a", "b"), None)),
+               (("a", "b"), (("a", "b"), None)),
+               ((("a", "b"), None), ("b", "a")),
+               ((("b", "a"), None), (None, ("b", "a")))]
+
+
 def test_tuple_axes_refused(pool4):
-    msgs = pool4.run("_torch_serve_worker:reshard_tuple_refused",
-                     {"a": 2, "b": 2}, np.zeros((2, 3), np.float32))
-    assert all(m is not None and "P13" in m for m in msgs)
+    """A dim sharded over a tuple of axes now runs: the blocks, put
+    together, equal the numpy source bitwise and the steps are the
+    reference's plan's (a tuple in either axis order, the all-to-all over
+    the product group included).  A tuple-sharded dim its product does
+    not divide is refused, naming the reason."""
+    axes = {"a": 2, "b": 2}
+    host = np.arange(8 * 12, dtype=np.float32).reshape(8, 12)
+    jmesh = _jax_mesh(axes)
+    want = [jax_compile_plan(host.shape, np.float32, src, dst,
+                             jmesh).describe() for src, dst in TUPLE_CASES]
+    res = pool4.run("_torch_serve_worker:reshard_cases", axes, host,
+                    TUPLE_CASES)
+    _check(res, TUPLE_CASES, host, axes, want)
+    msgs = pool4.run("_torch_serve_worker:reshard_tuple_refused", axes,
+                     np.zeros((6, 3), np.float32))
+    assert all(m is not None and "must divide" in m for m in msgs)
 
 
 # -- convert_params against the reference -------------------------------------

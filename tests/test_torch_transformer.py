@@ -387,13 +387,24 @@ def test_train_step_refusals():
                     c, attn="dense", tp_overlap="fused"), tp2, device="cpu")
         with pytest.raises(ValueError, match="loss_chunk"):
             on_mesh(loss_chunk=8)
-        # sp = 2: the mesh's layout only, no process group behind it
+        # sp = 2: the mesh's layout only, no process group behind it.
+        # flash and dense run there through Ulysses attention
+        # (tests/test_torch_ulysses.py), which splits each rank's h/tp
+        # heads over sp: heads that do not divide are refused, naming it,
+        # before any group is made; so is the fused tp layer on sp > 1
         sp2 = DeviceMesh("cpu", torch.arange(2).reshape(1, 2, 1),
                          mesh_dim_names=("dp", "sp", "tp"),
                          _init_backend=False)
         for attn in ("flash", "dense"):
-            with pytest.raises(NotImplementedError, match="sp=2"):
-                tfm.make_train_step(dataclasses.replace(cfg, attn=attn),
-                                    sp2, device="cpu")
+            odd = dataclasses.replace(cfg, attn=attn, n_heads=3)
+            with pytest.raises(ValueError, match="not divisible by sp=2"):
+                tfm.make_train_step(odd, sp2, device="cpu")
+        sp2tp2 = DeviceMesh("cpu", torch.arange(4).reshape(1, 2, 2),
+                            mesh_dim_names=("dp", "sp", "tp"),
+                            _init_backend=False)
+        with pytest.raises(ValueError, match="sp = 1 only"):
+            tfm.make_train_step(dataclasses.replace(
+                cfg, attn="dense", tp_overlap="fused"), sp2tp2,
+                device="cpu")
     finally:
         dist.destroy_process_group()
