@@ -146,8 +146,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                fleet, every page released; then each once on the host
                clock, tokens/s and ITL, streams equal (fleet_check
                "fleet_of_one" line).
+ 17. moe     — in phase 9's world, after phase 15 (P12a): (a) f32, TF32
+               off, at a narrow width (MOE_NARROW): the MoE forward and
+               loss (attn "dense", the einsum block) on the card against
+               the same code on the CPU, routing flips counted and the
+               logits held to 1e-5 of their largest on the tokens before
+               the first flip, aux and loss to 1e-5 (gates left
+               unnormalised must fail it); moe_block_ep with 8 rows of 64
+               tokens in one process at cf 8 against moe_block on the same
+               tokens within 2e-5, its info and spc wire (the combine's
+               inverse map rolled one token must fail it); the engine at
+               tp 1 with mlp="moe", cf 4, 13a's four requests answered
+               together: tokens equal tfm.greedy's, logits within 1e-4
+               of forward's (its experts in reverse order must fail it)
+               (moe_check lines); (b) bf16, flagship_config() with
+               mlp="moe" (8 experts, top 2, cf 1.25; 2.58 G parameters),
+               batch 4 x 2048: the forward's ms and each layer's routed
+               and dropped tokens (moe_forward), the einsum block's parts
+               (moe_numbers), and the train step under remat "dots",
+               "none" and "full": step ms, tokens/s, MFU by the
+               reference's count and by the FLOPs the step issues, peak
+               bytes, K1/K2/K3/K4 launches of one step exactly 12/6/6/0,
+               6/6/6/0 and 12/6/6/0, a falling loss, one profiled "dots"
+               step (moe_train_numbers, profile lines).
 The last lines are the collectives, mesh, mpi, grad_sync, serve, decode,
-fleet and kernels JSON objects,
+fleet, moe and kernels JSON objects (the kernels line carries each
+kernel's launches in one MoE step, moe_step_launches),
 the nvidia-smi line and {"ok": true, "device": {...}}.  Without CUDA it
 exits 1 and prints no result.
 
@@ -250,7 +274,22 @@ hier_wire_bytes' total, a MAX allreduce refused the hier arm with the
 reference's reason, the simulated-DCN charges (hier: the outer bytes;
 native: the ring's dcn share of its wire), each arm timed at 1, 16 and 64
 MB a rank with the shim off and at HIER_US_PER_MIB (hier_mpi_check,
-hier_mpi_numbers lines, then the hier_mpi line).
+hier_mpi_numbers lines, then the hier_mpi line).  Phase 17c across the
+cards, in a third world of its own (spawned once phase 16's has torn
+down): moe_block_ep on {"ep": 4} with two rows a card against moe_block
+(17a's check and fault); at the flagship's width, 2048 tokens a card,
+moe_block_ep native in bf16 (ms, routed and dropped tokens, wire bytes,
+the exchange's plan) and, with "epo" simulated as the slow plane, native,
+hier and hier+quant on {"epo": 2, "epi": 2} in f32: hier within 1e-4 of
+native, hier+quant within 0.05, inner + outer = wire in each leg, the
+spc's wire the legs' sum, hier+quant's dispatch the hier one and only its
+outer combine smaller (the outer dispatch lane dropped must fail it);
+moe_eval_loss over the four cards against one card's loss_fn within 5e-4
+(gates left unnormalised must fail it); the engine at tp 4 with
+mlp="moe" as in 17a; the MoE decode step at the flagship's width, bf16,
+(8, 512), its ms and each layer's routed tokens (moe_check,
+moe_ep_numbers, moe_numbers lines, then the moe line and its teardown).
+Every teardown line gives the world's process groups.
 """
 
 from __future__ import annotations
@@ -1181,6 +1220,26 @@ def train_path(torch, tfm, optim, attention, cfg, pristine, tokens):
     return per_step
 
 
+def timed_steps(torch, step, params, state, tokens):
+    """TIMED_STEPS chained train steps, each between two CUDA events:
+    the params and state after them, each step's ms, the host's ms to
+    issue each (nothing in a step waits for the card: near the step's ms,
+    it is host-bound) and each step's loss."""
+    times, host, losses = [], [], []
+    for _ in range(TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, tokens)
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    return params, state, times, host, losses
+
+
 def time_train(torch, tfm, optim, cfg, pristine, tokens, card,
                profile=False, mesh=None, log_fn=log) -> dict:
     """Log and return the median ms of TIMED_STEPS chained train steps
@@ -1196,19 +1255,8 @@ def time_train(torch, tfm, optim, cfg, pristine, tokens, card,
     torch.cuda.reset_peak_memory_stats()
     for _ in range(WARMUP_STEPS):
         params, state, _ = step(params, state, tokens)
-    times, host = [], []
-    for _ in range(TIMED_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        params, state, loss = step(params, state, tokens)
-        # the host's time to issue the step (nothing in it waits for the
-        # card): near step_ms, the step is host-bound
-        host.append((time.perf_counter() - t0) * 1e3)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    params, state, times, host, losses = timed_steps(torch, step, params,
+                                                     state, tokens)
     ms = statistics.median(times)
     n_tokens = tokens.shape[0] * (tokens.shape[1] - 1)
     tokens_per_s = n_tokens / ms * 1e3
@@ -1222,7 +1270,7 @@ def time_train(torch, tfm, optim, cfg, pristine, tokens, card,
            "mfu": tokens_per_s * tfm.train_flops_per_token(cfg)
            / (PEAK_BF16_FLOPS * cards),
            "peak_bytes": torch.cuda.max_memory_allocated(),
-           "bytes_before_run": base, "final_loss": float(loss),
+           "bytes_before_run": base, "final_loss": losses[-1],
            "card": card}
     log_fn(row)
     if profile:
@@ -4542,7 +4590,8 @@ def pipeline_phase(torch, np, tfm, card: str, log_fn) -> dict:
 
     def stage_fn(p, x):
         for i in range(per):
-            x = tfm._layer_apply(x, {k: w[i] for k, w in p.items()}, cfg)
+            # a dense layer's router aux is None
+            x, _ = tfm._layer_apply(x, {k: w[i] for k, w in p.items()}, cfg)
         return x
 
     leaves = optim.tree_leaves(mine)
@@ -4569,7 +4618,7 @@ def pipeline_phase(torch, np, tfm, card: str, log_fn) -> dict:
         for m in range(PIPE_MICRO):
             h = mbs[m]
             for lay in layers:
-                h = tfm._layer_apply(h, lay, cfg)
+                h, _ = tfm._layer_apply(h, lay, cfg)
             outs.append(h)
         out = torch.stack(outs)
         loss = (out.float() * cot.float()).sum()
@@ -4808,6 +4857,689 @@ def hier_rank(torch, np) -> None:
     out({"hier_rank0": {"checks": checks, "numbers": numbers}})
     torch.distributed.destroy_process_group()
     runtime.finalize()
+
+
+# -- 17. MoE (P12a): the einsum block, moe_block_ep, the engine's decode -----
+
+# 17a: the narrow f32 MoE model of the checks (TF32 off), MOE_BATCH rows
+MOE_NARROW = dict(vocab=512, d_model=128, n_layers=2, n_heads=8,
+                  head_dim=16, d_ff=256, seq=64, mlp="moe", n_experts=8,
+                  moe_top_k=2)
+MOE_BATCH = 4
+# card against CPU, f32, the same port code and weights: the logits to
+# MOE_REL of their largest value on the tokens before the first routing
+# flip (capacity is first come first served in flat token order and
+# attention is causal, so no earlier token sees a later flip), the aux and
+# the loss to MOE_REL relative; both sides run the same f32 products in
+# other orders (~1e-7 a product), and more than MOE_FLIPS of the routes
+# flipping is a fault, not a tie
+MOE_REL = 1e-5
+MOE_FLIPS = 0.01
+# moe_block_ep against moe_block on the same tokens with nothing dropped:
+# the reference test's bounds (tests/test_moe_ep.py)
+MOE_EP_ATOL = 2e-5
+MOE_AUX_TOL = 1e-5
+# moe_eval_loss against the one-card loss_fn (tests/test_moe_ep.py)
+MOE_EVAL_TOL = 5e-4
+# the engine's capacity factor: C = T, so no token is dropped and the
+# requests of one batch do not meet (tests/test_decode.py:344-375)
+MOE_ENGINE_CF = 4.0
+MOE_ENGINE_NEW = 8
+# 17b: the flagship with mlp="moe" trains at batch MOE_TRAIN_BATCH x 2049
+MOE_TRAIN_BATCH = 4
+# 17c: the hier arms against native on the same cards and tokens: the lane
+# split changes no sum a token sees, only the shapes of the f32 products
+# (1e-4 of the largest value); the int8 lane within the reference test's
+# 0.05 of it
+MOE_HIER_REL = 1e-4
+MOE_QUANT_REL = 0.05
+MOE_SIM_AXES = "epo"
+MOE_DECODE = (8, 512)            # the engine's decode step: max_seqs, context
+
+
+def moe_cfg(tfm, torch, **kw):
+    return tfm.Config(dtype=torch.float32, **{**MOE_NARROW, **kw})
+
+
+@contextlib.contextmanager
+def routing_recorded(moe_mod, out: list):
+    """Each routing of the forward (models.moe._route, the seam every MoE
+    block routes through) records its expert ids in ``out``."""
+    real = moe_mod._route
+
+    def rec(probs, top_k):
+        gate_vals, expert_idx = real(probs, top_k)
+        out.append(expert_idx)
+        return gate_vals, expert_idx
+
+    with planted(moe_mod, "_route", rec):
+        yield
+
+
+def routing_counts(ids, cfg) -> list:
+    """Per layer: the tokens routed and dropped (an expert keeps the first
+    C of its arrivals, so it drops max(0, load - C))."""
+    out = []
+    for layer in ids:
+        t, k = layer.shape
+        cap = max(math.ceil(t * k * cfg.moe_capacity_factor / cfg.n_experts),
+                  k)
+        loads = layer.reshape(-1).bincount(minlength=cfg.n_experts)
+        dropped = int((loads - cap).clamp(min=0).sum())
+        out.append({"routed": t * k - dropped, "dropped": dropped,
+                    "capacity": cap, "max_load": int(loads.max())})
+    return out
+
+
+def gates_not_renormalised(torch, moe_mod):
+    """Planted: the top-k gates left as the raw probabilities."""
+    return planted(moe_mod, "_route",
+                   lambda probs, k: torch.topk(probs, k, dim=-1))
+
+
+def inverse_map_rolled(np, moe_mod):
+    """Planted: the combine's inverse map one token off."""
+    real = moe_mod._lane_arrays
+
+    def rolled(*args, **kw):
+        ln = real(*args, **kw)
+        return ln if ln is None else dict(ln, inv=np.roll(ln["inv"], 1, 1))
+    return planted(moe_mod, "_lane_arrays", rolled)
+
+
+def outer_lane_dropped(moe_mod):
+    """Planted: the hier dispatch's second lane (the cross-plane one)
+    never built, so its tokens are never exchanged."""
+    real, calls = moe_mod._lane_arrays, []
+
+    def drop(*args, **kw):
+        calls.append(1)
+        return None if len(calls) == 2 else real(*args, **kw)
+    return planted(moe_mod, "_lane_arrays", drop)
+
+
+def experts_reversed(torch):
+    """Planted: the engine's local experts laid out in reverse order."""
+    from ompi_tpu_torch.serving.engine import ServingEngine
+    real = ServingEngine._local_experts
+
+    def rev(self, moe):
+        return {k: (v if k == "router" else torch.flip(v, [0]))
+                for k, v in real(self, moe).items()}
+    return planted(ServingEngine, "_local_experts", rev)
+
+
+def moe_forward_rows(tfm, moe_mod, params, tokens, cfg, dev):
+    """The MoE forward's logits, aux, expert ids per layer and loss."""
+    ids = []
+    with routing_recorded(moe_mod, ids):
+        logits, aux = tfm.forward(params, tokens[:, :-1], cfg, device=dev)
+    loss = tfm.loss_fn(params, tokens, cfg, device=dev)
+    return {"logits": logits.reshape(-1, logits.shape[-1]).cpu(),
+            "aux": float(aux), "loss": float(loss),
+            "ids": [i.cpu() for i in ids]}
+
+
+def moe_card_vs_cpu(torch, np, tfm, optim, moe_mod, card, log_fn) -> dict:
+    """17a: the MoE forward and loss on the card against the same code on
+    the CPU (f32, attn "dense", the plain einsum block on both), routing
+    flips counted and the values held where the routing agrees; a gate
+    left unnormalised must fail the check."""
+    cfg = moe_cfg(tfm, torch, attn="dense")
+    cpu = tfm.init_params(torch.Generator().manual_seed(7), cfg, device="cpu")
+    params = optim.tree_map(lambda t: t.cuda(), cpu)
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (MOE_BATCH, cfg.seq + 1)))
+    with torch.inference_mode():
+        want = moe_forward_rows(tfm, moe_mod, cpu, tokens, cfg, "cpu")
+
+        def check(got):
+            flips = [(g != w).any(dim=1) for g, w in zip(got["ids"],
+                                                         want["ids"])]
+            n_flips = sum(int(f.sum()) for f in flips)
+            first = min([int(f.nonzero()[0]) for f in flips if f.any()],
+                        default=len(flips[0]))
+            scale = float(want["logits"].abs().max())
+            err = float((got["logits"][:first] - want["logits"][:first])
+                        .abs().max()) / scale if first else 0.0
+            aux_err = abs(got["aux"] - want["aux"]) / abs(want["aux"])
+            loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            ok = (n_flips <= MOE_FLIPS * sum(f.numel() for f in flips)
+                  and max(err, aux_err, loss_err) < MOE_REL)
+            return ok, {"route_flips": n_flips, "tokens_held": first,
+                        "logits_rel_err": err, "aux_rel_err": aux_err,
+                        "loss_rel_err": loss_err}
+
+        ok, row = check(moe_forward_rows(tfm, moe_mod, params, tokens, cfg,
+                                         "cuda"))
+        with gates_not_renormalised(torch, moe_mod):
+            fault_ok, fault = check(moe_forward_rows(tfm, moe_mod, params,
+                                                     tokens, cfg, "cuda"))
+    out = {"phase": "moe_check", "case": "card_vs_cpu", **row,
+           "bound": MOE_REL, "tokens": int(tokens[:, :-1].numel()),
+           "routing": routing_counts(want["ids"], cfg),
+           "aux": want["aux"], "loss": want["loss"],
+           "fault": {"fault": "gates not renormalised", **fault,
+                     "rejected": not fault_ok}, "card": card}
+    log_fn(out)
+    if not ok or fault_ok:
+        raise AssertionError(f"17a: the MoE forward, card against CPU: {out}")
+    return out
+
+
+def moe_ep_check(torch, np, moe_mod, dc, rows: int, card, log_fn) -> dict:
+    """``moe_block_ep`` over ``dc`` with ``rows`` rows of 64 tokens at
+    capacity factor 8 (nothing dropped), f32, narrow: every row's mixture
+    against ``moe_block`` on the same tokens (MOE_EP_ATOL), the aux, the
+    info and the spc's wire; the combine's inverse map rolled one token
+    must fail the check."""
+    from ompi_tpu_torch import spc as spc_mod
+    from ompi_tpu_torch.models.moe import _all_rows
+    c = MOE_NARROW
+    E, k, t, d = c["n_experts"], c["moe_top_k"], 64, c["d_model"]
+    gen = torch.Generator().manual_seed(9)
+    full = {name: w.cuda() for name, w in moe_mod.init_moe_params(
+        gen, d, c["d_ff"], E, device="cpu").items()}
+    h = torch.randn((rows, t, d), generator=gen).cuda()
+    local = moe_mod.local_experts(full, dc)
+    r = rows // dc.n
+    mine = h[dc.pos * r:(dc.pos + 1) * r]
+    want, want_aux = moe_mod.moe_block(h.reshape(1, rows * t, d), full, E,
+                                       k, 8.0)
+    want = want.reshape(rows, t, d)
+
+    def run():
+        dc.spc = spc_mod.Counters()
+        out, aux, info = moe_mod.moe_block_ep(dc, mine, local, E, k, 8.0)
+        err = float((_all_rows(dc, out) - want).abs().max())
+        return err, float(aux), info, dc.spc.get("coll_wire_bytes")
+
+    err, aux, info, wire = run()
+    with inverse_map_rolled(np, moe_mod):
+        fault_err = run()[0]
+    ok = (err < MOE_EP_ATOL and abs(aux - float(want_aux)) < MOE_AUX_TOL
+          and info["dropped_tokens"] == 0
+          and info["routed_tokens"] == rows * t * k
+          and wire == info["dispatch"]["wire_bytes"]
+          + info["combine"]["wire_bytes"])
+    out = {"phase": "moe_check", "case": "block_ep_vs_block",
+           "rows": rows, "processes": dc.n, "tokens_per_row": t,
+           "max_abs_err": err, "bound": MOE_EP_ATOL,
+           "aux_err": abs(aux - float(want_aux)), "info": info,
+           "spc_wire_bytes": wire, "a2av": dict(dc._last_a2av),
+           "fault": {"fault": "inverse map rolled one token",
+                     "max_abs_err": fault_err,
+                     "rejected": not fault_err < MOE_EP_ATOL},
+           "card": card}
+    log_fn(out)
+    if not ok or fault_err < MOE_EP_ATOL:
+        raise AssertionError(f"moe_block_ep against moe_block: {out}")
+    return out
+
+
+def moe_engine_check(torch, np, tfm, world: int, card, log_fn) -> dict:
+    """The engine with mlp="moe" on a {"tp": world} mesh, f32, narrow, at
+    MOE_ENGINE_CF: 13a's four requests answered together, the streams
+    equal ``tfm.greedy``'s one request at a time (attn "flash", the
+    einsum block) and every step's logits within SERVE_REL of forward's;
+    the engine's experts laid out in reverse must fail the check."""
+    from ompi_tpu_torch import spc as spc_mod
+    from ompi_tpu_torch.parallel import DeviceComm
+    cfg = moe_cfg(tfm, torch, attn="flash",
+                  moe_capacity_factor=MOE_ENGINE_CF)
+    params = tfm.init_params(torch.Generator().manual_seed(8), cfg)
+    prompts = serve_prompts(np, cfg.vocab)
+    want_streams = [tfm.greedy(params, [p], MOE_ENGINE_NEW, cfg)[0]
+                    for p in prompts]
+    want_rows = [torch.stack([tfm.forward(params, [p + s[:t]], cfg)[0][0, -1]
+                              for t in range(len(s))])
+                 for p, s in zip(prompts, want_streams)]
+    mesh = world_mesh({"tp": world})
+    dc = DeviceComm(mesh, "tp")
+    dc.spc = spc_mod.Counters()
+    train = tfm.shard_params(params, mesh, cfg)
+    pages = serve_pages(max(SERVE_PROMPT_LENS) + MOE_ENGINE_NEW)
+    check = f32_check(want_streams, want_rows)
+    eng = serve_engine(tfm, dc, train, cfg, SERVE_SEQS, pages)
+    streams, rows = serve_requests(torch, np, eng, prompts, MOE_ENGINE_NEW)
+    ok, err = check(streams, rows)
+    with experts_reversed(torch):
+        bad = serve_engine(tfm, dc, train, cfg, SERVE_SEQS, pages)
+    f_streams, f_rows = serve_requests(torch, np, bad, prompts,
+                                       MOE_ENGINE_NEW)
+    fault_ok, fault_err = check(f_streams, f_rows)
+    out = {"phase": "moe_check", "case": f"engine_tp{world}_f32",
+           "requests": len(prompts), "new_tokens": MOE_ENGINE_NEW,
+           "capacity_factor": MOE_ENGINE_CF,
+           "tokens_equal": streams == want_streams, "max_rel_err": err,
+           "bound": SERVE_REL,
+           "fault": {"fault": "experts in reverse order",
+                     "max_rel_err": fault_err,
+                     "tokens_equal": f_streams == want_streams,
+                     "rejected": not fault_ok}, "card": card}
+    log_fn(out)
+    if not ok or fault_ok:
+        raise AssertionError(f"the MoE engine against greedy: {out}")
+    return out
+
+
+def moe_issued_flops_per_token(cfg, tokens: int) -> float:
+    """The FLOPs a MoE train step issues a token (forward + backward, 3 x
+    the forward's products; remat's recompute not counted, as in
+    train_flops_per_token): the attention and logits products of the
+    reference's count, the router, both one-hot einsums (2·T·E·C·d each)
+    and the experts over their whole capacity (6·E·C·d·f), where
+    train_flops_per_token counts one dense MLP a token."""
+    h = cfg.n_heads * cfg.head_dim
+    d, f, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.moe_top_k
+    cap = max(math.ceil(tokens * k * cfg.moe_capacity_factor / E), k)
+    layer = (2 * tokens * (d * 3 * h + h * d + d * E)
+             + 2 * 2 * tokens * E * cap * d + 6 * E * cap * d * f
+             + 2 * cfg.seq * h * tokens)                  # causal attention
+    fwd = cfg.n_layers * layer + 2 * tokens * d * cfg.vocab
+    return 3.0 * fwd / tokens
+
+
+def moe_parts_ms(torch, moe_mod, cfg, tokens: int, card, log_fn) -> dict:
+    """Where the einsum block's forward time goes at the flagship's shapes
+    (bf16): the whole block, and apart from it the dispatch einsum, the
+    three expert products over (E, C) rows and the combine einsum on a
+    one-hot of the same shape; the rest of the block (the router, the
+    one-hot build, the weights' casts) by difference."""
+    d, f, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.moe_top_k
+    cap = max(math.ceil(tokens * k * cfg.moe_capacity_factor / E), k)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    p = moe_mod.init_moe_params(gen, d, f, E)
+    h = torch.randn((1, tokens, d), generator=gen, device="cuda",
+                    dtype=cfg.dtype)
+    block_ms = median_ms(lambda: moe_mod.moe_block(
+        h, p, E, k, cfg.moe_capacity_factor), n=10)
+    onehot = torch.zeros((tokens, E, cap), device="cuda", dtype=cfg.dtype)
+    onehot[torch.arange(tokens, device="cuda"),
+           torch.randint(E, (tokens,), generator=gen, device="cuda"),
+           torch.randint(cap, (tokens,), generator=gen, device="cuda")] = 1
+    x = h[0]
+    w = {n: p[n].to(cfg.dtype) for n in ("w_gate", "w_up", "w_down")}
+    ein = torch.einsum("tec,td->ecd", onehot, x)
+
+    def experts():
+        g = torch.nn.functional.silu(torch.einsum("ecd,edf->ecf", ein,
+                                                  w["w_gate"]))
+        u = torch.einsum("ecd,edf->ecf", ein, w["w_up"])
+        return torch.einsum("ecf,efd->ecd", g * u, w["w_down"])
+
+    eout = experts()
+    row = {"phase": "moe_numbers", "metric": "block_parts_fwd",
+           "tokens": tokens, "capacity": cap, "block_ms": block_ms,
+           "dispatch_einsum_ms": median_ms(lambda: torch.einsum(
+               "tec,td->ecd", onehot, x), n=10),
+           "experts_ms": median_ms(experts, n=10),
+           "combine_einsum_ms": median_ms(lambda: torch.einsum(
+               "tec,ecd->td", onehot, eout), n=10),
+           "einsum_flops": 2 * tokens * E * cap * d,
+           "experts_flops": 6 * E * cap * d * f, "card": card}
+    row["rest_ms"] = block_ms - (row["dispatch_einsum_ms"]
+                                 + row["experts_ms"]
+                                 + row["combine_einsum_ms"])
+    log_fn(row)
+    del p, h, onehot, ein, eout, w
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_time_train(torch, tfm, optim, attention, cfg, tokens, card,
+                   log_fn, profile=False) -> dict:
+    """The MoE train step at full width from the seed-0 weights: K1/K2/K3/K4
+    launches of one step counted (the counts set to 0 just before it),
+    then the median ms of TIMED_STEPS chained steps after WARMUP_STEPS by
+    CUDA events, tokens/s, MFU by the reference's count and by the FLOPs
+    the step issues, and the peak memory."""
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    init_opt, step = tfm.make_train_step(cfg, learning_rate=1e-3)
+    state = init_opt(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = cfg.n_layers
+    zero_counts(attention)
+    params, state, loss = step(params, state, tokens)
+    torch.cuda.synchronize()
+    per_step = launch_counts(attention)
+    want = (2 * n if cfg.remat != "none" else n, n, n, 0)
+    losses = [float(loss)]
+    for _ in range(WARMUP_STEPS - 1):
+        params, state, loss = step(params, state, tokens)
+        losses.append(float(loss))
+    params, state, times, host, timed = timed_steps(torch, step, params,
+                                                    state, tokens)
+    losses += timed
+    ms = statistics.median(times)
+    n_tokens = tokens.shape[0] * (tokens.shape[1] - 1)
+    tokens_per_s = n_tokens / ms * 1e3
+    issued = moe_issued_flops_per_token(cfg, n_tokens)
+    row = {"phase": "moe_train_numbers", "remat": cfg.remat,
+           "batch": list(tokens.shape), "step_ms": ms, "step_ms_all": times,
+           "host_issue_ms": statistics.median(host),
+           "tokens_per_s": tokens_per_s,
+           "mfu_reference_count": tokens_per_s
+           * tfm.train_flops_per_token(cfg) / PEAK_BF16_FLOPS,
+           "flops_per_token_reference_count": tfm.train_flops_per_token(cfg),
+           "mfu_issued": tokens_per_s * issued / PEAK_BF16_FLOPS,
+           "flops_per_token_issued": issued,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "k1_k2_k3_k4_launches_per_step": list(per_step),
+           "losses": losses, "card": card}
+    log_fn(row)
+    if per_step != want:
+        raise AssertionError(f"K1/K2/K3/K4 launches in one MoE train step "
+                             f"({cfg.remat}): {per_step}, want {want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE train losses on one repeated batch "
+                             f"({cfg.remat}): {losses}")
+    if profile:
+        def one_step():
+            nonlocal params, state
+            params, state, _ = step(params, state, tokens)
+        row["profile"] = profile_run(torch, one_step, ms, card,
+                                     "moe_train_step", {
+                                         "K1 partials_sm90": want[0],
+                                         "K2 dkdv": n, "K3 dq": n,
+                                         "K4 attention_sm90": 0},
+                                     log_fn=log_fn)
+    del params, state
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_flagship(torch, np, tfm, optim, attention, moe_mod, card,
+                 log_fn) -> dict:
+    """17b: the flagship with mlp="moe" (8 experts, top 2, cf 1.25) at full
+    width, bf16: the forward's ms and each layer's routed and dropped
+    tokens, the block's parts, then the train step under remat "dots",
+    "none" and "full"."""
+    cfg = dataclasses.replace(tfm.flagship_config(), mlp="moe")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (MOE_TRAIN_BATCH, cfg.seq + 1))).cuda()
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    n_params = sum(p.numel() for p in optim.tree_leaves(params))
+    n_expert = sum(w.numel() for layer in params["layers"]
+                   for name, w in layer["moe"].items() if name != "router")
+    with torch.inference_mode():
+        ids = []
+        with routing_recorded(moe_mod, ids):
+            logits, aux = tfm.forward(params, tokens[:, :-1], cfg)
+        torch.cuda.synchronize()
+        if logits.shape != (MOE_TRAIN_BATCH, cfg.seq, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()) or \
+                not math.isfinite(float(aux)):
+            raise AssertionError(f"MoE logits {tuple(logits.shape)}, aux "
+                                 f"{float(aux)}")
+        del logits
+        fwd_ms = median_ms(lambda: tfm.forward(params, tokens[:, :-1], cfg),
+                           n=5, warmup=1)
+    n_tokens = MOE_TRAIN_BATCH * cfg.seq
+    fwd = {"phase": "moe_forward", "config": dataclasses.asdict(cfg)
+           | {"dtype": str(cfg.dtype)}, "batch": [MOE_TRAIN_BATCH, cfg.seq],
+           "n_params": n_params, "n_expert_params": n_expert,
+           "forward_ms": fwd_ms, "forward_tokens_per_s": n_tokens / fwd_ms
+           * 1e3, "aux": float(aux),
+           "routing_per_layer": routing_counts(ids, cfg), "card": card}
+    log_fn(fwd)
+    del params, ids
+    torch.cuda.empty_cache()
+    parts = moe_parts_ms(torch, moe_mod, cfg, n_tokens, card, log_fn)
+    train = [moe_time_train(torch, tfm, optim, attention,
+                            dataclasses.replace(cfg, remat=remat), tokens,
+                            card, log_fn, profile=remat == "dots")
+             for remat in ("dots", "none", "full")]
+    return {"forward": fwd, "parts": parts, "train": train}
+
+
+def moe_one_card(torch, np, tfm, optim, attention, card, log_fn=log) -> dict:
+    """Phase 17 on one card (17a, 17b), in phase 9's one-process world."""
+    from ompi_tpu_torch.models import moe as moe_mod
+    from ompi_tpu_torch.parallel import DeviceComm
+    out = {"card_vs_cpu": moe_card_vs_cpu(torch, np, tfm, optim, moe_mod,
+                                          card, log_fn)}
+    torch.cuda.empty_cache()
+    dc = DeviceComm(world_mesh({"x": 1}), "x")
+    out["block_ep"] = moe_ep_check(torch, np, moe_mod, dc, 8, card, log_fn)
+    out["engine"] = moe_engine_check(torch, np, tfm, 1, card, log_fn)
+    torch.cuda.empty_cache()
+    out["flagship"] = moe_flagship(torch, np, tfm, optim, attention,
+                                   moe_mod, card, log_fn)
+    return out
+
+
+def moe_ep_numbers(torch, np, moe_mod, dc, cfg, dtype, arms, card,
+                   log_fn) -> dict:
+    """``moe_block_ep`` at the flagship's width over ``dc`` (one row of
+    2048 tokens a card, cf 1.25) for each arm of ``arms`` (name -> the
+    force variables): each arm's host-clock ms a call (it ends in a
+    device sync), its info and spc wire, the last exchange's plan, and
+    its mixture (for the checks)."""
+    from ompi_tpu_torch import spc as spc_mod
+    from ompi_tpu_torch.core import var
+    d, f, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.moe_top_k
+    t = MOE_TRAIN_BATCH * cfg.seq // dc.n
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    full = moe_mod.init_moe_params(gen, d, f, E)
+    local = {n: (w if n == "router" else w.to(dtype))
+             for n, w in moe_mod.local_experts(full, dc).items()}
+    del full
+    h = torch.randn((dc.n, t, d), generator=gen, device="cuda",
+                    dtype=dtype)[dc.pos:dc.pos + 1]
+    out = {}
+    for arm, force in arms.items():
+        for name, value in force.items():
+            var.registry.set_cli(name, value)
+        try:
+            dc.spc = spc_mod.Counters()
+            mix, aux, info = moe_mod.moe_block_ep(dc, h, local, E, k,
+                                                  cfg.moe_capacity_factor)
+            wire = dc.spc.get("coll_wire_bytes")
+            a2av = dict(dc._last_a2av)
+
+            def call():
+                moe_mod.moe_block_ep(dc, h, local, E, k,
+                                     cfg.moe_capacity_factor)
+                torch.cuda.synchronize()
+            ms = timed_ms(torch, call, n=5, warmup=1)
+        finally:
+            for name in force:
+                var.registry.clear_cli(name)
+        row = {"phase": "moe_ep_numbers", "arm": arm,
+               "axes": dc.axis, "dtype": str(dtype), "tokens_per_card": t,
+               "ms": ms, "tokens_per_s": t * dc.n / ms * 1e3,
+               "info": info, "spc_wire_bytes": wire, "a2av": a2av,
+               "card": card}
+        log_fn(row)
+        out[arm] = {"row": row, "mix": mix.float()}
+    return out
+
+
+def moe_hier_check(rows: dict) -> dict:
+    """The hier arms against native on the same tokens, and their
+    bookkeeping: inner + outer = wire in each leg, the spc's wire the two
+    legs', hier+quant's dispatch the hier dispatch and only its outer
+    combine smaller."""
+    native = rows["native"]["mix"]
+    scale = float(native.abs().max())
+    err = {a: float((rows[a]["mix"] - native).abs().max()) / scale
+           for a in ("hier", "hier+quant")}
+    info = {a: rows[a]["row"]["info"] for a in rows}
+    conserve = all(
+        info[a][leg]["inner_bytes"] + info[a][leg]["outer_bytes"]
+        == info[a][leg]["wire_bytes"]
+        and rows[a]["row"]["spc_wire_bytes"] == info[a]["dispatch"][
+            "wire_bytes"] + info[a]["combine"]["wire_bytes"]
+        for a in info for leg in ("dispatch", "combine"))
+    h, q = info["hier"], info["hier+quant"]
+    split = (h["dispatch"]["arm"] == h["combine"]["arm"] == "hier"
+             and h["dispatch"]["outer_bytes"] > 0
+             and q["dispatch"] == h["dispatch"]
+             and q["combine"]["arm"] == "hier+quant"
+             and q["combine"]["inner_bytes"] == h["combine"]["inner_bytes"]
+             and q["combine"]["outer_bytes"] < h["combine"]["outer_bytes"])
+    ok = (err["hier"] < MOE_HIER_REL and err["hier+quant"] < MOE_QUANT_REL
+          and conserve and split)
+    return {"ok": ok, "rel_err": err, "conserved": conserve,
+            "lanes_split": split}
+
+
+def moe_multi_card(torch, np, tfm, world: int, card: str, log_fn) -> dict:
+    """17c across the cards (module docstring)."""
+    import os
+    from ompi_tpu_torch.models import moe as moe_mod
+    from ompi_tpu_torch.parallel import DeviceComm
+    from ompi_tpu_torch.parallel.mesh import SIM_DCN_ENV
+    cfg = dataclasses.replace(tfm.flagship_config(), mlp="moe")
+    ep = DeviceComm(world_mesh({"ep": world}), "ep")
+    out = {"block_ep": moe_ep_check(torch, np, moe_mod, ep, 2 * world,
+                                    card, log_fn)}
+    out["native"] = moe_ep_numbers(torch, np, moe_mod, ep, cfg,
+                                   torch.bfloat16, {"native": {}}, card,
+                                   log_fn)["native"]["row"]
+    torch.cuda.empty_cache()
+    # hier and hier+quant on {"epo": 2, "epi": world/2}, epo the simulated
+    # slow plane, f32 (the reference's combine quantizes float32, not
+    # bfloat16)
+    os.environ[SIM_DCN_ENV] = MOE_SIM_AXES
+    try:
+        two = DeviceComm(world_mesh({"epo": 2, "epi": world // 2}),
+                         ("epo", "epi"))
+        force = lambda arm: {"coll_nccl_moe_dispatch_mode": arm,
+                             "coll_nccl_moe_combine_mode": arm}
+        arms = moe_ep_numbers(torch, np, moe_mod, two, cfg, torch.float32,
+                              {"native": force("native"),
+                               "hier": force("hier"),
+                               "hier+quant": force("hier+quant")},
+                              card, log_fn)
+        check = moe_hier_check(arms)
+        with outer_lane_dropped(moe_mod):
+            faulty = moe_ep_numbers(torch, np, moe_mod, two, cfg,
+                                    torch.float32, {"hier": force("hier")},
+                                    card, lambda row: None)
+        fault = moe_hier_check({**arms, "hier": faulty["hier"]})
+    finally:
+        os.environ.pop(SIM_DCN_ENV, None)
+    row = {"phase": "moe_check", "case": "hier_arms", **{
+        k: v for k, v in check.items() if k != "ok"},
+        "bounds": {"hier": MOE_HIER_REL, "hier+quant": MOE_QUANT_REL},
+        "fault": {"fault": "the outer dispatch lane dropped",
+                  "rel_err": fault["rel_err"], "rejected": not fault["ok"]},
+        "card": card}
+    log_fn(row)
+    if not check["ok"] or fault["ok"]:
+        raise AssertionError(f"17c: the hier arms: {row}")
+    out["hier"] = row
+    del arms, faulty
+    torch.cuda.empty_cache()
+    out["eval_loss"] = moe_eval_check(torch, np, tfm, moe_mod, ep, card,
+                                      log_fn)
+    out["engine"] = moe_engine_check(torch, np, tfm, world, card, log_fn)
+    torch.cuda.empty_cache()
+    out["decode"] = moe_decode_numbers(torch, np, tfm, moe_mod, world, cfg,
+                                       card, log_fn)
+    return out
+
+
+def moe_eval_check(torch, np, tfm, moe_mod, dc, card, log_fn) -> dict:
+    """``moe_eval_loss`` over ``dc`` (one row a card; f32, narrow,
+    attn "flash", cf 8) against the one-card ``loss_fn`` on the same
+    weights and batch (MOE_EVAL_TOL); gates left unnormalised in the
+    expert-parallel path must fail it."""
+    cfg = moe_cfg(tfm, torch, attn="flash", moe_capacity_factor=8.0)
+    params = tfm.init_params(torch.Generator().manual_seed(11), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab, (MOE_BATCH, cfg.seq + 1))).cuda()
+    with torch.inference_mode():
+        want = float(tfm.loss_fn(params, tokens, cfg))
+    local = dict(params, layers=[
+        dict(layer, moe=moe_mod.local_experts(layer["moe"], dc))
+        for layer in params["layers"]])
+    got = float(tfm.moe_eval_loss(dc, local, tokens, cfg))
+    with gates_not_renormalised(torch, moe_mod):
+        bad = float(tfm.moe_eval_loss(dc, local, tokens, cfg))
+    row = {"phase": "moe_check", "case": "eval_loss", "processes": dc.n,
+           "loss": got, "one_card_loss": want, "abs_err": abs(got - want),
+           "bound": MOE_EVAL_TOL,
+           "fault": {"fault": "gates not renormalised",
+                     "abs_err": abs(bad - want),
+                     "rejected": not abs(bad - want) < MOE_EVAL_TOL},
+           "card": card}
+    log_fn(row)
+    if not abs(got - want) < MOE_EVAL_TOL or abs(bad - want) < MOE_EVAL_TOL:
+        raise AssertionError(f"moe_eval_loss against loss_fn: {row}")
+    return row
+
+
+def moe_decode_numbers(torch, np, tfm, moe_mod, world: int, cfg, card,
+                       log_fn) -> dict:
+    """The MoE engine's decode step at the flagship's width, bf16, on a
+    {"tp": world} mesh, every slot of MOE_DECODE at its context: the
+    host-clock ms a step and the tokens each MoE layer routed in it."""
+    from ompi_tpu_torch.parallel import DeviceComm
+    max_seqs, context = MOE_DECODE
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    mesh = world_mesh({"tp": world})
+    train = tfm.shard_params(params, mesh, cfg)
+    del params
+    torch.cuda.empty_cache()
+    eng = serve_engine(tfm, DeviceComm(mesh, "tp"), train, cfg, max_seqs,
+                       serve_pages(context + 1))
+    del train
+    for _ in range(max_seqs):
+        eng.cache.admit(context, 1)
+    tokens = np.arange(max_seqs, dtype=np.int64)
+    positions = np.full(max_seqs, context - 1, np.int64)
+    step = lambda: eng.decode_step(tokens, positions)
+    ms = timed_ms(torch, step)
+    infos = []
+    real = moe_mod.moe_block_ep
+
+    def rec(*args, **kw):
+        res = real(*args, **kw)
+        infos.append(res[2])
+        return res
+    with planted(moe_mod, "moe_block_ep", rec):
+        step()
+    row = {"phase": "moe_numbers", "metric": "decode_step", "cards": world,
+           "max_seqs": max_seqs, "context": context, "step_ms": ms,
+           "tokens_per_s": max_seqs / ms * 1e3,
+           "routed_per_layer": [i["routed_tokens"] for i in infos],
+           "dropped_per_layer": [i["dropped_tokens"] for i in infos],
+           "wire_per_layer": [i["dispatch"]["wire_bytes"]
+                              + i["combine"]["wire_bytes"] for i in infos],
+           "card": card}
+    log_fn(row)
+    if len(infos) != cfg.n_layers:
+        raise AssertionError(f"a MoE decode step ran moe_block_ep "
+                             f"{len(infos)} times, want {cfg.n_layers}")
+    del eng
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_card_worker(rank: int, world: int, init_method: str,
+                    card: str) -> None:
+    """One rank of phase 17c across the cards, in an NCCL world of its
+    own (phase 16's reason)."""
+    import numpy as np
+    import torch
+    from ompi_tpu_torch.models import transformer as tfm
+    from ompi_tpu_torch.parallel import init_device_plane
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_device_plane(rank=rank, world_size=world, init_method=init_method,
+                      timeout_s=600)
+    out = log if rank == 0 else (lambda obj: None)
+    moe = moe_multi_card(torch, np, tfm, world, card, out)
+    out({"moe": moe})
+    leave_world(torch, out)
 
 
 # -- 11. the MPI surface: runtime, comm and coll/nccl under tpurun ----------
@@ -5344,15 +6076,18 @@ def leave_world(torch, log_fn, timeout_s: float = 60.0) -> None:
     once, without Python's own shutdown, which would wait on it."""
     import os
     import threading
+    from torch.distributed import distributed_c10d
     torch.cuda.synchronize()
     torch.distributed.barrier()
+    # the process groups the world holds, its own included
+    groups = len(distributed_c10d._world.pg_map)
     t0 = time.perf_counter()
     done = threading.Thread(target=torch.distributed.destroy_process_group,
                             daemon=True)
     done.start()
     done.join(timeout_s)
     row = {"phase": "teardown", "destroyed": not done.is_alive(),
-           "seconds": time.perf_counter() - t0}
+           "seconds": time.perf_counter() - t0, "process_groups": groups}
     log_fn(row)
     if done.is_alive():
         print(f"chip_smoke: the world's teardown did not return in "
@@ -5365,8 +6100,8 @@ def leave_world(torch, log_fn, timeout_s: float = 60.0) -> None:
 def multi_card_main() -> int:
     """Phases 9, 10c, 12d-e, 13e, 14c and 15b-d across the host's
     MULTI_CARDS cards, one spawned process a card; phase 16 (but 16b) in
-    a second such world; then phases 11 and 16b under tpurun, one rank
-    bound to each card."""
+    a second such world and phase 17c in a third; then phases 11 and 16b
+    under tpurun, one rank bound to each card."""
     import os
     import tempfile
     import torch
@@ -5392,6 +6127,10 @@ def multi_card_main() -> int:
         mp.spawn(hier_card_worker, args=(
             world, "file://" + os.path.join(tmp, "store16"), card,
             sync_path), nprocs=world)
+        # 17c: MoE expert parallelism, a world of its own
+        mp.spawn(moe_card_worker, args=(
+            world, "file://" + os.path.join(tmp, "store17"), card),
+            nprocs=world)
     # 11. the MPI surface across the cards, one rank bound to each
     log({"mpi": mpi_phase(1, world, ["allreduce", "bcast", "allgather",
                                      "alltoall"], True,
@@ -5692,6 +6431,15 @@ def main() -> int:
     # 15. the serving fleet in the same world: a fleet of one replica
     # against the bare scheduler
     fleet_row = fleet_one_card(torch, np, tfm, attention, card)
+    torch.cuda.empty_cache()
+
+    # 17. MoE in the same world: the einsum block card against CPU,
+    # moe_block_ep against moe_block, the MoE engine against greedy, then
+    # the flagship with mlp="moe" at full width (forward, train step)
+    moe_row = moe_one_card(torch, np, tfm, optim, attention, card)
+    # each kernel's launches in one MoE train step, by remat mode
+    moe_steps = [{r["remat"]: r["k1_k2_k3_k4_launches_per_step"][i]
+                  for r in moe_row["flagship"]["train"]} for i in range(4)]
     torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
 
@@ -5728,11 +6476,13 @@ def main() -> int:
     log({"serve": serve_row})
     log({"decode": decode_row})
     log({"fleet": fleet_row})
+    log({"moe": moe_row})
     log({"kernels": [
         {"name": "flash_partials", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_partials.cu",
          "replaces": "ompi_tpu/ops/attention.py:248",
-         "launches": per_step[0], "max_abs_err": path_err, "ms": k1_ms,
+         "launches": per_step[0], "moe_step_launches": moe_steps[0],
+         "max_abs_err": path_err, "ms": k1_ms,
          "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": sdpa_ms, "tflops": flops / k1_ms / 1e9,
          "bound_share": k1_bound / k1_ms,
@@ -5741,7 +6491,7 @@ def main() -> int:
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ompi_tpu/ops/attention.py:381",
-         "launches": per_step[1],
+         "launches": per_step[1], "moe_step_launches": moe_steps[1],
          "max_abs_err": max(bwd_err["dk"], bwd_err["dv"]), "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": sdpa_bwd_ms, "flash_mha_bwd_ms": mha_bwd_ms,
@@ -5749,7 +6499,8 @@ def main() -> int:
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "ompi_tpu/ops/attention.py:436",
-         "launches": per_step[2], "max_abs_err": bwd_err["dq"],
+         "launches": per_step[2], "moe_step_launches": moe_steps[2],
+         "max_abs_err": bwd_err["dq"],
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": sdpa_bwd_ms,
          "flash_mha_bwd_ms": mha_bwd_ms, "tflops": k3_flops / k3_ms / 1e9,
@@ -5761,6 +6512,7 @@ def main() -> int:
          "replaces": "ompi_tpu/ops/attention.py:139",
          "launches": k4_rows[0]["launches"],
          "launches_per_train_step": per_step[3],
+         "moe_step_launches": moe_steps[3],
          "max_abs_err": k4_rows[0]["max_abs_err"], "ms": k4_rows[0]["k4_ms"],
          "plain_ms": k4_rows[0]["plain_ms"],
          "bound_ms": k4_rows[0]["bound_ms"],
@@ -5781,6 +6533,6 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multi-card", action="store_true",
                     help="run only phases 9, 10c, 11, 12d-f, 13e, 14c, "
-                         "15b-d and 16, across every visible card")
+                         "15b-d, 16 and 17c, across every visible card")
     ns = ap.parse_args()
     sys.exit(multi_card_main() if ns.multi_card else main())

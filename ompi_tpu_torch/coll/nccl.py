@@ -148,6 +148,19 @@ _var.register("coll", "nccl", "decode_rs_mode", "", type=str, level=3,
               help="Force the serving decode reduce-scatter arm "
                    "(native|quant; empty = auto via DEVICE_RULES "
                    "decode_rs rows): the logits-sum reduce half.")
+_var.register("coll", "nccl", "moe_dispatch_mode", "", type=str, level=3,
+              help="Force the MoE token-dispatch exchange arm (native|"
+                   "hier|hier+quant; empty = auto via DEVICE_RULES "
+                   "moe_dispatch rows). hier splits the ragged exchange "
+                   "into same-outer-group and cross-DCN lanes; dispatch "
+                   "payloads are never quantized (hier+quant decays to "
+                   "hier here).")
+_var.register("coll", "nccl", "moe_combine_mode", "", type=str, level=3,
+              help="Force the MoE expert-output combine exchange arm "
+                   "(native|hier|hier+quant; empty = auto via "
+                   "DEVICE_RULES moe_combine rows). hier+quant sends "
+                   "the cross-DCN lane as int8 blocks; the same-group "
+                   "lane stays full precision.")
 
 _MODES = _rules_grammar.MODES
 _PLANES = _rules_grammar.PLANES

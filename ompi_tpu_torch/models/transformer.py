@@ -61,8 +61,17 @@ reference's per-row RoPE and paged decode attention.
 ``decode_overlap="fused"`` runs the engine's decode step as one program
 whose tp combines are the collective-matmul rings (``serving/fused``).
 
-Not yet ported, refused with the ROADMAP slice that brings it:
-``mlp="moe"`` (P12).  The port's own refusals: ``attn="flash"`` or
+``mlp="moe"`` replaces each layer's SwiGLU MLP by the capacity-dropping
+expert block (``models/moe``, the reference's keys: a ``"moe"`` subtree of
+``router``, ``w_gate``, ``w_up``, ``w_down`` in place of the dense three).
+``forward`` then returns ``(logits, router aux)``, ``loss_fn`` adds
+``moe.aux_weight(cfg.moe_aux_weight) × aux``, and the one-card train step
+differentiates the einsum block (``moe_block``), as the reference's jitted
+step does.  ``moe_forward_ep``/``moe_eval_loss`` run every MoE layer on the
+ragged expert-parallel exchange of a ``DeviceComm`` (``moe_block_ep``), the
+forward/eval/serving arm.  On a mesh, ``mlp="moe"`` is refused naming
+ROADMAP slice P12b (the einsum block's expert all-to-all inside the mesh
+step).  The port's own refusals: ``attn="flash"`` or
 ``"dense"`` on sp > 1 when this rank's h/tp heads do not divide over sp
 (Ulysses splits them), and ``tp_overlap="fused"`` on sp > 1 (the fused
 layer attends its rank's sequence; the reference replicates it over sp).
@@ -83,6 +92,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from .. import moe as moe_plane
 from .. import optim
 from ..device import DeviceLike, check_on, resolve_device
 from ..ops.attention import flash_mha
@@ -94,10 +104,8 @@ from ..parallel.mesh import axes_group, axis_rank, axis_size, sharded
 from ..parallel.reshard import resharder
 from ..parallel.ring import attention_reference, ring_attention
 from ..parallel.ulysses import ulysses_attention
+from .moe import init_moe_params, moe_block, moe_param_specs
 
-_NOT_YET = {
-    ("mlp", "moe"): "the MoE block comes with ROADMAP slice P12",
-}
 _CHOICES = {"attn": ("dense", "flash", "ring"), "mlp": ("dense", "moe"),
             "tp_overlap": ("none", "fused"),
             "remat": ("none", "dots", "full"),
@@ -118,7 +126,17 @@ class Config:
     dtype: torch.dtype = torch.bfloat16   # activation/compute dtype
     attn: str = "dense"                   # "dense" | "flash" (K1) | "ring"
     rope_base: float = 10000.0
-    mlp: str = "dense"
+    mlp: str = "dense"                    # "dense" | "moe"
+    n_experts: int = 8
+    moe_top_k: int = 2
+    moe_aux_weight: float = 0.01
+    # how MoE dispatch/combine moves: "einsum" is the dense (T, E, C)
+    # one-hot contraction the train step differentiates; "ragged" names the
+    # expert-parallel exchange (moe_forward_ep / moe_eval_loss / serving)
+    moe_impl: str = "einsum"
+    # per-expert capacity headroom, C = ceil(T·k·cf/E); the ragged path
+    # reads it through the live hot-expert adaptation (moe.capacity_factor)
+    moe_capacity_factor: float = 1.25
     tp_overlap: str = "none"
     remat: str = "none"                   # "none" | "dots" | "full"
     # flash fwd/bwd block overrides: they tile the plain versions (CPU);
@@ -145,9 +163,6 @@ class Config:
             if val not in allowed:
                 raise ValueError(f"Config.{name}={val!r} (expected one of "
                                  f"{allowed})")
-            if (name, val) in _NOT_YET:
-                raise NotImplementedError(
-                    f"Config.{name}={val!r}: {_NOT_YET[(name, val)]}")
 
 
 def flagship_config(seq: int = 2048) -> Config:
@@ -198,50 +213,69 @@ def init_params(generator: torch.Generator, cfg: Config,
         "layers": [],
     }
     for _ in range(cfg.n_layers):
-        params["layers"].append({
+        layer = {
             "attn_norm": ones(cfg.d_model),
             "wqkv": dense(cfg.d_model, cfg.d_model, 3 * h),
             "wo": dense(h, h, cfg.d_model),
             "mlp_norm": ones(cfg.d_model),
-            "w_gate": dense(cfg.d_model, cfg.d_model, cfg.d_ff),
-            "w_up": dense(cfg.d_model, cfg.d_model, cfg.d_ff),
-            "w_down": dense(cfg.d_ff, cfg.d_ff, cfg.d_model),
-        })
+        }
+        if cfg.mlp == "moe":
+            layer["moe"] = init_moe_params(generator, cfg.d_model, cfg.d_ff,
+                                           cfg.n_experts, dev)
+        else:
+            layer.update({
+                "w_gate": dense(cfg.d_model, cfg.d_model, cfg.d_ff),
+                "w_up": dense(cfg.d_model, cfg.d_model, cfg.d_ff),
+                "w_down": dense(cfg.d_ff, cfg.d_ff, cfg.d_model),
+            })
+        params["layers"].append(layer)
     return params
-
-
-_LAYER_KEYS = ("attn_norm", "wqkv", "wo", "mlp_norm", "w_gate", "w_up",
-               "w_down")
 
 
 def params_from_numpy(tree: Dict[str, Any],
                       device: DeviceLike = None) -> Dict[str, Any]:
     """The JAX package's parameter tree, as numpy arrays, as the port's
-    tree.  The layouts are the same, so nothing is transposed."""
+    tree (a dense or a MoE layer's keys, the ``moe`` subtree included).
+    The layouts are the same, so nothing is transposed."""
     dev = resolve_device(device)
     t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
     layers = []
     for layer in tree["layers"]:
-        if set(layer) != set(_LAYER_KEYS):
-            raise ValueError(f"layer keys {sorted(layer)} are not the dense "
-                             f"layer's {sorted(_LAYER_KEYS)}")
-        layers.append({k: t(layer[k]) for k in _LAYER_KEYS})
+        want = _layer_spec("moe" if "moe" in layer else "dense")
+        if set(layer) != set(want) or (
+                "moe" in layer and set(layer["moe"]) != set(want["moe"])):
+            raise ValueError(f"layer keys {sorted(layer)} are neither the "
+                             f"dense nor the MoE layer's")
+        layers.append(optim.tree_map(t, layer))
     return {"embed": t(tree["embed"]), "final_norm": t(tree["final_norm"]),
             "layers": layers}
 
 
 # -- the Megatron layout over a mesh ------------------------------------------
 
+def _layer_spec(mlp: str, decode: bool = False) -> Dict[str, Any]:
+    """One layer's specs: the train layout (row-parallel wo/down) or the
+    decode one (every product column-parallel); a MoE layer's ``moe``
+    subtree is ``moe_param_specs`` in both, as in the reference."""
+    row = (None, "tp") if decode else ("tp", None)
+    layer = {"attn_norm": (), "wqkv": (None, "tp"), "wo": row,
+             "mlp_norm": ()}
+    if mlp == "moe":
+        layer["moe"] = moe_param_specs()
+    else:
+        layer.update({"w_gate": (None, "tp"), "w_up": (None, "tp"),
+                      "w_down": row})
+    return layer
+
+
 def param_specs(cfg: Config) -> Dict[str, Any]:
     """Megatron-style tp layout, the reference's: one axis name (or None)
     per dim of each leaf.  qkv/gate/up column-parallel (their output
     features over tp), wo/down row-parallel (their input features), the
-    embedding vocab-parallel, the norms replicated."""
-    layer = {"attn_norm": (), "wqkv": (None, "tp"), "wo": ("tp", None),
-             "mlp_norm": (), "w_gate": (None, "tp"), "w_up": (None, "tp"),
-             "w_down": ("tp", None)}
+    embedding vocab-parallel, the norms replicated; a MoE layer's experts
+    over ep and their features over tp (``moe_param_specs``)."""
     return {"embed": ("tp", None), "final_norm": (),
-            "layers": [dict(layer) for _ in range(cfg.n_layers)]}
+            "layers": [_layer_spec(cfg.mlp) for _ in range(cfg.n_layers)]}
 
 
 def _qkv_by_heads(w: torch.Tensor, tp: int,
@@ -264,10 +298,16 @@ def _map_specs(fn: Callable, params: Dict[str, Any], cfg: Config,
     if len(params["layers"]) != cfg.n_layers:
         raise ValueError(f"{len(params['layers'])} layers, Config has "
                          f"{cfg.n_layers}")
+
+    def one(leaf, spec, name):
+        if isinstance(spec, dict):                   # a layer's moe subtree
+            return {k: fn(leaf[k], spec[k], f"{name}/{k}") for k in spec}
+        return fn(leaf, spec, name)
+
     return {"embed": fn(params["embed"], specs["embed"], "embed"),
             "final_norm": fn(params["final_norm"], specs["final_norm"],
                              "final_norm"),
-            "layers": [{k: fn(layer[k], spec[k], k) for k in _LAYER_KEYS}
+            "layers": [{k: one(layer[k], spec[k], k) for k in spec}
                        for layer, spec in zip(params["layers"],
                                               specs["layers"])]}
 
@@ -315,11 +355,9 @@ def decode_param_specs(cfg: Config) -> Dict[str, Any]:
     sharding, as in the reference.  ``wqkv`` keeps the train cut, by heads
     (``_qkv_by_heads``): rank t's columns are [q_t | k_t | v_t], the
     per-rank layout the serving engine reads."""
-    layer = {"attn_norm": (), "wqkv": (None, "tp"), "wo": (None, "tp"),
-             "mlp_norm": (), "w_gate": (None, "tp"), "w_up": (None, "tp"),
-             "w_down": (None, "tp")}
     return {"embed": (None, "tp"), "final_norm": (),
-            "layers": [dict(layer) for _ in range(cfg.n_layers)]}
+            "layers": [_layer_spec(cfg.mlp, decode=True)
+                       for _ in range(cfg.n_layers)]}
 
 
 def convert_params(params: Dict[str, Any], mesh: DeviceMesh, cfg: Config,
@@ -337,7 +375,9 @@ def convert_params(params: Dict[str, Any], mesh: DeviceMesh, cfg: Config,
         raise ValueError(f"convert_params: to={to!r} (want train|decode)")
     _check_tp(cfg, axis_size(mesh, "tp"))
     want = {"embed": dst["embed"], "final_norm": dst["final_norm"],
-            **dst["layers"][0]}
+            **dst["layers"][0],
+            **{f"moe/{k}": v for k, v in dst["layers"][0].get("moe",
+                                                              {}).items()}}
     rs = resharder(mesh)
     return _map_specs(lambda x, spec, name: rs.run(
         x, _fit(mesh, spec), _fit(mesh, want[name])), params, cfg, src)
@@ -433,6 +473,7 @@ def _plan(mesh: Optional[DeviceMesh], cfg: Config) -> Optional[_Plan]:
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh: a torch.distributed DeviceMesh (make_mesh), "
                         f"not {type(mesh).__name__}")
+    _check_moe_mesh(cfg)
     if cfg.loss_chunk:
         # the reference's refusal: the seq slicing would cross sp shards
         raise ValueError("loss_chunk is only supported single-controller "
@@ -449,6 +490,17 @@ def _plan(mesh: Optional[DeviceMesh], cfg: Config) -> Optional[_Plan]:
             f"{cfg.n_heads // tp} heads (n_heads {cfg.n_heads} / tp={tp}): "
             f"they are not divisible by sp={sp}")
     return _Plan(mesh, cfg)
+
+
+def _check_moe_mesh(cfg: Config) -> None:
+    """mlp='moe' runs on one card (the einsum block) or on a DeviceComm
+    (moe_forward_ep); the mesh step's expert exchange is still to port."""
+    if cfg.mlp == "moe":
+        raise NotImplementedError(
+            "mlp='moe' on a mesh: the einsum block with its expert "
+            "all-to-all inside the mesh step comes with ROADMAP slice P12b "
+            "(one card: no mesh; the expert-parallel forward: "
+            "moe_forward_ep / moe_eval_loss on a DeviceComm)")
 
 
 def _check_fused(cfg: Config, mesh: Optional[DeviceMesh]) -> None:
@@ -634,19 +686,24 @@ def _layer_apply_fused(x, layer, cfg: Config, mesh: _Plan):
 
 
 def _layer_apply(x, layer, cfg: Config, mesh: Optional[_Plan] = None):
-    """One decoder layer with the dense (SwiGLU) MLP."""
+    """One decoder layer: (x, router aux), the aux None with the dense
+    (SwiGLU) MLP."""
     if cfg.tp_overlap == "fused":
         if mesh is None:
             _check_fused(cfg, None)
-        return _layer_apply_fused(x, layer, cfg, mesh)
+        return _layer_apply_fused(x, layer, cfg, mesh), None
     x = _attn_apply(x, layer, cfg, mesh)
     h = _rms_norm(x, layer["mlp_norm"])
+    if "moe" in layer:
+        out, aux = moe_block(h, layer["moe"], cfg.n_experts, cfg.moe_top_k,
+                             cfg.moe_capacity_factor)
+        return x + out, aux
     if mesh is not None:
         h = mesh.to_tp(h)
     gate = torch.nn.functional.silu(h @ layer["w_gate"].to(cfg.dtype))
     up = h @ layer["w_up"].to(cfg.dtype)
     out = (gate * up) @ layer["w_down"].to(cfg.dtype)
-    return x + (out if mesh is None else mesh.from_tp(out))
+    return x + (out if mesh is None else mesh.from_tp(out)), None
 
 
 def _checkpointed(fn: Callable, context_fn=noop_context_fn) -> Callable:
@@ -682,7 +739,8 @@ def _remat_wrap(fn: Callable, mode: str) -> Callable:
 
 def _backbone(params, tokens, cfg: Config, embed,
               mesh: Optional[_Plan] = None):
-    """tokens (b, s) → hidden (b, s, d) after the final norm.  Under
+    """tokens (b, s) → (hidden (b, s, d) after the final norm, the layers'
+    summed router aux; None with the dense MLP).  Under
     tp_overlap='fused' the layers run on this rank's rows of the sequence,
     cut after the lookup and gathered before the final norm."""
     x = embed[tokens] if mesh is None else mesh.lookup(embed, tokens)
@@ -697,11 +755,14 @@ def _backbone(params, tokens, cfg: Config, embed,
         x = split_to(x, 1, "tp", mesh.mesh)
     layer_fn = _remat_wrap(lambda x, layer: _layer_apply(x, layer, cfg, mesh),
                            cfg.remat)
+    aux_total = None
     for layer in params["layers"]:
-        x = layer_fn(x, layer)
+        x, aux = layer_fn(x, layer)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
     if fused:
         x = gather_from(x, 1, "tp", mesh.mesh)
-    return _rms_norm(x, params["final_norm"])
+    return _rms_norm(x, params["final_norm"]), aux_total
 
 
 def _prepare(params, tokens, device: DeviceLike) -> torch.Tensor:
@@ -712,21 +773,22 @@ def _prepare(params, tokens, device: DeviceLike) -> torch.Tensor:
 
 def forward(params: Dict[str, Any], tokens, cfg: Config,
             device: DeviceLike = None,
-            mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
-    """tokens (batch, seq) → logits (batch, seq, vocab) float32.  Runs on
-    ``device`` (``None`` = cuda), where ``params`` must already lie.  On a
-    ``mesh`` every rank passes the whole batch and its ``shard_params``
-    shards, and gets its block of the logits: (batch/dp, seq/sp,
-    vocab/tp)."""
+            mesh: Optional[DeviceMesh] = None):
+    """tokens (batch, seq) → logits (batch, seq, vocab) float32; with
+    ``cfg.mlp == "moe"`` → (logits, router aux loss).  Runs on ``device``
+    (``None`` = cuda), where ``params`` must already lie.  On a ``mesh``
+    every rank passes the whole batch and its ``shard_params`` shards, and
+    gets its block of the logits: (batch/dp, seq/sp, vocab/tp)."""
     tokens = _prepare(params, tokens, device)
     plan = _plan(mesh, cfg)
     embed = params["embed"].to(cfg.dtype)
     if plan is not None:
         tokens = plan.local(tokens)
-    x = _backbone(params, tokens, cfg, embed, plan)
+    x, aux = _backbone(params, tokens, cfg, embed, plan)
     if plan is not None:
         x = plan.to_tp(x)
-    return (x @ embed.T).float()                      # tied embedding
+    logits = (x @ embed.T).float()                    # tied embedding
+    return (logits, aux) if cfg.mlp == "moe" else logits
 
 
 def _chunked_ce(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
@@ -761,17 +823,31 @@ def loss_fn(params: Dict[str, Any], tokens, cfg: Config,
     plan = _plan(mesh, cfg)
     targets = tokens[:, 1:]
     if cfg.loss_chunk:
-        # the reference's refusal; Config refuses mlp="moe" before it here
+        # the reference's refusal: the MoE loss carries the router aux
         if cfg.mlp == "moe":
-            raise ValueError("loss_chunk is only supported with "
-                             "mlp='dense'; unset loss_chunk for this path")
+            raise ValueError(
+                "loss_chunk is only supported single-controller with "
+                f"mlp='dense' (got mesh=None, mlp={cfg.mlp!r}); unset "
+                "loss_chunk for this path")
         embed = params["embed"].to(cfg.dtype)
-        x = _backbone(params, tokens[:, :-1], cfg, embed)
+        x, _ = _backbone(params, tokens[:, :-1], cfg, embed)
         return _chunked_ce(x, embed, targets, int(cfg.loss_chunk))
-    logits = forward(params, tokens[:, :-1], cfg, tokens.device, mesh)
+    out = forward(params, tokens[:, :-1], cfg, tokens.device, mesh)
     if plan is not None:
-        ce = plan.cross_entropy(logits, plan.local(targets))
+        ce = plan.cross_entropy(out, plan.local(targets))
         return plan.data_sum(ce.sum() / targets.numel())
+    logits, aux = out if cfg.mlp == "moe" else (out, None)
+    ce = _cross_entropy(logits, targets)
+    if aux is None:
+        return ce
+    # the aux weight reads through the MoE plane's live adaptation
+    # (the identity while the plane is off)
+    return ce + moe_plane.aux_weight(cfg.moe_aux_weight) * aux
+
+
+def _cross_entropy(logits: torch.Tensor,
+                   targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy in logsumexp form."""
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     return (lse - gold).mean()
@@ -792,7 +868,10 @@ def greedy(params: Dict[str, Any], prompts: Sequence[Sequence[int]],
     toks = torch.as_tensor(prompts, dtype=torch.long, device=dev)
     out = []
     for _ in range(n_new):
-        nxt = forward(params, toks, cfg, dev)[:, -1].argmax(dim=-1)
+        logits = forward(params, toks, cfg, dev)
+        if cfg.mlp == "moe":
+            logits = logits[0]
+        nxt = logits[:, -1].argmax(dim=-1)
         out.append(nxt)
         toks = torch.cat([toks, nxt[:, None]], dim=1)
     return torch.stack(out, dim=1).tolist() if out else [[] for _ in prompts]
@@ -882,6 +961,7 @@ def make_value_and_grad(cfg: Config, mesh: Any = None,
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh: a torch.distributed DeviceMesh (make_mesh), "
                         f"not {type(mesh).__name__}")
+    _check_moe_mesh(cfg)
     if cfg.grad_sync == "quant":
         return _quant_grad_sync(cfg, mesh, dev)
     return overlap.make_grad_sync(
@@ -904,7 +984,12 @@ def make_train_step(cfg: Config, mesh: Any = None,
     ``shard_params`` shards and the whole (batch, seq + 1) batch, and gets
     the global mean loss; the gradients move as ``cfg.grad_sync`` says
     (``make_value_and_grad``) and AdamW, elementwise, runs on each rank's
-    shards.  Making the step is collective."""
+    shards.  Making the step is collective.  With ``mlp="moe"`` the step
+    differentiates the einsum block whatever ``moe_impl`` names, as the
+    reference's does."""
+    if cfg.mlp == "moe" and cfg.moe_impl not in ("einsum", "ragged"):
+        raise ValueError(f"unknown moe_impl {cfg.moe_impl!r} "
+                         "(expected 'einsum' or 'ragged')")
     vg = make_value_and_grad(cfg, mesh, device)
 
     def init_opt(params):
@@ -916,3 +1001,66 @@ def make_train_step(cfg: Config, mesh: Any = None,
         return params, opt_state, loss
 
     return init_opt, step
+
+
+# -- the ragged expert-parallel forward (moe_impl="ragged") -------------------
+
+def moe_forward_ep(dc, params: Dict[str, Any], tokens, cfg: Config,
+                   step: Optional[int] = None, rows: Optional[int] = None,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward with every MoE layer on the ragged expert-parallel
+    exchange of ``dc`` (``models/moe.moe_block_ep``): the token payloads
+    travel the audited ``moe_dispatch``/``moe_combine`` instead of the
+    dense einsum block.  Returns (logits (b, s, vocab) f32, router aux).
+
+    Every process of ``dc`` passes the whole (b, s) batch and the whole
+    tree but for the experts, of which it holds its rows' own
+    (``moe.local_experts``); it runs the attention on the whole batch, as
+    the reference's single controller does, hands its rows of the
+    canonical (R, t, d) layout (R = ``rows``, one a process by default;
+    t = b·s/R) to ``moe_block_ep`` and gathers every row's mixture back.
+    Runs on the comm's device; not differentiated."""
+    if cfg.mlp != "moe":
+        raise ValueError("moe_forward_ep needs cfg.mlp='moe' "
+                         f"(got {cfg.mlp!r})")
+    from .moe import _all_rows, moe_block_ep
+    R = dc.n if rows is None else int(rows)
+    if R % dc.n:
+        raise ValueError(f"moe_forward_ep: {R} rows do not divide over "
+                         f"the comm's {dc.n} processes")
+    r = R // dc.n
+    tokens = _prepare(params, tokens, dc.device)
+    b, s = tokens.shape
+    if (b * s) % R:
+        raise ValueError(f"moe_forward_ep: batch·seq {b * s} not divisible "
+                         f"by the {R} rows")
+    t = (b * s) // R
+    embed = params["embed"].to(cfg.dtype)
+    aux_total = None
+    with torch.no_grad():
+        x = embed[tokens]                                 # (b, s, d)
+        d = x.shape[-1]
+        for layer in params["layers"]:
+            x = _attn_apply(x, layer, cfg)
+            h = _rms_norm(x, layer["mlp_norm"]).reshape(R, t, d)
+            mine = h[dc.pos * r:(dc.pos + 1) * r]
+            out, aux, _info = moe_block_ep(
+                dc, mine, layer["moe"], cfg.n_experts, cfg.moe_top_k,
+                cfg.moe_capacity_factor, step=step)
+            x = x + _all_rows(dc, out).reshape(b, s, d)
+            aux_total = aux if aux_total is None else aux_total + aux
+        x = _rms_norm(x, params["final_norm"])
+        return (x @ embed.T).float(), aux_total
+
+
+def moe_eval_loss(dc, params: Dict[str, Any], tokens, cfg: Config,
+                  step: Optional[int] = None,
+                  rows: Optional[int] = None) -> torch.Tensor:
+    """``loss_fn``'s ragged-arm counterpart: the same logsumexp-form
+    cross-entropy plus the aux term, the MoE layers on ``moe_forward_ep``
+    and the aux weight read live through the MoE plane each call."""
+    tokens = torch.as_tensor(tokens, dtype=torch.long, device=dc.device)
+    logits, aux = moe_forward_ep(dc, params, tokens[:, :-1], cfg, step=step,
+                                 rows=rows)
+    return (_cross_entropy(logits, tokens[:, 1:])
+            + moe_plane.aux_weight(cfg.moe_aux_weight) * aux)

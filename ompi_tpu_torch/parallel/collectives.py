@@ -519,6 +519,8 @@ class DeviceComm:
         self._idx_cache_cap = 64
         self.spc = None          # the context's counters, set by coll/nccl
         self._quant = None
+        self._last_a2av = None   # last a2av_plan taken (audit breadcrumb)
+        self._kinds = None       # (sim override, axis_kinds()), made once
 
     def _idx_cached(self, key: tuple, build: Callable) -> Any:
         hit = self._idx_cache.get(key)
@@ -533,6 +535,17 @@ class DeviceComm:
 
     def cache_info(self) -> Dict[str, int]:
         return {"entries": len(self._idx_cache)}
+
+    def axis_kinds(self) -> Dict[str, str]:
+        """The comm's axes classified 'ici' or 'dcn'
+        (``mesh.classify_axes`` over the comm's own groups), made once per
+        value of the ``topo_sim_dcn_axes`` override.  Collective over the
+        comm the first time for each value."""
+        from .mesh import classify_axes, sim_dcn_axes
+        key = sim_dcn_axes()
+        if self._kinds is None or self._kinds[0] != key:
+            self._kinds = (key, classify_axes(self.mesh, self.axis))
+        return dict(self._kinds[1])
 
     def _one_axis(self, what: str) -> str:
         if isinstance(self.axis, tuple):
@@ -1050,6 +1063,9 @@ class DeviceComm:
         R, L = r * self.n, x.shape[1]
         # the plan is shape math on the global (R, L, *e) send
         plan = self.a2av_plan((R,) + tuple(x.shape[1:]), C, slice_cap)
+        # the footprint/padding trade this call took, for the caller's
+        # decision audit (moe_block_ep reads it)
+        self._last_a2av = dict(plan)
         S, k, out_cap = plan["slice_cap"], plan["scan_steps"], plan["out_cap"]
         soff = np.zeros((R, R), np.int64)
         soff[:, 1:] = np.cumsum(C, axis=1)[:, :-1]

@@ -44,11 +44,23 @@ embedding) are laid out once at construction by ``parallel/reshard``.
 ``decode_window`` runs a k-token teacher-forced verify window on either
 path (speculative decoding, ``serving/scheduler``'s ``spec_k``).
 
+``mlp="moe"`` (the eager path only) replaces each layer's gate/up/down
+with the ragged expert-parallel block (``models/moe.moe_block_ep``) over
+the engine's comm: each rank hands its B/tp rows of the normed residual to
+the block, the routed tokens travel the audited ``moe_dispatch`` /
+``moe_combine`` exchanges, and the ranks' mixtures are all-gathered back
+into the replicated (B, d) residual (an unaudited gather, where the
+reference reads the mixture back to the host).  Each rank holds its
+n_experts/tp experts whole, resharded once at construction from the
+(E, d, f/tp) train shards.  A prompt whose length tp does not divide is
+padded, as the reference pads it, with positions that write the scratch
+page and never enter the causal window.
+
 Replicas of the engine make a fleet (``serving/fleet``).  Left for later
 slices: the trace, perf and traffic halves of the audit (ROADMAP P16;
-the audit charges the simulated-DCN shim), the static proof of the fused
-program's wire (``verify_decode_program``: ``analysis/commgraph``, P17)
-and the MoE decode path (P12; ``Config`` refuses ``mlp="moe"``).
+the audit charges the simulated-DCN shim) and the static proof of the
+fused program's wire (``verify_decode_program``: ``analysis/commgraph``,
+P17).
 
 Prefill runs the prompt at its own length: the reference pads it to a
 power-of-two bucket only to bound its JIT compiles, and the padded
@@ -75,6 +87,14 @@ from ..parallel.ring import attention_reference
 from .cache import PagedKVCache
 
 # -- collective-free pieces, on this rank's (1, B, …) rows ------------------
+
+
+def _bucket(n: int) -> int:
+    """The reference's prefill bucket: the least power of 2 >= max(n, 8)."""
+    p = 8
+    while p < n:
+        p *= 2
+    return p
 
 
 def _regroup(y: torch.Tensor, n: int) -> torch.Tensor:
@@ -239,12 +259,26 @@ class ServingEngine:
                  layout: str = "train") -> None:
         from ..models import transformer as tfm
         self.device = resolve_device(dc.device)
-        for name in ("n_heads", "d_model", "vocab", "d_ff"):
+        self.moe = cfg.mlp == "moe"
+        dims = ["n_heads", "d_model", "vocab"] + ([] if self.moe
+                                                  else ["d_ff"])
+        for name in dims:
             dim = getattr(cfg, name)
             if dim % dc.n:
                 raise ValueError(
                     f"ServingEngine: cfg.{name}={dim} not divisible by "
                     f"the {dc.n}-way tp axis")
+        if self.moe:
+            # moe_block_ep's canonical (R, t, d) layout splits the batch
+            # over the ranks, and rank j owns experts [j·epr, (j+1)·epr)
+            if int(max_seqs) % dc.n:
+                raise ValueError(
+                    f"ServingEngine: moe decode needs max_seqs="
+                    f"{max_seqs} divisible by the {dc.n}-way comm axis")
+            if cfg.n_experts % dc.n:
+                raise ValueError(
+                    f"ServingEngine: cfg.n_experts={cfg.n_experts} not "
+                    f"divisible by the {dc.n}-way comm axis")
         if layout not in ("train", "decode"):
             raise ValueError(f"layout={layout!r} (want train|decode)")
         self.fused = cfg.decode_overlap == "fused"
@@ -281,12 +315,17 @@ class ServingEngine:
         # wqkv's decode shard is already [q_t | k_t | v_t] (cut by heads)
         self._embed = can(params["embed"])             # (1, V, d/tp)
         self._final_norm = params["final_norm"]
-        self._layers: List[Dict[str, Any]] = [
-            {"attn_norm": lw["attn_norm"], "wqkv": can(lw["wqkv"]),
-             "wo": can(lw["wo"]), "mlp_norm": lw["mlp_norm"],
-             "w_gate": can(lw["w_gate"]), "w_up": can(lw["w_up"]),
-             "w_down": can(lw["w_down"])}
-            for lw in params["layers"]]
+        self._layers: List[Dict[str, Any]] = []
+        for lw in params["layers"]:
+            cl = {"attn_norm": lw["attn_norm"], "wqkv": can(lw["wqkv"]),
+                  "wo": can(lw["wo"]), "mlp_norm": lw["mlp_norm"]}
+            if self.moe:
+                cl["moe"] = self._local_experts(lw["moe"])
+            else:
+                cl.update({"w_gate": can(lw["w_gate"]),
+                           "w_up": can(lw["w_up"]),
+                           "w_down": can(lw["w_down"])})
+            self._layers.append(cl)
         self.cache = PagedKVCache(
             dc, cfg.n_layers, cfg.n_heads, cfg.head_dim,
             n_pages=n_pages, page_size=page_size, max_seqs=max_seqs,
@@ -296,6 +335,37 @@ class ServingEngine:
         self.wire_bytes = 0
         if self.fused:
             self._init_fused(params)
+
+    def _local_experts(self, moe: Dict) -> Dict[str, torch.Tensor]:
+        """This rank's n_experts/tp experts, whole, in the compute dtype
+        (the router stays f32, as moe_block_ep computes it): the (E, d,
+        f/tp) and (E, f/tp, d) decode shards move the tp cut from the
+        features to the experts, one planned and audited ``all_to_all``
+        a leaf (``parallel/reshard``), once."""
+        from ..parallel.reshard import Resharder
+        ax = self.dc.axis
+        rs = Resharder(self.dc.mesh, spc=self.dc.spc)
+        cut = {"w_gate": (None, None, ax), "w_up": (None, None, ax),
+               "w_down": (None, ax, None)}
+        return {"router": moe["router"],
+                **{k: rs.run(moe[k].to(self.cfg.dtype), src, (ax, None, None))
+                   for k, src in cut.items()}}
+
+    def _moe_mlp(self, x: torch.Tensor, lw: Dict) -> torch.Tensor:
+        """One layer's MoE MLP: this rank's B/tp rows of the normed
+        residual (1, B, d) to ``moe_block_ep`` (only the routed tokens
+        travel, under the audited moe_dispatch/moe_combine), every rank's
+        mixture gathered back and added to the replicated residual."""
+        from ..models.moe import _all_rows, moe_block_ep
+        dc, cfg = self.dc, self.cfg
+        h = _rms_norm(x, lw["mlp_norm"])
+        b, d = h.shape[1], h.shape[2]
+        t = b // dc.n
+        mine = h[0, dc.pos * t:(dc.pos + 1) * t][None]          # (1, t, d)
+        out, _aux, _info = moe_block_ep(
+            dc, mine, lw["moe"], cfg.n_experts, cfg.moe_top_k,
+            cfg.moe_capacity_factor)
+        return x + _all_rows(dc, out).reshape(1, b, d).to(x.dtype)
 
     def _init_fused(self, params: Dict) -> None:
         """The fused decode program and its weight views.  The AG rings
@@ -367,6 +437,9 @@ class ServingEngine:
                         offset)
             att = attend(i, q, k, v)
             o = _o_proj(self._ag(att), lw["wo"], n)
+            if self.moe:
+                x = self._moe_mlp(_residual(self._ag(o), x, n), lw)
+                continue
             x, z = _mlp_in(self._ag(o), x, lw["mlp_norm"], lw["w_gate"],
                            lw["w_up"], n)
             d = _mlp_down(self._ag(z), lw["w_down"], n)
@@ -458,10 +531,18 @@ class ServingEngine:
         in the reference."""
         prompt = np.asarray(prompt, np.int64)
         s = int(prompt.shape[0])
-        positions = np.arange(s)
-        page_idx, offset = self.cache.write_indices(np.full(s, slot),
-                                                    positions)
-        x = _regroup(self._ag(_embed(self._embed, self._index(prompt))),
+        # MoE: pad to the reference's power-of-2 bucket of at least 8
+        # (token 0 at positions the causal window never reaches, written
+        # to the scratch page): moe_block_ep's capacity is taken over the
+        # padded tokens, so the bucket keeps the reference's drops.  The
+        # rows split over the ranks (a bucket a power-of-2 tp divides).
+        spad = -(-_bucket(s) // self.dc.n) * self.dc.n if self.moe else s
+        positions = np.arange(spad)
+        page_idx, offset = self.cache.write_indices(
+            np.full(spad, slot), np.where(positions < s, positions, -1))
+        tokens = np.zeros(spad, np.int64)
+        tokens[:s] = prompt
+        x = _regroup(self._ag(_embed(self._embed, self._index(tokens))),
                      self.dc.n)
         x = self._backbone(x, self._index(positions),
                            self._index(page_idx), self._index(offset),

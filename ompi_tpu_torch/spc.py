@@ -7,9 +7,10 @@ framework increment them; ``dump()`` prints at finalize when
 
 The port's copy of ``ompi_tpu/spc.py``: ``Counters`` and the counters the
 MPI surface and the device component feed.  The reads of the later planes
-(trace, health, perf, traffic, numerics, reshard, elastic, MoE, policy,
+(trace, health, perf, traffic, numerics, reshard, elastic, policy,
 serving, history) come with their slices (ROADMAP P16), as do the MPI_T
-and Prometheus export and the per-peer monitoring matrices.
+and Prometheus export and the per-peer monitoring matrices; the MoE
+routing plane's three counters read through to ``ompi_tpu_torch.moe``.
 """
 
 from __future__ import annotations
@@ -50,10 +51,21 @@ COUNTERS = [
     ("device_quant_collectives", "device collectives run block-quantized"),
     ("grad_bucket_count", "bucket exchanges in the last grad-sync plan"),
     ("grad_bucket_bytes", "total gradient bytes in the last grad-sync plan"),
+    # MoE routing plane (fed by ompi_tpu_torch.moe; process-wide)
+    ("moe_routed_tokens",
+     "tokens dispatched to experts by the MoE routing plane"),
+    ("moe_dropped_tokens",
+     "tokens dropped at expert capacity by the MoE routing plane"),
+    ("moe_hot_expert_trips",
+     "hot-expert sentry trips (one expert carrying disproportionate "
+     "token load)"),
 ]
-# the grad_bucket_* pair lives in the overlap scheduler (one state per
-# process, not per Context): every read goes through to it
-_READ_THROUGH = ("grad_bucket_count", "grad_bucket_bytes")
+# the grad_bucket_* pair lives in the overlap scheduler and the moe_*
+# counters in the MoE plane (one state per process, not per Context):
+# every read goes through to them
+_READ_THROUGH = ("grad_bucket_count", "grad_bucket_bytes",
+                 "moe_routed_tokens", "moe_dropped_tokens",
+                 "moe_hot_expert_trips")
 
 
 class Counters:
@@ -65,6 +77,9 @@ class Counters:
 
     def get(self, name: str) -> float:
         if name in _READ_THROUGH:
+            if name.startswith("moe_"):
+                from . import moe
+                return moe.pvar_value(name)
             from .parallel import overlap
             return overlap.pvar_value(name)
         return self._v.get(name, 0)

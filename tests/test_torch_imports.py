@@ -54,7 +54,7 @@ def test_every_module_is_listed():
                  "serving.cache", "serving.engine", "serving.fused",
                  "serving.scheduler", "parallel.simdcn", "serving.fleet",
                  "parallel.hierarchy", "parallel.ulysses",
-                 "parallel.pipeline"):
+                 "parallel.pipeline", "moe", "models.moe"):
         assert f"ompi_tpu_torch.{name}" in MODULES
 
 

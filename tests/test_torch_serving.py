@@ -14,6 +14,7 @@ refusals are the reference test's.  ``rope_rows`` and
 ``decode_attention`` are held against the JAX functions.
 """
 
+import dataclasses
 import types
 
 import numpy as np
@@ -324,13 +325,14 @@ def test_eos_eviction(dc1, train1):
 def test_refusals(dc1, train1):
     # the fused decode program and speculative decoding are the
     # reference's behaviour now (tests/test_torch_decode.py); the fused
-    # engine refuses tp 1, as the reference does, and MoE stays P12's
+    # engine refuses tp 1, as the reference does, and MoE decode stays on
+    # the eager path (tests/test_torch_moe_ep.py), as in the reference
     fused = tfm.Config(dtype=torch.float32, decode_overlap="fused",
                        **CFG_KW)
     with pytest.raises(ValueError, match="tp>=2"):
         ServingEngine(dc1, train1, fused)
-    with pytest.raises(NotImplementedError, match="P12"):
-        tfm.Config(mlp="moe")
+    with pytest.raises(ValueError, match="dense-MLP only"):
+        ServingEngine(dc1, train1, dataclasses.replace(fused, mlp="moe"))
     eng = _engine(dc1, train1)
     assert ContinuousBatchingScheduler(eng, [], spec_k=2).spec_k == 2
     with pytest.raises(ValueError, match="spec_k"):

@@ -145,11 +145,14 @@ def test_greedy_stream_matches_jax(weights):
 
 
 @pytest.mark.parametrize("field,value,slice_", [
-    ("mlp", "moe", "P12"), ("tp_overlap", "fused", "P9")])
+    ("mlp", "moe", "P12b"), ("tp_overlap", "fused", "P9")])
 def test_unported_options_refuse(field, value, slice_):
     """An option still to port is refused by its slice's name.  Slice P9
     brought tp_overlap="fused": the Config takes it, and without a mesh the
-    forward raises the reference's ValueError (it needs a tp axis)."""
+    forward raises the reference's ValueError (it needs a tp axis).  Slice
+    P12a brought mlp="moe" on one device: the Config takes it, and on a
+    mesh the forward and the train step raise naming P12b (the expert
+    all-to-all inside the mesh step)."""
     if slice_ == "P9":
         jcfg = jax_tfm.Config(**KW, dtype=jnp.float32, tp_overlap=value)
         cfg = tfm.Config(**KW, dtype=torch.float32, tp_overlap=value)
@@ -162,8 +165,23 @@ def test_unported_options_refuse(field, value, slice_):
         with pytest.raises(ValueError, match="needs a mesh with a tp axis"):
             tfm.forward(params, tokens, cfg, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=slice_):
-        tfm.Config(**{field: value})
+    cfg = tfm.Config(**KW, dtype=torch.float32, **{field: value})
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    tokens = _tokens((2, KW["seq"] + 1), seed=7)
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.HashStore())
+    try:
+        mesh = init_device_mesh("cpu", (1, 1, 1),
+                                mesh_dim_names=("dp", "sp", "tp"))
+        with pytest.raises(NotImplementedError, match=slice_):
+            tfm.forward(params, tokens[:, :-1], cfg, device="cpu", mesh=mesh)
+        for mode in ("native", "bucketed"):
+            with pytest.raises(NotImplementedError, match=slice_):
+                tfm.make_train_step(dataclasses.replace(cfg, grad_sync=mode),
+                                    mesh, device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_ring_without_a_mesh_is_dense(weights):
