@@ -238,9 +238,9 @@ idle share from one more, profiled run (fleet_numbers lines).  The
 fleets of one layout share its mesh and pair groups (made once).
 Phase 16 across the cards, after phase 15, seed-0 weights at full width,
 the axes named in HIER_SIM_AXES on the simulated slow plane (each
-layout's mesh made once for the world, world_mesh), in a world of its own
-(spawned once phase 15's has torn down: one world for both did not tear
-down within 60 s): (a) a DeviceComm over
+layout's mesh made once for the world, world_mesh), in phase 15's world
+(which tears down its groups in an order every rank shares, leave_world):
+(a) a DeviceComm over
 ("outer", "inner") on {"outer": 2, "inner": 2}: phase 9's checks of every
 flat method (coll_check lines); hierarchical_allreduce exact at counts 7
 and 1,000,003 (f32, bf16) and hierarchical_psum_quant within the codec's
@@ -263,10 +263,9 @@ each skipped and rejected, K1-K3 counted, timed beside "ring"
 (mesh_step, ulysses_mesh_numbers); (f) pipeline() of the six layers in
 two stages on {"dp": 2, "pp": 2}, four microbatches of one sequence,
 against the layers in order, a dropped shift rejected, K1-K3 30/15/15,
-timed, the bubble 0.2 (pipeline_check).  Each world's ranks end through
-leave_world (after the fleet line, and after the hier line): a teardown
-line, and a teardown of a world that does not return within 60 s fails
-the run.  After
+timed, the bubble 0.2 (pipeline_check).  The world's ranks end through
+leave_world after the hier line: teardown lines, and a process group
+whose teardown does not return within 60 s fails the run.  After
 phase 11, (b) tpurun -np 4 --gpus-per-rank 1 runs the hier rank program:
 comm_world attached to ("dpo", "dp"), comm.coll.allreduce decided (native)
 and forced hier and hier+quant, the arm counts and spc wire =
@@ -275,7 +274,7 @@ reference's reason, the simulated-DCN charges (hier: the outer bytes;
 native: the ring's dcn share of its wire), each arm timed at 1, 16 and 64
 MB a rank with the shim off and at HIER_US_PER_MIB (hier_mpi_check,
 hier_mpi_numbers lines, then the hier_mpi line).  Phase 17c across the
-cards, in a third world of its own (spawned once phase 16's has torn
+cards, in a second world of its own (spawned once the first has torn
 down): moe_block_ep on {"ep": 4} with two rows a card against moe_block
 (17a's check and fault); at the flagship's width, 2048 tokens a card,
 moe_block_ep native in bf16 (ms, routed and dropped tokens, wire bytes,
@@ -288,8 +287,27 @@ moe_eval_loss over the four cards against one card's loss_fn within 5e-4
 (gates left unnormalised must fail it); the engine at tp 4 with
 mlp="moe" as in 17a; the MoE decode step at the flagship's width, bf16,
 (8, 512), its ms and each layer's routed tokens (moe_check,
-moe_ep_numbers, moe_numbers lines, then the moe line and its teardown).
-Every teardown line gives the world's process groups.
+moe_ep_numbers, moe_numbers lines).  Phase 17d in the same world: the MoE
+mesh train step (moe_block_mesh) on {"dp": 1, "ep": 2, "tp": 2} and
+{"dp": 2, "ep": 2, "tp": 1}.  At the flagship's width cut to two layers,
+f32, TF32 off, batch 4 x 2049: the tokens dropped per layer by the global
+routing and by each dp shard's own (the capacity factor cut by 0.8 until
+they differ; moe_mesh_drops line); the mesh step's loss and each rank's
+gradient shards against the one-card step's, cut to the rank's slices
+(MOE_MESH_LOSS_REL, MOE_MESH_GRAD_RMS), routing flips counted, and three
+planted faults each failing the gradient check: (a) the capacity and
+positions over the rank's own tokens (where dp > 1), (b) the dispatch
+input's sum over ep skipped in the backward, (c) the combine gather's
+backward a reduce-scatter (moe_mesh_step lines); then the full
+flagship_config() with mlp="moe" (6 layers, bf16, remat "dots") timed on
+each layout: step ms, tokens/s, MFU a card by the reference's count, peak
+bytes, host_issue_ms and K1/K2/K3/K4 launches of one step a rank, exactly
+12/6/6/0 (train_numbers lines; then the moe line and its teardown).
+Each world's ranks end through leave_world: its process groups destroyed
+one at a time in the order the world's teardown takes them, each with its
+members, what made it (a world_mesh layout's axis or product group, or the
+group's own description) and its seconds (teardown_group lines), then the
+world's teardown line with the count of groups it held.
 """
 
 from __future__ import annotations
@@ -1241,10 +1259,11 @@ def timed_steps(torch, step, params, state, tokens):
 
 
 def time_train(torch, tfm, optim, cfg, pristine, tokens, card,
-               profile=False, mesh=None, log_fn=log) -> dict:
+               profile=False, mesh=None, log_fn=log, attention=None) -> dict:
     """Log and return the median ms of TIMED_STEPS chained train steps
     after WARMUP_STEPS, by CUDA events, with the peak memory of the run;
-    on a ``mesh``, the step of this rank's shards (MFU over its cards)."""
+    on a ``mesh``, the step of this rank's shards (MFU over its cards).
+    With ``attention``, the K1-K4 launches of the first step too."""
     init_opt, step = tfm.make_train_step(cfg, mesh, learning_rate=1e-3)
     params = (clone_tree(optim, pristine) if mesh is None
               else tfm.shard_params(pristine, mesh, cfg))
@@ -1253,8 +1272,14 @@ def time_train(torch, tfm, optim, cfg, pristine, tokens, card,
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(WARMUP_STEPS):
+    launches = None
+    for i in range(WARMUP_STEPS):
+        if i == 0 and attention is not None:
+            zero_counts(attention)
         params, state, _ = step(params, state, tokens)
+        if i == 0 and attention is not None:
+            torch.cuda.synchronize()
+            launches = list(launch_counts(attention))
     params, state, times, host, losses = timed_steps(torch, step, params,
                                                      state, tokens)
     ms = statistics.median(times)
@@ -1272,6 +1297,8 @@ def time_train(torch, tfm, optim, cfg, pristine, tokens, card,
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "bytes_before_run": base, "final_loss": losses[-1],
            "card": card}
+    if launches is not None:
+        row["k1_k2_k3_k4_launches_per_step"] = launches
     log_fn(row)
     if profile:
         def one_step():
@@ -5525,19 +5552,308 @@ def moe_decode_numbers(torch, np, tfm, moe_mod, world: int, cfg, card,
     return row
 
 
+# -- 17d. the MoE mesh train step (P12b) across the cards --------------------
+
+# the reference's dp2·ep2·tp2 cut to four cards, as 10c cuts dp2·sp2·tp2
+MOE_MESH_LAYOUTS = [{"dp": 1, "ep": 2, "tp": 2}, {"dp": 2, "ep": 2, "tp": 1}]
+# the parity check: the flagship's width, depth cut to MOE_MESH_LAYERS, f32
+# (TF32 off), remat "none"; the mesh step against the one-card step on the
+# same weights and tokens, routed with the mesh's expert ids.  The same f32
+# products summed in other orders (over ranks, over tp's halves of each
+# product): the loss to MOE_MESH_LOSS_REL, the gradients by relative RMS
+# over all leaves to MOE_MESH_GRAD_RMS; each planted fault must fail the
+# gradient check.  The router's f32 logits move by those orders too, so a
+# token whose k-th and next probability nearly tie can route otherwise on
+# the mesh than on one card (one token of 8192 did at (1, 2, 2) on four
+# H100s): such flips are counted against the one card's own routing, each
+# with its probability gap, which must stay under MOE_MESH_TIE.
+MOE_MESH_LAYERS = 2
+MOE_MESH_LOSS_REL = 1e-5
+MOE_MESH_GRAD_RMS = 1e-4
+MOE_MESH_TIE = 1e-4
+# the capacity factor is cut by this factor while the routing over each dp
+# shard's own tokens drops as many tokens as the global routing in every
+# layer (fault (a) must be able to show), down to MOE_MESH_CF_MIN
+MOE_MESH_CF_CUT = 0.8
+MOE_MESH_CF_MIN = 0.1
+
+
+def mesh_drops(torch, ids, cfg, shards: int) -> dict:
+    """Per layer, the (token, slot) pairs dropped by the global routing
+    and by each of ``shards`` batch shards routed over its own tokens (its
+    own capacity and positions: moe_block's loop on each), and how many
+    pairs the two keep apart."""
+    from ompi_tpu_torch.models import moe as moe_mod
+
+    def kept(ids):
+        t, k = ids.shape
+        cap = max(math.ceil(t * k * cfg.moe_capacity_factor
+                            / cfg.n_experts), k)
+        return moe_mod._positions(ids, cfg.n_experts, cap) < cap
+
+    glob, local, apart = [], [], []
+    for layer in ids:
+        keep = kept(layer)
+        n = layer.shape[0] // shards
+        mine = torch.cat([kept(layer[i * n:(i + 1) * n])
+                          for i in range(shards)])
+        glob.append(int((~keep).sum()))
+        local.append(int((~mine).sum()))
+        apart.append(int((keep != mine).sum()))
+    return {"global": glob, "rank_local": local, "kept_apart": apart}
+
+
+def one_card_ids(torch, tfm, moe_mod, params, tokens, cfg,
+                 probs=None) -> list:
+    """Each MoE layer's (T, k) expert ids in the one-card forward (and
+    its router probabilities into ``probs``, a list, when given)."""
+    ids, real = [], moe_mod._route
+
+    def rec(p, top_k):
+        if probs is not None:
+            probs.append(p)
+        return real(p, top_k)
+
+    with torch.inference_mode(), planted(moe_mod, "_route", rec), \
+            routing_recorded(moe_mod, ids):
+        tfm.forward(params, tokens[:, :-1], cfg)
+    return ids
+
+
+def routed_as(moe_mod, ids):
+    """The one-card block routed with ``ids``, each layer's (T, k) expert
+    ids in layer order (remat "none": one routing a layer), its gates read
+    from its own probabilities at those experts."""
+    it = iter(ids)
+
+    def route(probs, top_k):
+        idx = next(it)
+        gate_vals = probs.gather(-1, idx)
+        if top_k > 1:
+            gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+        return gate_vals, idx
+    return planted(moe_mod, "_route", route)
+
+
+def routing_flips(got, want, probs) -> list:
+    """Per layer, the tokens whose ids in ``got`` differ from ``want``
+    (the one card's), each with the gap between the one card's
+    probabilities at the first expert where they part and the next one
+    down its order."""
+    out = []
+    for g, w, p in zip(got, want, probs):
+        rows = (g != w).any(dim=1).nonzero()[:, 0]
+        top = p[rows].sort(dim=-1, descending=True).values
+        part = [int((g[r] != w[r]).nonzero()[0]) for r in rows.tolist()]
+        out.append([{"token": r, "slot": s_,
+                     "gap": float(top[i, s_] - top[i, s_ + 1])}
+                    for i, (r, s_) in enumerate(zip(rows.tolist(), part))])
+    return out
+
+
+def moe_mesh_cf(torch, tfm, moe_mod, params, tokens, cfg, shards: int):
+    """The capacity factor of the parity check: cfg's, cut by
+    MOE_MESH_CF_CUT while the routing over each of ``shards`` dp shards'
+    own tokens drops as many tokens as the global routing in every layer;
+    agreed over the world (the smallest).  Returns (cfg at that factor,
+    the drops at it)."""
+    while True:
+        drops = mesh_drops(torch, one_card_ids(torch, tfm, moe_mod, params,
+                                               tokens, cfg), cfg, shards)
+        if drops["global"] != drops["rank_local"] or \
+                cfg.moe_capacity_factor * MOE_MESH_CF_CUT < MOE_MESH_CF_MIN:
+            break
+        cfg = dataclasses.replace(
+            cfg, moe_capacity_factor=cfg.moe_capacity_factor
+            * MOE_MESH_CF_CUT)
+    cf = torch.tensor([cfg.moe_capacity_factor], device="cuda")
+    torch.distributed.all_reduce(cf, op=torch.distributed.ReduceOp.MIN)
+    if float(cf) != cfg.moe_capacity_factor:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=float(cf))
+        drops = mesh_drops(torch, one_card_ids(torch, tfm, moe_mod, params,
+                                               tokens, cfg), cfg, shards)
+    return cfg, drops
+
+
+def local_routing(torch):
+    """Planted (a): the capacity and positions taken over this rank's own
+    tokens (its ids alone, not the batch's)."""
+    from ompi_tpu_torch.models import moe as moe_mod
+
+    def local(expert_idx, plan):
+        k = expert_idx.shape[-1]
+        return (expert_idx.reshape(-1, k),
+                torch.arange(expert_idx[..., 0].numel(),
+                             device=expert_idx.device))
+    return planted(moe_mod, "_global_ids", local)
+
+
+def dispatch_ep_sum_skipped():
+    """Planted (b): the dispatch input's cotangent not summed over ep (each
+    rank keeps its own experts' part)."""
+    from ompi_tpu_torch.models import moe as moe_mod
+    return planted(moe_mod, "_dispatch_input", lambda x, plan: x)
+
+
+def combine_gather_reduce_scattered(torch):
+    """Planted (c): the combine gather's backward a reduce-scatter over ep
+    (every ep rank's identical cotangent summed)."""
+    from ompi_tpu_torch.models import moe as moe_mod
+    from ompi_tpu_torch.parallel.collectives import (all_gather_axis,
+                                                     reduce_scatter_axis)
+
+    class Summed(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, mesh):
+            ctx.mesh = mesh
+            return all_gather_axis(x.contiguous(), "ep", mesh=mesh)
+
+        @staticmethod
+        def backward(ctx, g):
+            return reduce_scatter_axis(g.contiguous(), "ep",
+                                       mesh=ctx.mesh), None
+
+    return planted(moe_mod, "_combine_gather",
+                   lambda eout, plan: Summed.apply(eout, plan.mesh))
+
+
+def world_max(torch, x: float) -> float:
+    """The largest of every rank's ``x``."""
+    t = torch.tensor([x], dtype=torch.float64, device="cuda")
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+    return float(t)
+
+
+def moe_mesh_parity(torch, tfm, optim, moe_mod, cfg, mesh, pristine,
+                    tokens, card, log_fn) -> dict:
+    """17d's check on one layout: the mesh step's loss and each rank's
+    gradient shards against the one-card step's routed with the mesh's
+    expert ids, its gradients cut to this rank's slices by shard_params,
+    and each planted fault rejected; the mesh's ids against the one card's
+    own routing (flips and their gaps); every rank's figures, the worst
+    over the world."""
+    dims = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    ids, real = [], moe_mod._global_ids
+
+    def rec(expert_idx, plan):
+        everyone, rows = real(expert_idx, plan)
+        ids.append(everyone)
+        return everyone, rows
+
+    def mesh_step():
+        return tfm.value_and_grad(tfm.shard_params(pristine, mesh, cfg),
+                                  tokens, cfg, mesh=mesh)
+
+    with planted(moe_mod, "_global_ids", rec):
+        loss, grads = mesh_step()
+    with routed_as(moe_mod, ids):
+        wloss, wgrads = tfm.value_and_grad(
+            optim.tree_map(lambda t: t.clone(), pristine), tokens, cfg)
+    wloss = float(wloss)
+    of = dict(zip(map(id, optim.tree_leaves(pristine)), wgrads))
+    mine = optim.tree_leaves(tfm.shard_params(
+        optim.tree_map(lambda p: of[id(p)], pristine), mesh, cfg))
+    del of, wgrads
+    loss_rel = world_max(torch, abs(float(loss) - wloss) / abs(wloss))
+    grad_rel = world_max(torch, grads_rel_rms(grads, mine))
+    del grads
+    probs = []
+    natural = one_card_ids(torch, tfm, moe_mod, pristine, tokens, cfg,
+                           probs)
+    flips = routing_flips(ids, natural, probs)
+    del probs, natural
+    gap = max([f["gap"] for layer in flips for f in layer] + [0.0])
+    faults = {"dispatch_ep_sum_skipped": dispatch_ep_sum_skipped,
+              "combine_gather_reduce_scattered":
+                  lambda: combine_gather_reduce_scattered(torch)}
+    if dims.get("dp", 1) * dims.get("sp", 1) > 1:
+        faults = {"local_capacity": lambda: local_routing(torch), **faults}
+    planted_rel = {}
+    for name, fault in faults.items():
+        with fault():
+            planted_rel[name] = world_max(torch, grads_rel_rms(
+                mesh_step()[1], mine))
+    row = {"phase": "moe_mesh_step", "mesh": dims, "cf":
+           cfg.moe_capacity_factor, "loss": float(loss),
+           "one_card_loss": wloss, "loss_rel": loss_rel,
+           "loss_bound": MOE_MESH_LOSS_REL, "grad_rel_rms": grad_rel,
+           "grad_bound": MOE_MESH_GRAD_RMS,
+           "routing_flips": [len(layer) for layer in flips],
+           "flips": flips, "largest_flip_gap": gap, "tie_bound": MOE_MESH_TIE,
+           "planted_grad_rel_rms": planted_rel, "card": card}
+    log_fn(row)
+    if not (loss_rel < MOE_MESH_LOSS_REL and grad_rel < MOE_MESH_GRAD_RMS
+            and gap < MOE_MESH_TIE
+            and all(x > MOE_MESH_GRAD_RMS for x in planted_rel.values())):
+        raise AssertionError(f"17d, the MoE mesh step: {row}")
+    return row
+
+
+def moe_mesh_multi_card(torch, np, tfm, optim, attention, world: int,
+                        card: str, log_fn) -> dict:
+    """17d across the cards (module docstring): the parity check on each
+    layout of MOE_MESH_LAYOUTS, then the full flagship with mlp="moe"
+    timed on each."""
+    from ompi_tpu_torch.models import moe as moe_mod
+    cfg = dataclasses.replace(tfm.flagship_config(), mlp="moe",
+                              n_layers=MOE_MESH_LAYERS,
+                              dtype=torch.float32, remat="none")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (MOE_TRAIN_BATCH, cfg.seq + 1))).cuda()
+    pristine = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg)
+    shards = max(lay.get("dp", 1) for lay in MOE_MESH_LAYOUTS)
+    cfg, drops = moe_mesh_cf(torch, tfm, moe_mod, pristine, tokens, cfg,
+                             shards)
+    log_fn({"phase": "moe_mesh_drops", "cf": cfg.moe_capacity_factor,
+            "tokens": tokens.shape[0] * (tokens.shape[1] - 1),
+            "shards": shards, **drops, "card": card})
+    rows = [moe_mesh_parity(torch, tfm, optim, moe_mod, cfg,
+                            world_mesh(lay), pristine, tokens, card, log_fn)
+            for lay in MOE_MESH_LAYOUTS]
+    del pristine
+    torch.cuda.empty_cache()
+    full = dataclasses.replace(tfm.flagship_config(), mlp="moe")
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             full)
+    n = full.n_layers
+    timed = []
+    for lay in MOE_MESH_LAYOUTS:
+        t = time_train(torch, tfm, optim, full, params, tokens, card,
+                       mesh=world_mesh(lay), log_fn=log_fn,
+                       attention=attention)
+        if t["k1_k2_k3_k4_launches_per_step"] != [2 * n, n, n, 0]:
+            raise AssertionError(f"17d: K1/K2/K3/K4 launches a MoE mesh "
+                                 f"step: {t}")
+        timed.append({k: t[k] for k in (
+            "mesh", "step_ms", "tokens_per_s", "mfu", "peak_bytes",
+            "host_issue_ms", "k1_k2_k3_k4_launches_per_step")})
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return {"cf": cfg.moe_capacity_factor, "drops": drops,
+            "checks": rows, "timed": timed}
+
+
 def moe_card_worker(rank: int, world: int, init_method: str,
                     card: str) -> None:
-    """One rank of phase 17c across the cards, in an NCCL world of its
-    own (phase 16's reason)."""
+    """One rank of phases 17c and 17d across the cards, in an NCCL world
+    of its own."""
     import numpy as np
     import torch
+    from ompi_tpu_torch import optim
     from ompi_tpu_torch.models import transformer as tfm
+    from ompi_tpu_torch.ops import attention
     from ompi_tpu_torch.parallel import init_device_plane
     torch.backends.cuda.matmul.allow_tf32 = False
     init_device_plane(rank=rank, world_size=world, init_method=init_method,
                       timeout_s=600)
     out = log if rank == 0 else (lambda obj: None)
     moe = moe_multi_card(torch, np, tfm, world, card, out)
+    torch.cuda.empty_cache()
+    # 17d: the MoE mesh train step on the cards
+    moe["mesh_step"] = moe_mesh_multi_card(torch, np, tfm, optim, attention,
+                                           world, card, out)
     out({"moe": moe})
     leave_world(torch, out)
 
@@ -5994,11 +6310,11 @@ def mpi_phase(r_per: int, np_: int, timed, host_timed: bool,
 
 
 def multi_card_worker(rank: int, world: int, init_method: str,
-                      card: str, sync_path: str) -> None:
+                      card: str) -> None:
     """One rank of the multi-card run: an NCCL world of ``world``
     processes, one card each.  Phase 9 (R = 8 rank rows over the cards),
-    then phases 10c, 12d-e, 13e, 14c and 15b-d across them; rank 0 leaves
-    12d's timings at ``sync_path`` for phase 16."""
+    then phases 10c, 12d-e, 13e, 14c, 15b-d and 16 (but 16b) across
+    them."""
     import numpy as np
     import torch
     from ompi_tpu_torch.models import transformer as tfm
@@ -6034,9 +6350,10 @@ def multi_card_worker(rank: int, world: int, init_method: str,
     torch.cuda.empty_cache()
     # 15b-d: the serving fleet across the cards
     fleet = fleet_multi_card(torch, np, tfm, world, card, out)
-    if rank == 0:
-        with open(sync_path, "w") as fh:
-            json.dump({"numbers": sync["numbers"]}, fh)
+    torch.cuda.empty_cache()
+    # 16a, 16c-f: hierarchy and sequence parallelism (16c beside 12d's
+    # native timings)
+    hier = p13_multi_card(torch, np, tfm, optim, world, card, sync, out)
     out({"collectives": rows})
     out({"mesh": mesh_rows})
     out({"grad_sync": sync})
@@ -6044,64 +6361,101 @@ def multi_card_worker(rank: int, world: int, init_method: str,
     out({"serve": serve})
     out({"decode": decode})
     out({"fleet": fleet})
-    leave_world(torch, out)
-
-
-def hier_card_worker(rank: int, world: int, init_method: str, card: str,
-                     sync_path: str) -> None:
-    """One rank of phase 16 (but 16b) across the cards, in an NCCL world
-    of its own: the world of phases 9-15 with phase 16's groups added did
-    not tear down within leave_world's 60 s on four H100s, where each
-    alone tears down in about 10 s."""
-    import numpy as np
-    import torch
-    from ompi_tpu_torch import optim
-    from ompi_tpu_torch.models import transformer as tfm
-    from ompi_tpu_torch.parallel import init_device_plane
-    torch.backends.cuda.matmul.allow_tf32 = False
-    init_device_plane(rank=rank, world_size=world, init_method=init_method,
-                      timeout_s=600)
-    out = log if rank == 0 else (lambda obj: None)
-    with open(sync_path) as fh:
-        sync = json.load(fh)
-    hier = p13_multi_card(torch, np, tfm, optim, world, card, sync, out)
     out({"hier": hier})
     leave_world(torch, out)
 
 
-def leave_world(torch, log_fn, timeout_s: float = 60.0) -> None:
-    """End a multi-card rank: every rank's work on the card done, a
-    barrier, then the world torn down.  A teardown that has not returned
-    in ``timeout_s`` fails the run: the rank says so and exits with 1 at
-    once, without Python's own shutdown, which would wait on it."""
-    import os
+def group_purposes() -> dict:
+    """What made each process group this process holds, where the script
+    knows it: the axes of each world_mesh layout and the product groups
+    mesh.axes_group made on it (group name -> text)."""
+    from ompi_tpu_torch.parallel import mesh as mesh_mod
+    out = {}
+    for axes, mesh in _WORLD_MESHES.items():
+        layout = ".".join(f"{a}{n}" for a, n in axes)
+        for name in mesh.mesh_dim_names:
+            out[mesh.get_group(name).group_name] = f"{layout} axis {name}"
+        for key, group in mesh_mod._AXES_GROUPS.get(mesh, {}).items():
+            out[group.group_name] = f"{layout} axes {'×'.join(key)}"
+    return out
+
+
+def watched(fn, timeout_s: float):
+    """Run ``fn`` in a daemon thread: (whether it returned within
+    ``timeout_s``, its seconds)."""
     import threading
-    from torch.distributed import distributed_c10d
-    torch.cuda.synchronize()
-    torch.distributed.barrier()
-    # the process groups the world holds, its own included
-    groups = len(distributed_c10d._world.pg_map)
     t0 = time.perf_counter()
-    done = threading.Thread(target=torch.distributed.destroy_process_group,
-                            daemon=True)
+    done = threading.Thread(target=fn, daemon=True)
     done.start()
     done.join(timeout_s)
-    row = {"phase": "teardown", "destroyed": not done.is_alive(),
-           "seconds": time.perf_counter() - t0, "process_groups": groups}
-    log_fn(row)
-    if done.is_alive():
-        print(f"chip_smoke: the world's teardown did not return in "
-              f"{timeout_s} s: {row}", file=sys.stderr)
-        sys.stdout.flush()
-        sys.stderr.flush()
-        os._exit(1)
+    return not done.is_alive(), time.perf_counter() - t0
+
+
+def leave_world(torch, log_fn, timeout_s: float = 60.0) -> None:
+    """End a multi-card rank: every rank's work on the card done, a
+    barrier, then the world torn down one process group at a time, the
+    last made first and the world's own group last; each group's members,
+    what made it and its seconds are logged (teardown_group lines, then
+    the teardown line).  A group whose teardown has not returned in
+    ``timeout_s`` fails the run: the rank says which and exits with 1 at
+    once, without Python's own shutdown, which would wait on it.
+
+    The order is the one every member of a group shares: the groups are
+    made in one order on every rank.  destroy_process_group() of the
+    whole world takes them by name instead, and torch names a group split
+    from the world by a hash of its ranks and of how many groups the rank
+    already holds, which differs between ranks: with enough groups two
+    members reach a shared communicator at different points of their
+    orders, and NCCL's teardown of a communicator waits for its members,
+    so the ranks wait on each other (the world of phases 9-16 on four
+    H100s)."""
+    import os
+    from torch.distributed import distributed_c10d as c10d
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    world = c10d._world
+    rank = torch.distributed.get_rank()
+    # the process groups the world holds, its own included
+    groups = len(world.pg_map)
+    made_by = group_purposes()
+    default = c10d._get_default_group()
+    made = [g for g in world.pg_map if g is not default]
+    rows = []
+    t0 = time.perf_counter()
+    for pg in made[::-1] + [None]:
+        if pg is None:
+            name, ranks, what = "world", list(range(
+                torch.distributed.get_world_size())), "the world's own group"
+        else:
+            name = world.pg_names[pg]
+            ranks = sorted(world.pg_group_ranks[pg])
+            what = made_by.get(pg.group_name) or getattr(
+                pg, "group_desc", "") or "unnamed"
+        ok, seconds = watched(
+            lambda: torch.distributed.destroy_process_group(pg), timeout_s)
+        row = {"group": name, "ranks": ranks, "made_by": what,
+               "seconds": seconds, "destroyed": ok}
+        rows.append(row)
+        log_fn({"phase": "teardown_group", **row})
+        if not ok:
+            print(f"chip_smoke: rank {rank}: the teardown of process group "
+                  f"{row} did not return in {timeout_s} s", file=sys.stderr)
+            log_fn({"phase": "teardown", "destroyed": False,
+                    "seconds": time.perf_counter() - t0,
+                    "process_groups": groups, "groups": rows})
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(1)
+    log_fn({"phase": "teardown", "destroyed": True,
+            "seconds": time.perf_counter() - t0, "process_groups": groups,
+            "groups": rows})
 
 
 def multi_card_main() -> int:
-    """Phases 9, 10c, 12d-e, 13e, 14c and 15b-d across the host's
-    MULTI_CARDS cards, one spawned process a card; phase 16 (but 16b) in
-    a second such world and phase 17c in a third; then phases 11 and 16b
-    under tpurun, one rank bound to each card."""
+    """Phases 9, 10c, 12d-e, 13e, 14c, 15b-d and 16 (but 16b) across the
+    host's MULTI_CARDS cards, one spawned process a card; phases 17c and
+    17d in a second such world; then phases 11 and 16b under tpurun, one
+    rank bound to each card."""
     import os
     import tempfile
     import torch
@@ -6119,15 +6473,11 @@ def multi_card_main() -> int:
     log({"phase": "device", "card": card, "cards": world,
          "torch": torch.__version__, "cuda": torch.version.cuda})
     with tempfile.TemporaryDirectory() as tmp:
-        sync_path = os.path.join(tmp, "sync.json")
         mp.spawn(multi_card_worker, args=(
-            world, "file://" + os.path.join(tmp, "store"), card, sync_path),
+            world, "file://" + os.path.join(tmp, "store"), card),
             nprocs=world)
-        # 16a, 16c-f: hierarchy and sequence parallelism, a world of its own
-        mp.spawn(hier_card_worker, args=(
-            world, "file://" + os.path.join(tmp, "store16"), card,
-            sync_path), nprocs=world)
-        # 17c: MoE expert parallelism, a world of its own
+        # 17c, 17d: MoE expert parallelism and the MoE mesh step, a world
+        # of its own
         mp.spawn(moe_card_worker, args=(
             world, "file://" + os.path.join(tmp, "store17"), card),
             nprocs=world)
@@ -6533,6 +6883,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multi-card", action="store_true",
                     help="run only phases 9, 10c, 11, 12d-f, 13e, 14c, "
-                         "15b-d, 16 and 17c, across every visible card")
+                         "15b-d, 16, 17c and 17d, across every visible "
+                         "card")
     ns = ap.parse_args()
     sys.exit(multi_card_main() if ns.multi_card else main())

@@ -13,6 +13,16 @@ the share of all T·k dispatched slots.
   step.  Where the reference leaves the one-hot to ``jax.nn.one_hot``
   (a zero row for a position past the capacity), the port compares the
   positions with ``arange(C)``, which gives the same zero row.
+* ``moe_block_mesh`` — the same block on a dp×sp×ep×tp mesh (the mesh
+  train step): the reference's GSPMD collectives written out inside
+  autograd.  Each rank routes its own tokens, all-gathers the integer
+  expert ids over the token axes (dp × sp) and runs ``moe_block``'s
+  position loop on the whole batch, so the capacity, the slots and the
+  drops are the one-card block's; its experts' (E/ep, C, d) inputs are
+  its tokens' share summed over dp × sp, the gate and up products
+  column-parallel over tp and the down product row-parallel, and the
+  experts' outputs are all-gathered over ep for the combine.  The aux
+  takes its means over the whole batch.
 * ``ragged_ep_route`` / ``ragged_ep_combine`` — the dropless exchange over
   ``DeviceComm.row_gather`` + ``alltoallv_from_rows``.
 * ``moe_block_ep`` — the capacity-dropping block on the ragged exchange,
@@ -54,7 +64,7 @@ import torch.nn.functional as F
 
 from ..core import var as _var
 from ..device import DeviceLike, resolve_device
-from ..parallel.collectives import _all_gather
+from ..parallel.collectives import _all_gather, copy_to, gather_from
 from ..parallel import simdcn
 from ..parallel.mesh import axis_size
 
@@ -104,6 +114,41 @@ def _route(probs: torch.Tensor, top_k: int):
     return gate_vals, expert_idx
 
 
+def _positions(expert_idx: torch.Tensor, n_experts: int,
+               capacity: int) -> torch.Tensor:
+    """Each (token, slot)'s place in its expert's buffer, (T, k) long: the
+    slots earlier top-k rounds filled plus the earlier tokens of this
+    round, in token order (the reference's ``used``/``cumsum`` loop).  A
+    place at or past ``capacity`` is a drop, and fills no slot."""
+    experts = torch.arange(n_experts, device=expert_idx.device)
+    used = torch.zeros(n_experts, dtype=torch.long,
+                       device=expert_idx.device)
+    out = []
+    for slot in range(expert_idx.shape[1]):
+        e = expert_idx[:, slot]                                   # (T,)
+        onehot_e = (e[:, None] == experts).long()                 # (T, E)
+        pos_in_e = (torch.cumsum(onehot_e, dim=0) - 1) * onehot_e
+        pos = pos_in_e.sum(dim=1) + used[e]                       # (T,)
+        used = used + (onehot_e * (pos < capacity)[:, None]).sum(dim=0)
+        out.append(pos)
+    return torch.stack(out, dim=1)
+
+
+def _slot_mask(e: torch.Tensor, pos: torch.Tensor, experts: torch.Tensor,
+               slots: torch.Tensor) -> torch.Tensor:
+    """(T, E, C) bool: token t holds slot c of expert e this round.  A
+    dropped token's position matches no slot: a zero row, as
+    ``jax.nn.one_hot`` gives it."""
+    return ((e[:, None] == experts)[:, :, None]
+            & (pos[:, None] == slots)[:, None, :])
+
+
+def _capacity(tokens: int, top_k: int, capacity_factor: float,
+              n_experts: int) -> int:
+    return max(int(np.ceil(tokens * top_k * capacity_factor / n_experts)),
+               top_k)
+
+
 def moe_block(h: torch.Tensor, params: Dict, n_experts: int,
               top_k: int = 2, capacity_factor: float = 1.25,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -113,28 +158,17 @@ def moe_block(h: torch.Tensor, params: Dict, n_experts: int,
     x = h.reshape(t, d)
     cd = h.dtype
     probs = torch.softmax(x.float() @ params["router"], dim=-1)   # (T, E)
-    capacity = max(int(np.ceil(t * top_k * capacity_factor / n_experts)),
-                   top_k)
+    capacity = _capacity(t, top_k, capacity_factor, n_experts)
     gate_vals, expert_idx = _route(probs, top_k)                  # (T, k)
+    pos = _positions(expert_idx, n_experts, capacity)             # (T, k)
     experts = torch.arange(n_experts, device=h.device)
     slots = torch.arange(capacity, device=h.device)
     dispatch = torch.zeros((t, n_experts, capacity), dtype=cd,
                            device=h.device)
     combine = torch.zeros((t, n_experts, capacity), dtype=torch.float32,
                           device=h.device)
-    used = torch.zeros(n_experts, dtype=torch.long, device=h.device)
     for slot in range(top_k):
-        e = expert_idx[:, slot]                                   # (T,)
-        onehot_e = (e[:, None] == experts).long()                 # (T, E)
-        # this token's place in its expert's buffer: the slots earlier
-        # rounds filled plus the earlier tokens of this round
-        pos_in_e = (torch.cumsum(onehot_e, dim=0) - 1) * onehot_e
-        pos = pos_in_e.sum(dim=1) + used[e]                       # (T,)
-        keep = pos < capacity
-        # a dropped token's position matches no slot: a zero row
-        oh = ((e[:, None] == experts)[:, :, None]
-              & (pos[:, None] == slots)[:, None, :])              # (T, E, C)
-        used = used + (onehot_e * keep[:, None]).sum(dim=0)
+        oh = _slot_mask(expert_idx[:, slot], pos[:, slot], experts, slots)
         dispatch = dispatch + oh.to(cd)
         combine = combine + torch.where(
             oh, gate_vals[:, slot, None, None], 0.0)
@@ -148,6 +182,116 @@ def moe_block(h: torch.Tensor, params: Dict, n_experts: int,
     frac = torch.bincount(expert_idx.reshape(-1), minlength=n_experts
                           ).float() / (t * top_k)
     aux = n_experts * torch.sum(frac * probs.mean(dim=0))
+    return out.reshape(b, s, d), aux
+
+
+# -- the einsum block on a dp×sp×ep×tp mesh -----------------------------------
+
+def _global_ids(expert_idx: torch.Tensor, plan):
+    """This rank's (b, s, k) expert ids → (every token's ids (T, k) in the
+    one-card (b, s) order of the whole batch, the rows of this rank's
+    tokens in it (t,)).  The ids are all-gathered over the token axes
+    (dp × sp), whose group holds its members in the mesh's row-major
+    order; they carry no gradient."""
+    b, s, k = expert_idx.shape
+    dev = expert_idx.device
+    rows = ((plan.dp_rank * b + torch.arange(b, device=dev))[:, None]
+            * (s * plan.sp)
+            + plan.sp_rank * s + torch.arange(s, device=dev)[None, :])
+    if plan.data is None:
+        return expert_idx.reshape(-1, k), rows.reshape(-1)
+    g = _all_gather(expert_idx, plan.data)            # (dp·sp, b, s, k)
+    order = [a for a in plan.mesh.mesh_dim_names if a in ("dp", "sp")]
+    g = g.reshape(plan.dp if order[0] == "dp" else plan.sp, -1, b, s, k)
+    if order[0] == "sp":
+        g = g.transpose(0, 1)                         # (dp, sp, b, s, k)
+    g = g.reshape(plan.dp, plan.sp, b, s, k).permute(0, 2, 1, 3, 4)
+    return g.reshape(-1, k), rows.reshape(-1)
+
+
+def _dispatch_input(x: torch.Tensor, plan) -> torch.Tensor:
+    """The dispatch's read of the block input, through *f* over ep.  Each
+    ep rank's dispatch reads the tokens only for its own experts, so the
+    input's cotangent from the dispatch is a sum over ep; the router's
+    path, which every ep rank runs whole, takes the input directly."""
+    return copy_to(x, "ep", plan.mesh) if plan.ep > 1 else x
+
+
+def _combine_gather(eout: torch.Tensor, plan) -> torch.Tensor:
+    """Every expert's (E, C, d) outputs from each ep rank's (E/ep, C, d).
+    The tokens, and so the combine, are replicated over ep: every ep rank
+    computes the same mixture, whose cotangent is the same on each, so
+    the gather's backward is this rank's slice of it (``gather_from``),
+    not a reduce-scatter, which would count each expert's gradient ep
+    times."""
+    return gather_from(eout, 0, "ep", plan.mesh) if plan.ep > 1 else eout
+
+
+def moe_block_mesh(h: torch.Tensor, params: Dict, n_experts: int,
+                   top_k: int, capacity_factor: float, plan,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_block`` on a mesh (``models/transformer._Plan``): h is this
+    rank's (b, s, d) tokens, cut over dp (batch) and sp (sequence) and
+    replicated over ep and tp; params the router (whole) and this rank's
+    experts, (E/ep, d, f/tp) gate and up and (E/ep, f/tp, d) down
+    (``moe_param_specs``).  Returns (this rank's (b, s, d) mixture,
+    replicated over ep and tp; the aux over the whole batch, the same on
+    every rank).  Collective over the mesh.
+
+    The reference runs the single program under GSPMD, so this is what
+    it computes: capacity C = ceil(T·k·cf/E) over the global T, each
+    token's slot from the position loop over the whole batch in (b, s)
+    order, and the aux's fraction and mean probability over the whole
+    batch.  The ids are gathered; the gates stay local and
+    differentiable."""
+    b, s, d = h.shape
+    t, cd = b * s, h.dtype
+    x = h.reshape(t, d)
+    probs = torch.softmax(x.float() @ params["router"], dim=-1)   # (t, E)
+    gate_vals, expert_idx = _route(probs, top_k)                  # (t, k)
+    everyone, mine = _global_ids(expert_idx.reshape(b, s, top_k), plan)
+    T = everyone.shape[0]
+    capacity = _capacity(T, top_k, capacity_factor, n_experts)
+    pos = _positions(everyone, n_experts, capacity)[mine]         # (t, k)
+    n_local = n_experts // plan.ep
+    lo = plan.ep_rank * n_local
+    experts = torch.arange(n_experts, device=h.device)
+    slots = torch.arange(capacity, device=h.device)
+    dispatch = torch.zeros((t, n_local, capacity), dtype=cd,
+                           device=h.device)
+    combine = torch.zeros((t, n_experts, capacity), dtype=torch.float32,
+                          device=h.device)
+    for slot in range(top_k):
+        oh = _slot_mask(expert_idx[:, slot], pos[:, slot], experts, slots)
+        dispatch = dispatch + oh[:, lo:lo + n_local].to(cd)
+        combine = combine + torch.where(
+            oh, gate_vals[:, slot, None, None], 0.0)
+    # this rank's tokens' share of its experts' inputs (E/ep, C, d); every
+    # slot belongs to one token, so the sum over dp × sp (*g*) completes
+    # them.  Its backward is the identity, not a second sum: the expert
+    # FFN is row-wise and a rank's combine reads only its tokens' slots,
+    # so the cotangent of rank i's expert inputs is nonzero only on rank
+    # i's slots, the ones its dispatch wrote
+    ein = plan.data_sum(torch.einsum("tec,td->ecd", dispatch,
+                                     _dispatch_input(x, plan)))
+    # the experts: gate and up column-parallel over tp (*f* first), down
+    # row-parallel (*g* after)
+    ein = plan.to_tp(ein)
+    gate = F.silu(torch.einsum("ecd,edf->ecf", ein,
+                               params["w_gate"].to(cd)))
+    up = torch.einsum("ecd,edf->ecf", ein, params["w_up"].to(cd))
+    eout = plan.from_tp(torch.einsum("ecf,efd->ecd", gate * up,
+                                     params["w_down"].to(cd)))
+    out = torch.einsum("tec,ecd->td", combine.to(cd),
+                       _combine_gather(eout, plan))
+    # the aux over the whole batch: the fraction from every token's ids,
+    # the mean probability from the probabilities summed over dp × sp
+    # (*g*: each rank's backward carries its own tokens' share, and the
+    # gradient sync over dp × sp adds the shares)
+    frac = torch.bincount(everyone.reshape(-1), minlength=n_experts
+                          ).float() / everyone.numel()
+    mean_probs = plan.data_sum(probs.sum(dim=0)) / T
+    aux = n_experts * torch.sum(frac * mean_probs)
     return out.reshape(b, s, d), aux
 
 
@@ -419,8 +563,7 @@ def moe_block_ep(dc, h: torch.Tensor, params: Dict, n_experts: int,
     probs, gate_vals, expert_idx = _router_fwd(h, params["router"], top_k)
     eid = _all_rows(dc, expert_idx).cpu().numpy()                 # (R, t, k)
     aux = _router_aux(dc, probs, eid, n_experts)
-    capacity = max(int(np.ceil(t * R * top_k * cf_eff / n_experts)),
-                   top_k)
+    capacity = _capacity(t * R, top_k, cf_eff, n_experts)
     plan = _route_plan(eid, n_experts, epr, capacity)
     tok_bytes = d * h.element_size()
     kinds = dc.axis_kinds()

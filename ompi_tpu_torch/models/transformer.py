@@ -17,11 +17,12 @@ layer in ``torch.utils.checkpoint``: ``"full"`` recomputes the layer,
 ``"dots"`` saves the weight products' outputs and recomputes the rest, K1
 included.  ``loss_chunk`` runs the chunked cross-entropy.
 
-On a mesh (a ``DeviceMesh`` with axes among dp, sp and tp; one process a
-rank) the reference's GSPMD collectives are written out.  ``shard_params``
-gives each rank its Megatron shard (``param_specs``): ``wqkv``, ``w_gate``
-and ``w_up`` column-parallel, ``wo`` and ``w_down`` row-parallel, ``embed``
-vocab-parallel, norms replicated; ``wqkv``'s columns are cut by heads, so
+On a mesh (a ``DeviceMesh`` with axes among dp, sp, ep and tp; one
+process a rank) the reference's GSPMD collectives are written out.
+``shard_params`` gives each rank its Megatron shard (``param_specs``):
+``wqkv``, ``w_gate`` and ``w_up`` column-parallel, ``wo`` and ``w_down``
+row-parallel, ``embed`` vocab-parallel, norms replicated (a MoE layer's
+experts over ep); ``wqkv``'s columns are cut by heads, so
 tp rank t holds heads [t·h/tp, (t+1)·h/tp) of each of q, k and v.  Each
 column-parallel product takes its input through *f* and each row-parallel
 one ends in *g* (``parallel.collectives``); the lookup and the
@@ -65,13 +66,18 @@ whose tp combines are the collective-matmul rings (``serving/fused``).
 expert block (``models/moe``, the reference's keys: a ``"moe"`` subtree of
 ``router``, ``w_gate``, ``w_up``, ``w_down`` in place of the dense three).
 ``forward`` then returns ``(logits, router aux)``, ``loss_fn`` adds
-``moe.aux_weight(cfg.moe_aux_weight) × aux``, and the one-card train step
-differentiates the einsum block (``moe_block``), as the reference's jitted
-step does.  ``moe_forward_ep``/``moe_eval_loss`` run every MoE layer on the
-ragged expert-parallel exchange of a ``DeviceComm`` (``moe_block_ep``), the
-forward/eval/serving arm.  On a mesh, ``mlp="moe"`` is refused naming
-ROADMAP slice P12b (the einsum block's expert all-to-all inside the mesh
-step).  The port's own refusals: ``attn="flash"`` or
+``moe.aux_weight(cfg.moe_aux_weight) × aux``, and the train step
+differentiates the einsum block, as the reference's jitted step does: on
+one card ``moe_block``, on a mesh ``moe_block_mesh``, whose experts are
+cut over ep and their features over tp (``moe_param_specs``), with the
+batch's capacity, slots and aux those of the one-card block.  The MoE mesh
+loss adds the aux, the same global value on every rank, once, beside the
+cross-entropy's sum over dp × sp.  With ``grad_sync`` other than native a
+dp-only mesh runs ``moe_block`` on each rank's rows, with the capacity
+over those rows, as the reference's per-shard loss does.
+``moe_forward_ep``/``moe_eval_loss`` run every MoE layer on the ragged
+expert-parallel exchange of a ``DeviceComm`` (``moe_block_ep``), the
+forward/eval/serving arm.  The port's own refusals: ``attn="flash"`` or
 ``"dense"`` on sp > 1 when this rank's h/tp heads do not divide over sp
 (Ulysses splits them), and ``tp_overlap="fused"`` on sp > 1 (the fused
 layer attends its rank's sequence; the reference replicates it over sp).
@@ -104,7 +110,8 @@ from ..parallel.mesh import axes_group, axis_rank, axis_size, sharded
 from ..parallel.reshard import resharder
 from ..parallel.ring import attention_reference, ring_attention
 from ..parallel.ulysses import ulysses_attention
-from .moe import init_moe_params, moe_block, moe_param_specs
+from .moe import (init_moe_params, moe_block, moe_block_mesh,
+                  moe_param_specs)
 
 _CHOICES = {"attn": ("dense", "flash", "ring"), "mlp": ("dense", "moe"),
             "tp_overlap": ("none", "fused"),
@@ -384,22 +391,26 @@ def convert_params(params: Dict[str, Any], mesh: DeviceMesh, cfg: Config,
 
 
 class _Plan:
-    """What the layers need of a dp×sp×tp mesh, read once a call: each
+    """What the layers need of a dp×sp×ep×tp mesh, read once a call: each
     axis's size and this rank's position on it (an axis the mesh lacks
-    has one member), and the collectives the reference's GSPMD inserted."""
+    has one member), and the collectives the reference's GSPMD inserted.
+    The batch is cut over dp and sp and replicated over ep and tp; only a
+    MoE layer's experts are cut over ep (``models/moe.moe_block_mesh``)."""
 
     def __init__(self, mesh: DeviceMesh, cfg: Config) -> None:
         self.mesh = mesh
-        self.dp, self.sp, self.tp = (axis_size(mesh, a)
-                                     for a in ("dp", "sp", "tp"))
-        self.dp_rank, self.sp_rank, self.tp_rank = (
-            axis_rank(mesh, a) for a in ("dp", "sp", "tp"))
+        self.dp, self.sp, self.ep, self.tp = (
+            axis_size(mesh, a) for a in ("dp", "sp", "ep", "tp"))
+        self.dp_rank, self.sp_rank, self.ep_rank, self.tp_rank = (
+            axis_rank(mesh, a) for a in ("dp", "sp", "ep", "tp"))
         self.ring = cfg.attn == "ring" and "sp" in mesh.mesh_dim_names
         # flash and dense attend the whole sequence: over sp > 1 through
         # the Ulysses exchange
         self.ulysses = cfg.attn != "ring" and self.sp > 1
         self.fused = cfg.tp_overlap == "fused"
         # every leaf is replicated over dp and sp: its gradient sums there
+        # (over ep a replicated leaf's gradient is already whole on each
+        # rank, and an expert's lives on one ep rank)
         self.data = (axes_group(mesh, ("dp", "sp"))
                      if self.dp * self.sp > 1 else None)
 
@@ -473,7 +484,7 @@ def _plan(mesh: Optional[DeviceMesh], cfg: Config) -> Optional[_Plan]:
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh: a torch.distributed DeviceMesh (make_mesh), "
                         f"not {type(mesh).__name__}")
-    _check_moe_mesh(cfg)
+    _check_moe_mesh(cfg, mesh)
     if cfg.loss_chunk:
         # the reference's refusal: the seq slicing would cross sp shards
         raise ValueError("loss_chunk is only supported single-controller "
@@ -492,15 +503,26 @@ def _plan(mesh: Optional[DeviceMesh], cfg: Config) -> Optional[_Plan]:
     return _Plan(mesh, cfg)
 
 
-def _check_moe_mesh(cfg: Config) -> None:
-    """mlp='moe' runs on one card (the einsum block) or on a DeviceComm
-    (moe_forward_ep); the mesh step's expert exchange is still to port."""
-    if cfg.mlp == "moe":
-        raise NotImplementedError(
-            "mlp='moe' on a mesh: the einsum block with its expert "
-            "all-to-all inside the mesh step comes with ROADMAP slice P12b "
-            "(one card: no mesh; the expert-parallel forward: "
-            "moe_forward_ep / moe_eval_loss on a DeviceComm)")
+_MOE_AXES = ("dp", "sp", "ep", "tp")
+
+
+def _check_moe_mesh(cfg: Config, mesh: DeviceMesh) -> None:
+    """mlp='moe' on a mesh (the native step) runs ``moe_block_mesh``: its
+    axes must be among dp, sp, ep and tp (the experts cut over ep, their
+    features over tp, the batch over dp × sp), and the experts must
+    divide over ep."""
+    if cfg.mlp != "moe":
+        return
+    other = [a for a in mesh.mesh_dim_names if a not in _MOE_AXES]
+    if other:
+        raise ValueError(
+            f"mlp='moe' on a mesh takes axes among {_MOE_AXES}; "
+            f"{tuple(other)} are not one of them (mesh axes: "
+            f"{tuple(mesh.mesh_dim_names)})")
+    ep = axis_size(mesh, "ep")
+    if cfg.n_experts % ep:
+        raise ValueError(f"Config.n_experts={cfg.n_experts} does not "
+                         f"divide over ep={ep}")
 
 
 def _check_fused(cfg: Config, mesh: Optional[DeviceMesh]) -> None:
@@ -695,8 +717,10 @@ def _layer_apply(x, layer, cfg: Config, mesh: Optional[_Plan] = None):
     x = _attn_apply(x, layer, cfg, mesh)
     h = _rms_norm(x, layer["mlp_norm"])
     if "moe" in layer:
-        out, aux = moe_block(h, layer["moe"], cfg.n_experts, cfg.moe_top_k,
-                             cfg.moe_capacity_factor)
+        block = (moe_block if mesh is None else functools.partial(
+            moe_block_mesh, plan=mesh))
+        out, aux = block(h, layer["moe"], cfg.n_experts, cfg.moe_top_k,
+                         cfg.moe_capacity_factor)
         return x + out, aux
     if mesh is not None:
         h = mesh.to_tp(h)
@@ -833,10 +857,16 @@ def loss_fn(params: Dict[str, Any], tokens, cfg: Config,
         x, _ = _backbone(params, tokens[:, :-1], cfg, embed)
         return _chunked_ce(x, embed, targets, int(cfg.loss_chunk))
     out = forward(params, tokens[:, :-1], cfg, tokens.device, mesh)
-    if plan is not None:
-        ce = plan.cross_entropy(out, plan.local(targets))
-        return plan.data_sum(ce.sum() / targets.numel())
     logits, aux = out if cfg.mlp == "moe" else (out, None)
+    if plan is not None:
+        ce = plan.cross_entropy(logits, plan.local(targets))
+        ce = plan.data_sum(ce.sum() / targets.numel())
+        if aux is None:
+            return ce
+        # the aux is the global value on every rank: it enters once, beside
+        # the sum over dp × sp (inside it, it would count dp·sp times); its
+        # backward carries this rank's tokens' share (moe_block_mesh)
+        return ce + moe_plane.aux_weight(cfg.moe_aux_weight) * aux
     ce = _cross_entropy(logits, targets)
     if aux is None:
         return ce
@@ -961,7 +991,6 @@ def make_value_and_grad(cfg: Config, mesh: Any = None,
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh: a torch.distributed DeviceMesh (make_mesh), "
                         f"not {type(mesh).__name__}")
-    _check_moe_mesh(cfg)
     if cfg.grad_sync == "quant":
         return _quant_grad_sync(cfg, mesh, dev)
     return overlap.make_grad_sync(

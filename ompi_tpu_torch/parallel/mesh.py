@@ -106,7 +106,8 @@ def axes_group(mesh: DeviceMesh, axes: Sequence[str]):
         ranks = np.transpose(mesh.mesh.numpy(), rest + keep)
         me = dist.get_rank()
         for row in ranks.reshape(-1, width):
-            group = dist.new_group(row.tolist())
+            group = dist.new_group(row.tolist(),
+                                   group_desc="axes_" + "_".join(key))
             if me in row:
                 groups[key] = group
     return groups[key]

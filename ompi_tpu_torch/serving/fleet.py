@@ -366,7 +366,7 @@ class ServingFleet:
                 p = self.prefill_ids[i % len(self.prefill_ids)]
                 ranks = tuple(sorted(rows[p] + rows[t]))
                 if ranks not in layouts["pairs"]:
-                    g = dist.new_group(list(ranks))
+                    g = dist.new_group(list(ranks), group_desc="fleet_pair")
                     layouts["pairs"][ranks] = (
                         DeviceComm(DeviceMesh.from_group(
                             g, self.mesh.device_type,

@@ -1,4 +1,5 @@
-"""What the gloo workers of the port's mesh tests run.
+"""What the gloo workers of the port's mesh tests run (the dense and the
+MoE mesh step).
 
 ``_torch_coll_worker.Pool`` runs these by ``"_torch_mesh_worker:<name>"``
 in every process of its world; each function builds (once) the named mesh
@@ -148,3 +149,67 @@ def train(dc, axes, cfg_kw, tree, batches, learning_rate):
         params, state, loss = step(params, state, b)
         losses.append(float(loss))
     return losses, _leaves(tfm.gather_params(params, mesh, cfg))
+
+
+# -- the MoE mesh step (models/moe.moe_block_mesh) ----------------------------
+
+def moe_roundtrip(dc, axes, cfg_kw, tree):
+    """shard_params then gather_params on a MoE tree: whether every leaf
+    comes back bitwise, this rank's mesh coordinates and its layer-0
+    expert shards (w_gate, w_down)."""
+    cfg = _config(cfg_kw)
+    mesh, full, shards = _shards(axes, cfg, tree)
+    back = tfm.gather_params(shards, mesh, cfg)
+    same = all(torch.equal(a, b) for a, b in zip(
+        optim.tree_leaves(full), optim.tree_leaves(back)))
+    moe = shards["layers"][0]["moe"]
+    return (same, coords(dc, axes), _host(moe["w_gate"]),
+            _host(moe["w_down"]))
+
+
+def _local_ids(expert_idx, plan):
+    """A planted fault: the routing over this rank's own tokens (its ids
+    alone, so the capacity and the positions are taken over them)."""
+    k = expert_idx.shape[-1]
+    return expert_idx.reshape(-1, k), torch.arange(expert_idx[..., 0].numel())
+
+
+def moe_value_and_grad(dc, axes, cfg_kw, tree, tokens, fault=None):
+    """The MoE mesh loss and gathered gradients (tree_leaves order), this
+    rank's own router gradient of each layer (the router is replicated:
+    every rank holds the whole), its coordinates and the expert ids each
+    layer routed this rank's (b, s) tokens to.  ``fault="local_capacity"``
+    plants the routing over the rank's own tokens."""
+    from ompi_tpu_torch.models import moe as moe_mod
+    cfg = _config(cfg_kw)
+    mesh, _, shards = _shards(axes, cfg, tree)
+    ids, real, real_ids = [], moe_mod._route, moe_mod._global_ids
+
+    def rec(probs, top_k):
+        gate_vals, expert_idx = real(probs, top_k)
+        ids.append(expert_idx.clone())
+        return gate_vals, expert_idx
+
+    moe_mod._route = rec
+    if fault == "local_capacity":
+        moe_mod._global_ids = _local_ids
+    try:
+        loss, grads = tfm.value_and_grad(shards, tokens, cfg, device="cpu",
+                                         mesh=mesh)
+    finally:
+        moe_mod._route, moe_mod._global_ids = real, real_ids
+    local = _unflatten(shards, grads)
+    full = tfm.gather_params(local, mesh, cfg)
+    return (float(loss), _leaves(full),
+            [_host(layer["moe"]["router"]) for layer in local["layers"]],
+            coords(dc, axes), [i.numpy() for i in ids])
+
+
+def moe_mesh_refused(dc, axes, cfg_kw):
+    """The error the MoE mesh step raises on ``axes``: (type, message)."""
+    cfg = _config(cfg_kw)
+    try:
+        tfm.make_train_step(cfg, _mesh(axes), device="cpu")
+    except (ValueError, NotImplementedError) as e:
+        return type(e).__name__, str(e)
+    return None

@@ -147,12 +147,12 @@ def test_greedy_stream_matches_jax(weights):
 @pytest.mark.parametrize("field,value,slice_", [
     ("mlp", "moe", "P12b"), ("tp_overlap", "fused", "P9")])
 def test_unported_options_refuse(field, value, slice_):
-    """An option still to port is refused by its slice's name.  Slice P9
-    brought tp_overlap="fused": the Config takes it, and without a mesh the
-    forward raises the reference's ValueError (it needs a tp axis).  Slice
-    P12a brought mlp="moe" on one device: the Config takes it, and on a
-    mesh the forward and the train step raise naming P12b (the expert
-    all-to-all inside the mesh step)."""
+    """Options that a slice brought, where a refusal stood before.  Slice
+    P9 brought tp_overlap="fused": the Config takes it, and without a mesh
+    the forward raises the reference's ValueError (it needs a tp axis).
+    Slice P12a brought mlp="moe" on one device and P12b on a mesh: on a
+    (1, 1, 1) mesh the forward and the train step ("native" and
+    "bucketed") run and equal the one-card forward and step."""
     if slice_ == "P9":
         jcfg = jax_tfm.Config(**KW, dtype=jnp.float32, tp_overlap=value)
         cfg = tfm.Config(**KW, dtype=torch.float32, tp_overlap=value)
@@ -166,20 +166,36 @@ def test_unported_options_refuse(field, value, slice_):
             tfm.forward(params, tokens, cfg, device="cpu")
         return
     cfg = tfm.Config(**KW, dtype=torch.float32, **{field: value})
-    params = tfm.init_params(torch.Generator().manual_seed(0), cfg,
-                             device="cpu")
+    pristine = tfm.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
     tokens = _tokens((2, KW["seq"] + 1), seed=7)
+    clone = lambda: optim.tree_map(lambda t: t.clone(), pristine)
+
+    def one_step(c, mesh=None):
+        init_opt, step = tfm.make_train_step(c, mesh, device="cpu")
+        params = clone()
+        params, _, loss = step(params, init_opt(params), tokens)
+        return float(loss), optim.tree_leaves(params)
+
+    want_logits, want_aux = tfm.forward(pristine, tokens[:, :-1], cfg,
+                                        device="cpu")
+    want_loss, want_params = one_step(cfg)
     dist.init_process_group("gloo", rank=0, world_size=1,
                             store=dist.HashStore())
     try:
         mesh = init_device_mesh("cpu", (1, 1, 1),
                                 mesh_dim_names=("dp", "sp", "tp"))
-        with pytest.raises(NotImplementedError, match=slice_):
-            tfm.forward(params, tokens[:, :-1], cfg, device="cpu", mesh=mesh)
+        logits, aux = tfm.forward(pristine, tokens[:, :-1], cfg,
+                                  device="cpu", mesh=mesh)
+        torch.testing.assert_close(logits, want_logits, rtol=1e-5,
+                                   atol=1e-5)
+        assert abs(float(aux) - float(want_aux)) <= 1e-6
         for mode in ("native", "bucketed"):
-            with pytest.raises(NotImplementedError, match=slice_):
-                tfm.make_train_step(dataclasses.replace(cfg, grad_sync=mode),
-                                    mesh, device="cpu")
+            loss, params = one_step(dataclasses.replace(cfg, grad_sync=mode),
+                                    mesh)
+            assert abs(loss - want_loss) <= 2e-5 * abs(want_loss)
+            for got, want in zip(params, want_params):
+                torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     finally:
         dist.destroy_process_group()
 
