@@ -169,8 +169,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                bytes, K1/K2/K3/K4 launches of one step exactly 12/6/6/0,
                6/6/6/0 and 12/6/6/0, a falling loss, one profiled "dots"
                step (moe_train_numbers, profile lines).
+ 18. audit  — in phase 9's world, after phase 12 (P16a-1): (a) the
+               flagship step at full width on {"dp": 1}, grad_sync
+               "bucketed" in 4 MiB buckets, five steps timed with the
+               trace, perf and traffic planes off and then on: step ms,
+               the events a step by category, the ring's dropped events,
+               K1/K2/K3/K4 launches still 12/6/6/0 a step, one
+               decide:grad_sync event a bucket and one grad_sync:run span
+               a step, the traffic plane's grad_sync charge 2(n-1)/n x the
+               gradient bytes, and the goodput row the step records
+               (wall, tokens/s, MFU at perf_peak_tflops 989) beside phase
+               8's MFU (audit_train, audit_check lines); DeviceComm's
+               allreduce at 1 and 64 MB a row, R = 8, with perf on: the
+               host's dispatch ms (no synchronize, as perf.timed_coll
+               samples) beside its CUDA-event ms, and the cost model's
+               cells, none with one process (audit_numbers lines).
 The last lines are the collectives, mesh, mpi, grad_sync, serve, decode,
-fleet, moe and kernels JSON objects (the kernels line carries each
+fleet, moe, audit and kernels JSON objects (the kernels line carries each
 kernel's launches in one MoE step, moe_step_launches),
 the nvidia-smi line and {"ok": true, "device": {...}}.  Without CUDA it
 exits 1 and prints no result.
@@ -307,7 +322,22 @@ Each world's ranks end through leave_world: its process groups destroyed
 one at a time in the order the world's teardown takes them, each with its
 members, what made it (a world_mesh layout's axis or product group, or the
 group's own description) and its seconds (teardown_group lines), then the
-world's teardown line with the count of groups it held.
+world's teardown line with the count of groups it held.  Last, phase
+18 across the cards: (b) tpurun -np 4 --gpus-per-rank 1 runs the audit
+rank program, comm_world attached to {"x": 4} with the three planes on:
+the twelve comm.coll entries of the JAX package's audit test leave one
+decision event each on every rank, with the same arm, reason and chain on
+every rank; traffic_attributed_bytes equals the spc's coll_wire_bytes,
+nothing unattributed, the edges (all 12, all ICI) summing to the wire;
+mpisync's offsets and best RTT; trace.gather to rank 0, timed, and the
+merged Chrome trace monotonic with no overlap in any lane; planted
+faults (a) one edge's charge dropped, (b) a second decision event for one
+bcast and (c) rank 2 sleeping 5 ms before each of 20 allreduces each fail
+their check (entry_skew flags exactly rank 2, and nobody without the
+sleep); the cost model's cells for comm.coll.allreduce at 1 and 64 MB a
+rank (dispatch-time samples) beside their CUDA-event ms (audit_check,
+audit_numbers lines); (c) the flagship step on {"dp": 4} as in 18a, the
+planes off and on (then the audit line).
 """
 
 from __future__ import annotations
@@ -1238,13 +1268,13 @@ def train_path(torch, tfm, optim, attention, cfg, pristine, tokens):
     return per_step
 
 
-def timed_steps(torch, step, params, state, tokens):
-    """TIMED_STEPS chained train steps, each between two CUDA events:
-    the params and state after them, each step's ms, the host's ms to
-    issue each (nothing in a step waits for the card: near the step's ms,
-    it is host-bound) and each step's loss."""
+def timed_steps(torch, step, params, state, tokens, n: int = TIMED_STEPS):
+    """``n`` chained train steps, each between two CUDA events: the params
+    and state after them, each step's ms, the host's ms to issue each
+    (nothing in a step waits for the card: near the step's ms, it is
+    host-bound) and each step's loss."""
     times, host, losses = [], [], []
-    for _ in range(TIMED_STEPS):
+    for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -6236,6 +6266,443 @@ def ring_rank(np, laps: int) -> None:
     runtime.finalize()
 
 
+# -- 18. the audit planes: trace, perf and traffic -----------------------------
+
+AUDIT_STEPS = 5                # timed steps a side, after one warm-up step
+AUDIT_BUCKET = 4 << 20         # phase 12d's bucket bytes
+AUDIT_PEAK_TFLOPS = 989.0      # perf_peak_tflops: the card's dense bf16
+AUDIT_SIZES_MB = (1, 64)       # MB a row of the sampled allreduces
+AUDIT_DISPATCHES = 10          # allreduces a size the cost model samples
+AUDIT_SKEW_CALLS = 20
+AUDIT_SKEW_SLEEP_S = 5e-3
+AUDIT_STRAGGLER = 2
+AUDIT_Z = 2.0                  # entry_skew's z threshold (the reference's
+#                                doctor tests use 2.0)
+
+
+@contextlib.contextmanager
+def audit_planes(on: bool):
+    """The three audit planes switched on (emptied first) or off, with
+    perf_peak_tflops at AUDIT_PEAK_TFLOPS; all three off after."""
+    from ompi_tpu_torch import perf, trace, traffic
+    from ompi_tpu_torch.core import var
+    for mod in (trace, perf, traffic):
+        if on:
+            mod.enable()
+        else:
+            mod.disable()
+    trace.clear()
+    perf.reset()
+    traffic.reset()
+    var.registry.set_override("perf_peak_tflops", AUDIT_PEAK_TFLOPS)
+    try:
+        yield
+    finally:
+        for mod in (trace, perf, traffic):
+            mod.disable()
+        var.registry.set_override("perf_peak_tflops", 0.0)
+
+
+def lane_overlaps(doc) -> int:
+    """Complete spans of a Chrome document that start before the previous
+    span of their (pid, tid) lane ends."""
+    lanes = {}
+    for e in doc["traceEvents"]:
+        if e["ph"] == "X":
+            lanes.setdefault((e["pid"], e["tid"]), []).append(e)
+    bad = 0
+    for spans in lanes.values():
+        spans.sort(key=lambda e: e["ts"])
+        bad += sum(a["ts"] + a["dur"] > b["ts"]
+                   for a, b in zip(spans, spans[1:]))
+    return bad
+
+
+def audit_train(torch, tfm, optim, attention, cfg, pristine, tokens, mesh,
+                card: str, log_fn) -> dict:
+    """18a/18c: the flagship step on a dp mesh, grad_sync "bucketed" in
+    AUDIT_BUCKET buckets, AUDIT_STEPS steps timed by CUDA events with the
+    planes off and then on, in one call.  With them on: the events a step
+    by category, the ring's dropped count, the goodput rows the step
+    records, and the checks — K1-K4 launches unchanged (2n/n/n/0 a step),
+    one decide:grad_sync event a bucket and one grad_sync:run span a step,
+    the traffic plane's grad_sync charge 2(n-1)/n × the gradient bytes."""
+    from ompi_tpu_torch import perf, trace, traffic
+    from ompi_tpu_torch.parallel import overlap
+    c = dataclasses.replace(cfg, grad_sync="bucketed",
+                            grad_bucket_bytes=AUDIT_BUCKET)
+    n = cfg.n_layers
+    cards = mesh.mesh.numel()
+    grad_bytes = sum(4 * p.numel() for p in optim.tree_leaves(pristine))
+    n_tokens = tokens.shape[0] * (tokens.shape[1] - 1)
+    fpt = tfm.train_flops_per_token(cfg)
+    rows = {}
+    for on in (False, True):
+        gp_rows = []
+
+        def spy(wall_s, _real=perf.record_step, **kw):
+            row = _real(wall_s, **kw)
+            gp_rows.append(row)
+            return row
+
+        with audit_planes(on), planted(perf, "record_step", spy):
+            init_opt, step = tfm.make_train_step(c, mesh, learning_rate=1e-3)
+            params = tfm.shard_params(pristine, mesh, c)
+            state = init_opt(params)
+            params, state, _ = step(params, state, tokens)     # warm-up
+            torch.cuda.synchronize()
+            trace.clear()
+            perf.reset()
+            traffic.reset()
+            gp_rows.clear()
+            zero_counts(attention)
+            params, state, times, host, losses = timed_steps(
+                torch, step, params, state, tokens, AUDIT_STEPS)
+            launches = [x / AUDIT_STEPS for x in launch_counts(attention)]
+            buckets = overlap.pvar_value("grad_bucket_count")
+            by_cat, by_name = {}, {}
+            for e in trace.events():
+                by_cat[e["cat"]] = by_cat.get(e["cat"], 0) + 1
+                by_name[e["name"]] = by_name.get(e["name"], 0) + 1
+            per_step = lambda d: {k: v / AUDIT_STEPS for k, v in d.items()}
+            charge = traffic.matrix.per_coll().get("grad_sync", 0)
+            dropped = trace.dropped_events()
+        del params, state
+        torch.cuda.empty_cache()
+        ms = statistics.median(times)
+        tokens_per_s = n_tokens / ms * 1e3
+        row = {"phase": "audit_train", "planes": "on" if on else "off",
+               "cards": cards, "mesh": dict(zip(mesh.mesh_dim_names,
+                                                mesh.mesh.shape)),
+               "bucket_bytes": AUDIT_BUCKET, "buckets": buckets,
+               "step_ms": ms, "step_ms_all": times,
+               "host_issue_ms": statistics.median(host),
+               "tokens_per_s": tokens_per_s,
+               "mfu_phase8": tokens_per_s * fpt / (PEAK_BF16_FLOPS * cards),
+               "k1_k2_k3_k4_launches_per_step": launches,
+               "events_per_step_by_category": per_step(by_cat),
+               "events_per_step_by_name": per_step(by_name),
+               "dropped_events": dropped, "final_loss": losses[-1],
+               "card": card}
+        if on:
+            walls = [r["wall_s"] for r in gp_rows]
+            row["goodput"] = {
+                "rows": len(gp_rows), "wall_ms": statistics.median(walls)
+                * 1e3, "tokens": gp_rows[0]["tokens"],
+                "tokens_per_s": gp_rows[0]["tokens"]
+                / statistics.median(walls),
+                "mfu_pct": statistics.median(r["mfu_pct"] for r in gp_rows),
+                "peak_tflops": AUDIT_PEAK_TFLOPS}
+            want_charge = AUDIT_STEPS * (2 * (cards - 1) * grad_bytes
+                                         // cards)
+            checks = {
+                "launches_unchanged": launches == [2 * n, n, n, 0],
+                "one_decision_a_bucket": by_name.get("decide:grad_sync", 0)
+                == AUDIT_STEPS * buckets,
+                "one_run_span_a_step": by_name.get("grad_sync:run", 0)
+                == AUDIT_STEPS,
+                "bucket_spans": by_name.get("grad_sync:bucket", 0)
+                == AUDIT_STEPS * buckets,
+                "grad_sync_charge": charge == want_charge,
+                "goodput_row_a_step": len(gp_rows) == AUDIT_STEPS
+                and gp_rows[0]["tokens"] == n_tokens,
+                "no_dropped_events": dropped == 0}
+            log_fn({"phase": "audit_check", "check": "train_step",
+                    "cards": cards, "checks": checks,
+                    "grad_sync_charge_bytes": charge,
+                    "want_charge_bytes": want_charge,
+                    "ok": all(checks.values())})
+            if not all(checks.values()):
+                raise AssertionError(f"18: the audited step: {checks}")
+        elif launches != [2 * n, n, n, 0]:
+            raise AssertionError(f"18: K1-K4 launches a step {launches}")
+        log_fn(row)
+        rows[row["planes"]] = {k: row[k] for k in (
+            "step_ms", "tokens_per_s", "mfu_phase8",
+            "events_per_step_by_category", "dropped_events") if k in row}
+        if on:
+            rows["on"]["goodput"] = row["goodput"]
+    rows["overhead_ms"] = rows["on"]["step_ms"] - rows["off"]["step_ms"]
+    return rows
+
+
+def audit_one_card(torch, np, tfm, optim, attention, cfg, pristine, tokens,
+                   card: str, log_fn=log) -> dict:
+    """18a, in phase 9's world: the audited step on {"dp": 1} with the
+    planes off and on; then DeviceComm.allreduce at AUDIT_SIZES_MB a row,
+    R = 8, with perf on: the host's dispatch time of each call (what
+    timed_coll samples: no synchronize) beside the CUDA-event ms, and the
+    cost model's cells (none: with one process the model's busbw needs
+    ndev >= 2, the reference's rule)."""
+    from ompi_tpu_torch import perf
+    from ompi_tpu_torch.parallel import DeviceComm, make_mesh
+    row = {"train": audit_train(torch, tfm, optim, attention, cfg, pristine,
+                                tokens, make_mesh({"dp": 1}), card,
+                                log_fn)}
+    dc = DeviceComm(make_mesh({"x": 1}), "x")
+    numbers = []
+    with audit_planes(True):
+        for mb in AUDIT_SIZES_MB:
+            x = torch.randn((COLL_ROWS, (mb << 20) // 4), device="cuda")
+            dc.allreduce(x)
+            torch.cuda.synchronize()
+            dispatch = []
+            for _ in range(AUDIT_DISPATCHES):
+                t0 = time.perf_counter()
+                dc.allreduce(x)
+                dispatch.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            device = median_ms(lambda: dc.allreduce(x), n=AUDIT_DISPATCHES)
+            num = {"phase": "audit_numbers", "cards": 1, "rows": COLL_ROWS,
+                   "size_mb_a_row": mb,
+                   "dispatch_ms_p50": statistics.median(dispatch),
+                   "device_ms_p50": device,
+                   "dispatch_over_device": statistics.median(dispatch)
+                   / device,
+                   "cost_model_cells": perf.model.table(), "card": card}
+            log_fn(num)
+            numbers.append(num)
+            del x
+            torch.cuda.empty_cache()
+    if any(n["cost_model_cells"] for n in numbers):
+        raise AssertionError("18a: the cost model folded a one-process "
+                             "sample")
+    row["numbers"] = [{k: v for k, v in n.items() if k != "phase"}
+                      for n in numbers]
+    return row
+
+
+AUDIT_OPS = ("allreduce", "bcast", "allgather", "alltoall",
+             "reduce_scatter_block", "reduce", "scan", "exscan", "gather",
+             "scatter", "reduce_scatter", "allgatherv")
+
+
+def audit_entries(comm, d, R: int) -> None:
+    """The twelve comm.coll entries of the JAX package's audit test
+    (tests/test_observability.py), ``d(key)`` this rank's rows."""
+    c, cc = comm, comm.coll
+    cc.allreduce(c, d("x"))
+    cc.bcast(c, d("x"))
+    cc.allgather(c, d("x"))
+    cc.alltoall(c, d("xa"))
+    cc.reduce_scatter_block(c, d("x"))
+    cc.reduce(c, d("x"))
+    cc.scan(c, d("x"))
+    cc.exscan(c, d("x"))
+    cc.gather(c, d("x"))
+    cc.scatter(c, d("x3"))
+    cc.reduce_scatter(c, d("x"), None, [64 // R] * R)
+    cc.allgatherv(c, d("x2"), counts=[R] * R)
+
+
+def audit_rank(torch, np) -> None:
+    """18b and 18c, one rank of the tpurun program (one card a rank):
+    comm_world attached to {"x": 4} with the three planes on.  18b: the
+    twelve entries leave one decision event each on every rank, with the
+    same arm, reason and chain on every rank; traffic_attributed_bytes ==
+    the spc's coll_wire_bytes, nothing unattributed, the edges summing to
+    the wire, all of them ICI; mpisync's offsets and best RTT; trace.gather
+    to rank 0, timed, and the merged Chrome trace monotonic with no overlap
+    in any lane; three planted faults, each failing its check: (a) one
+    edge's charge dropped, (b) a second decision event for one bcast, (c)
+    rank AUDIT_STRAGGLER sleeping before each of AUDIT_SKEW_CALLS
+    allreduces (entry_skew must flag exactly it, and nobody without the
+    sleep); the cost model's cells for comm.coll.allreduce at
+    AUDIT_SIZES_MB a rank beside their CUDA-event ms.  18c: the flagship
+    step on {"dp": 4} (audit_train).  Every rank checks; rank 0 prints."""
+    import os
+    import torch.distributed as dist
+    from ompi_tpu_torch import optim, perf, runtime, trace, traffic
+    from ompi_tpu_torch.models import transformer as tfm
+    from ompi_tpu_torch.ops import attention
+    from ompi_tpu_torch.parallel import (attach_mesh, init_device_plane,
+                                         make_mesh)
+    from ompi_tpu_torch.tools import mpisync
+    from ompi_tpu_torch.trace import analyze, merge
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = runtime.init()
+    out = log if ctx.rank == 0 else (lambda obj: None)
+    init_device_plane(ctx)
+    comm = ctx.comm_world
+    n, rank = comm.size, ctx.rank
+    card = card_line()
+    mesh = make_mesh({"x": n})
+    attach_mesh(comm, mesh, "x")
+    rng = np.random.default_rng(5)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa
+    data = {"x": f32(n, 64), "x2": f32(n, n), "x3": f32(n, n, 4),
+            "xa": f32(n, n, 8)}
+    d = lambda k: torch.from_numpy(data[k][rank:rank + 1]).cuda()  # noqa
+    spc = ctx.spc
+
+    def agree(obj) -> list:
+        got = [None] * n
+        dist.all_gather_object(got, obj)
+        return got
+
+    def gate(name: str, ok: bool, **info) -> bool:
+        """Every rank's verdict; the check holds where all ranks' do."""
+        oks = agree(bool(ok))
+        out({"phase": "audit_check", "check": name, "ok_by_rank": oks,
+             **info})
+        return all(oks)
+
+    def one_per_coll() -> tuple:
+        per = {}
+        for e in trace.events(rank):
+            if e["cat"] == "decision":
+                per[e["args"]["op"]] = per.get(e["args"]["op"], 0) + 1
+        return per == {op: 1 for op in AUDIT_OPS}, per
+
+    def conserved(wire: int) -> tuple:
+        edges = sum(r["bytes"] for r in traffic.matrix.rows())
+        planes = sorted(traffic.matrix.plane_totals())
+        ok = (traffic.matrix.placed_bytes == wire
+              and traffic.matrix.unattributed_bytes == 0
+              and edges == wire and planes == ["ici"])
+        return ok, {"wire": wire, "attributed": traffic.matrix.placed_bytes,
+                    "unattributed": traffic.matrix.unattributed_bytes,
+                    "edge_bytes": edges, "planes": planes}
+
+    def audited(fn) -> int:
+        """Run ``fn`` from an empty trace and matrix; its wire bytes."""
+        trace.clear()
+        traffic.reset()
+        before = spc.get("coll_wire_bytes")
+        fn()
+        torch.cuda.synchronize()
+        return int(spc.get("coll_wire_bytes") - before)
+
+    failed = []
+    with audit_planes(True):
+        # 18b: the twelve entries
+        wire = audited(lambda: audit_entries(comm, d, n))
+        ok_one, per = one_per_coll()
+        mine = [(e["args"]["op"], e["args"]["arm"], e["args"]["reason"],
+                 e["args"]["chain"]) for e in trace.events(rank)
+                if e["cat"] == "decision"]
+        same = all(m == mine for m in agree(mine))
+        ok_cons, cons = conserved(wire)
+        edge_count = traffic.matrix.edge_count()
+        arms = sorted({m[1] for m in mine})
+        for name, ok, info in (
+                ("one_decision_per_entry", ok_one, {"per_op": per}),
+                ("same_decisions_on_every_rank", same, {"arms": arms}),
+                ("conservation", ok_cons and edge_count == n * (n - 1),
+                 dict(cons, edge_count=edge_count))):
+            if not gate(name, ok, **info):
+                failed.append(name)
+        # (a) one edge's charge dropped
+        real_spread = traffic.spread
+
+        def drop_one(total, edges, weights=None):
+            return real_spread(total, edges, weights)[1:]
+
+        with planted(traffic, "spread", drop_one):
+            wire = audited(lambda: comm.coll.allreduce(comm, d("x")))
+        ok_a, info = conserved(wire)
+        if not gate("planted_edge_dropped_fails_conservation", not ok_a,
+                    **info):
+            failed.append("planted (a)")
+        # (b) a second decision event for one collective
+        real_decision = trace.decision
+
+        def twice(op, *a, **kw):
+            real_decision(op, *a, **kw)
+            if op == "bcast":
+                real_decision(op, *a, **kw)
+
+        with planted(trace, "decision", twice):
+            audited(lambda: audit_entries(comm, d, n))
+        ok_b, per = one_per_coll()
+        if not gate("planted_second_decision_fails_one_per_collective",
+                    not ok_b, per_op=per):
+            failed.append("planted (b)")
+        # mpisync, then the straggler without and with the sleep
+        offsets, rtt = mpisync.clock_sync_ex(comm)
+        out({"phase": "audit_numbers", "what": "mpisync",
+             "offsets_s": offsets.tolist(), "best_rtt_s": rtt.tolist(),
+             "card": card})
+        x = d("x")
+        for sleep in (False, True):
+            trace.clear()
+            for _ in range(AUDIT_SKEW_CALLS):
+                if sleep and rank == AUDIT_STRAGGLER:
+                    time.sleep(AUDIT_SKEW_SLEEP_S)
+                with trace.span("audit:allreduce", "audit", rank=rank):
+                    comm.coll.allreduce(comm, x)
+                    torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tl = merge.gather(comm)
+            gather_s = time.perf_counter() - t0
+            verdict = None
+            if rank == 0:
+                sk = analyze.entry_skew(tl, z_thresh=AUDIT_Z)
+                doc_dir = os.path.join(os.path.dirname(
+                    os.path.abspath(__file__)), "build", "audit")
+                os.makedirs(doc_dir, exist_ok=True)
+                path = os.path.join(doc_dir, f"merged_sleep{int(sleep)}"
+                                    ".json")
+                tl.save_chrome(path)
+                with open(path) as fh:
+                    doc = json.load(fh)
+                rows = [e for e in doc["traceEvents"] if e["ph"] != "M"]
+                ts = [e["ts"] for e in rows]
+                verdict = {"flagged": sk["flagged"],
+                           "lateness_us": sk["rank_lateness_us"],
+                           "z": sk["z_scores"],
+                           "skew_p50_us": sk["per_coll"]["allreduce"]["p50"],
+                           "overlaps": lane_overlaps(doc),
+                           "monotonic": ts == sorted(ts),
+                           "ranks": tl.ranks, "events": len(tl.events)}
+            verdict = agree(verdict)[0]
+            want = [AUDIT_STRAGGLER] if sleep else []
+            name = ("planted_straggler_flagged" if sleep
+                    else "no_straggler_flagged")
+            ok = (verdict["flagged"] == want and verdict["overlaps"] == 0
+                  and verdict["monotonic"] and verdict["ranks"]
+                  == list(range(n)))
+            if not gate(name, ok, gather_s=gather_s, **verdict):
+                failed.append(name)
+        # the cost model's cells (dispatch-time samples, ndev = n) beside
+        # the CUDA-event ms of the same calls
+        for mb in AUDIT_SIZES_MB:
+            perf.reset()
+            xs = torch.randn((1, (mb << 20) // 4), device="cuda")
+            comm.coll.allreduce(comm, xs)
+            torch.cuda.synchronize()
+            perf.reset()
+            for _ in range(AUDIT_DISPATCHES):
+                comm.coll.allreduce(comm, xs)
+            torch.cuda.synchronize()
+            cells = perf.model.table()
+            device = median_ms(lambda: comm.coll.allreduce(comm, xs),
+                               n=AUDIT_DISPATCHES)
+            flat = [c for c in cells if c["coll"] == "allreduce"]
+            out({"phase": "audit_numbers", "cards": n, "size_mb_a_rank": mb,
+                 "cost_model_cells": cells,
+                 "cost_model_lat_us_p50": flat[0]["lat_us_p50"]
+                 if flat else None,
+                 "device_ms_p50": device,
+                 "dispatch_over_device": flat[0]["lat_us_p50"] / 1e3
+                 / device if flat else None, "card": card})
+            if not flat or flat[0]["count"] != AUDIT_DISPATCHES:
+                failed.append(f"cost model cells at {mb} MB")
+            del xs
+    if failed:
+        raise AssertionError(f"18b: {failed}")
+    # 18c: the flagship step on {"dp": n}
+    cfg = tfm.flagship_config()
+    pristine = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (BATCH, cfg.seq + 1))).cuda()
+    train = audit_train(torch, tfm, optim, attention, cfg, pristine, tokens,
+                        make_mesh({"dp": n}), card, out)
+    out({"audit_rank0": {"entries": list(AUDIT_OPS), "arms": arms,
+                         "train": train}})
+    runtime.finalize()
+
+
 RANK_SCRIPT = """import sys
 sys.path.insert(0, {root!r})
 import chip_smoke
@@ -6245,7 +6712,7 @@ sys.exit(chip_smoke.rank_main(sys.argv[1:]))
 
 def rank_main(argv) -> int:
     """Entry of phase 11's rank programs: ``device R_PER TIMED HOST`` or
-    ``ring LAPS``; and of phase 16b's, ``hier``."""
+    ``ring LAPS``; of phase 16b's, ``hier``; of phase 18b-c's, ``audit``."""
     import numpy as np
     if argv[0] == "ring":
         ring_rank(np, int(argv[1]))
@@ -6253,6 +6720,9 @@ def rank_main(argv) -> int:
     import torch
     if argv[0] == "hier":
         hier_rank(torch, np)
+        return 0
+    if argv[0] == "audit":
+        audit_rank(torch, np)
         return 0
     mpi_rank(torch, np, int(argv[1]), argv[2].split(","), argv[3] == "1")
     return 0
@@ -6488,6 +6958,10 @@ def multi_card_main() -> int:
     # 16b: comm.coll.allreduce on a comm attached to ("dpo", "dp")
     lines = tpurun(world, ["hier"], extra=("--gpus-per-rank", "1"))
     log({"hier_mpi": last_json(lines, "hier_rank0")})
+    # 18b, 18c: the audit planes on comm_world attached to {"x": 4}, then
+    # the flagship step on {"dp": 4}
+    lines = tpurun(world, ["audit"], extra=("--gpus-per-rank", "1"))
+    log({"audit": last_json(lines, "audit_rank0")})
     log(card)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
@@ -6765,6 +7239,13 @@ def main() -> int:
     sync_row = {"codec": codec_check(torch, grad_numel, card),
                 "dp1": grad_sync_one_card(torch, tfm, optim, cfg, pristine,
                                           train_tokens, card)}
+    torch.cuda.empty_cache()
+
+    # 18a. the audit planes in the same world: the step on {"dp": 1} with
+    # trace, perf and traffic off and on; DeviceComm.allreduce's dispatch
+    # time beside its device time
+    audit_row = audit_one_card(torch, np, tfm, optim, attention, cfg,
+                               pristine, train_tokens, card)
     del pristine, train_tokens
     torch.cuda.empty_cache()
 
@@ -6827,6 +7308,7 @@ def main() -> int:
     log({"decode": decode_row})
     log({"fleet": fleet_row})
     log({"moe": moe_row})
+    log({"audit": audit_row})
     log({"kernels": [
         {"name": "flash_partials", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_partials.cu",
@@ -6883,7 +7365,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multi-card", action="store_true",
                     help="run only phases 9, 10c, 11, 12d-f, 13e, 14c, "
-                         "15b-d, 16, 17c and 17d, across every visible "
-                         "card")
+                         "15b-d, 16, 17c, 17d and 18b-c, across every "
+                         "visible card")
     ns = ap.parse_args()
     sys.exit(multi_card_main() if ns.multi_card else main())

@@ -17,9 +17,10 @@ Components in-tree:
                    the port's ``coll/xla``
 
 The port's copy of ``ompi_tpu/coll/framework.py``.  The dispatch wrapper
-keeps the spc counts and the eager ``i*`` wrappers; its trace, monitoring,
-numerics, health and perf interposition comes with ROADMAP P16, and ULFM's
-revoked-communicator check with P14.  ``nbc``, ``adapt``, ``inter`` and
+keeps the spc counts, the ``enter:<coll>`` arrival instant (trace) and the
+cost-model timing (``perf.timed_coll``), and the eager ``i*`` wrappers;
+its monitoring, numerics and health interposition comes with ROADMAP
+P16b, and ULFM's revoked-communicator check with P14.  ``nbc``, ``adapt``, ``inter`` and
 ``quant`` are later slices.
 """
 
@@ -77,6 +78,21 @@ class CollTable:
                     spc.inc("collectives")
                     if name == "barrier":
                         spc.inc("barriers")
+                from .. import perf, trace
+                if trace.enabled:
+                    # per-rank arrival marker: dispatch time is the entry
+                    # timestamp the fleet skew analysis keys on
+                    trace.instant(
+                        f"enter:{name}", "coll-enter", rank=comm.ctx.rank,
+                        args={"op": name, "comm": comm.cid,
+                              "nbytes": int(getattr(a[0], "nbytes", 0)
+                                            or 0) if a else 0})
+                if perf.enabled:
+                    # cost-model sample: dispatch timed; the arm is
+                    # annotated post-decision by coll/nccl's audit
+                    # (perf.note_arm) — un-annotated dispatches are
+                    # dropped, and a raising collective contributes nothing
+                    return perf.timed_coll(fn, comm, name, a, kw)
                 return fn(comm, *a, **kw)
 
             return counted

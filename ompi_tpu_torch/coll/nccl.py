@@ -34,10 +34,15 @@ quantized for ``hier+quant``, allgather over the inner level), eligible
 on a comm whose tuple of axes spans a fast and a slow level.  The
 learned rules source (P18) is a later slice: where the JAX package would
 read it, the port raises ``NotImplementedError`` naming the slice.  Each
-dispatch leaves one audit record, ``coll_arm_<arm>_count`` and
-``coll_wire_bytes``, in the context's spc, and charges the simulated-DCN
-shim (``parallel/simdcn``) when it is on; the ``decide:`` trace event
-comes with P16.
+dispatch leaves one audit record: ``coll_arm_<arm>_count`` and
+``coll_wire_bytes`` in the context's spc, the simulated-DCN charge
+(``parallel/simdcn``) when the shim is on, then, each behind its plane's
+one flag, the executed arm and wire bytes for the perf cost model
+(``perf.note_arm``), the per-edge attribution of the same wire figure
+(``traffic.note_coll``) and ONE ``decide:<coll>`` trace event with the
+precedence chain.  Every process of the comm records its own event
+(``rank`` = its world rank; ``shape`` its own rows), where the JAX
+package's single controller records one for the mesh.
 
 The port of ``ompi_tpu/coll/xla.py`` (decision layer, native and staged
 arms, audit).  The neighbourhood entries raise until communicator
@@ -57,7 +62,7 @@ from ..core import var as _var
 from ..core.component import Component, component
 from ..op import SUM, Op, quantizable
 from .framework import CollModule
-from .quant import _itemsize, check_quantizable, wire_bytes
+from .quant import _dtype_name, _itemsize, check_quantizable, wire_bytes
 from .tuned import TunedModule
 
 
@@ -232,7 +237,7 @@ def decide_mode(coll: str, nbytes: int, ndev: int, platform: str,
     switch, the coll_quant_min_bytes floor, or op/dtype/layout
     ineligibility).  ``reason`` is the link that decided; ``chain``
     records every vetoed/skipped link so trace.explain_last can show the
-    full evaluation (the trace event comes with ROADMAP P16).
+    full evaluation.
 
     ``allowed`` is the set of arms the calling entry can actually execute
     for this buffer/op — the decision never names an arm the entry would
@@ -437,20 +442,23 @@ class NcclModule(CollModule):
     _ALL_ARMS = ("native", "staged", "quant")
 
     def _mode(self, coll: str, x, op: Op = None,
-              allowed=_ALL_ARMS) -> str:
+              allowed=_ALL_ARMS, weights=None, extra=None) -> str:
         """Pick per (collective, PER-RANK bytes) with the JAX module's
         arguments, so the pick is the one the JAX package would make.
         Every device dispatch funnels through here exactly once: one audit
-        record per collective."""
+        record per collective.  ``weights`` (the alltoallv counts matrix)
+        and ``extra`` (additional decision-event fields) ride to the
+        audit."""
         rows = max(x.shape[0], 1)
         nbytes = x.numel() * x.element_size() // rows
         quant_ok = coll in _QUANT_COLLS and quantizable(op or SUM, x.dtype)
         hier_ok, hier_why = self._hier_eligible(coll, op)
-        pick, _reason, _chain = decide_mode(
+        pick, reason, chain = decide_mode(
             coll, nbytes, self.dc.n, self._platform, self._rules, allowed,
             quant_ok=quant_ok, dtype=x.dtype, op=op, plane=self._plane,
             hier_ok=hier_ok, hier_why=hier_why)
-        self._audit(coll, x, pick, nbytes)
+        self._audit(coll, x, op, pick, reason, chain, nbytes,
+                    weights=weights, extra=extra)
         return pick
 
     def _hier_eligible(self, coll: str, op: Op = None) -> tuple:
@@ -483,39 +491,78 @@ class NcclModule(CollModule):
                    "reduce_scatter": "reduce_scatter",
                    "allgather": "allgather"}
 
-    def _audit(self, coll: str, x, arm: str, nbytes: int) -> None:
+    def _audit(self, coll: str, x, op: Op, arm: str, reason: str,
+               chain: list, nbytes: int, weights=None, extra=None) -> None:
         """ONE audit record per device-dispatched collective: the arm count
         and the per-rank wire bytes (the HAN stage math for a hierarchical
         arm, coll/quant's ring model of the native or quantized arm where
         there is one, else the per-rank payload); then the simulated-DCN
         charge when the shim is on (a hierarchical arm pays its outer
-        stage, a flat arm the DCN fraction of its ring's wire)."""
+        stage, a flat arm the DCN fraction of its ring's wire); then,
+        each behind its plane's flag, the perf annotation, the traffic
+        attribution of the same wire figure and the decision event."""
+        from .. import perf, trace, traffic
         from ..parallel import simdcn
         wire = nbytes
-        outer = None
+        ratio = None
+        hier_split = None
         model = self._WIRE_MODEL.get(coll)
         if arm in ("hier", "hier+quant"):
+            # the HAN stage math is the wire model: inner RS + AG at
+            # (ni-1)/ni each, outer allreduce on the scattered 1/ni
+            # fraction (quantized for hier+quant)
             hw = self._hier_wire(x, quant=(arm == "hier+quant"))
-            wire, outer = hw["total_bytes"], hw["outer_bytes"]
-        elif model is not None and arm in ("native", "quant"):
+            wire, ratio = hw["total_bytes"], hw["ratio"]
+            hier_split = (self._hier_inner, self._hier_outer,
+                          hw["inner_stage_bytes"], hw["outer_bytes"],
+                          hw["outer_native_bytes"])
+        elif model is not None:
             rows = max(x.shape[0], 1)
             try:
                 wb = wire_bytes(model, max(x.numel() // rows, 1),
                                 self.dc.n, x.dtype)
-            except ValueError:
+            except (ValueError, TypeError):
                 wb = None
             if wb is not None:
-                wire = wb[f"{arm}_bytes"]
+                ratio = wb["ratio"]
+                if arm in ("native", "quant"):
+                    wire = wb[f"{arm}_bytes"]
         spc = self.spc
         if spc is not None:
             spc.inc(f"coll_arm_{arm}_count")
             spc.inc("coll_wire_bytes", wire)
         if simdcn.us_per_mib() > 0:
-            if outer is not None:
-                simdcn.charge(outer)
+            if hier_split is not None:
+                simdcn.charge(hier_split[3])
             elif arm != "staged":
                 simdcn.charge(int(wire * simdcn.ring_dcn_fraction(
                     self.dc.mesh, self.dc.axis, kinds=self._kinds)))
+        if perf.enabled:
+            # annotate the in-flight timing entry (coll/framework's
+            # dispatch wrapper) with the executed arm + audited per-rank
+            # wire bytes; only annotated samples fold into the model
+            perf.note_arm(arm, nbytes=wire, ndev=self.dc.n)
+        if traffic.enabled:
+            # per-edge attribution of the SAME wire figure the pvar just
+            # banked — the conservation invariant's other half
+            traffic.note_coll(self.dc, coll, arm, wire, weights=weights,
+                              hier=hier_split)
+        if trace.enabled:
+            bucket = 1 << max(int(nbytes) - 1, 0).bit_length()
+            extra = dict(extra or {})
+            if hier_split is not None:
+                extra.update({"hier_inner": hier_split[0],
+                              "hier_outer": hier_split[1],
+                              "hier_inner_bytes": 2 * hier_split[2],
+                              "hier_outer_bytes": hier_split[3]})
+            trace.decision(
+                coll, arm=arm, reason=reason, verdict=None,
+                nbytes=nbytes, rank=self._comm.ctx.rank,
+                shape_bucket=bucket, shape=tuple(x.shape),
+                dtype=_dtype_name(x.dtype),
+                reduce_op=getattr(op, "name", None),
+                ndev=self.dc.n, wire_bytes=wire, quant_ratio=ratio,
+                chain=list(chain), **extra)
 
     # -- the staged arm: D2H, host exchange, numpy fold, H2D ----------------
 
@@ -818,7 +865,12 @@ class NcclModule(CollModule):
             # optional trailing elem dims; the one ambiguous 3-D shape
             # (L == R) keeps the block interpretation below
             self._check_recvcounts(C, recvcounts)
-            if self._mode("alltoallv", sendbuf) == "staged":
+            plan = self.dc.a2av_plan(
+                (self._R(sendbuf),) + tuple(sendbuf.shape[1:]), C)
+            if self._mode("alltoallv", sendbuf, weights=C,
+                          extra={"a2av_slice_cap": plan["slice_cap"],
+                                 "a2av_scan_steps": plan["scan_steps"]},
+                          ) == "staged":
                 h = self._stage_all(sendbuf)           # (R, L, *e)
                 out_cap = self.dc._bucket(
                     int(C.sum(axis=0).max()) if C.size else 1)
@@ -832,7 +884,7 @@ class NcclModule(CollModule):
                 and self._R(sendbuf) == sendbuf.shape[1] == C.shape[0]
                 and sendbuf.shape[2] >= int(C.max())):
             self._check_recvcounts(C, recvcounts)
-            if self._mode("alltoallv", sendbuf) == "staged":
+            if self._mode("alltoallv", sendbuf, weights=C) == "staged":
                 h = self._stage_all(sendbuf)       # (R, R, cap, *e)
                 out_cap = self.dc._bucket(
                     int(C.sum(axis=0).max()) if h.shape[0] else 1)

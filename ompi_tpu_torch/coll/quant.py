@@ -247,6 +247,32 @@ def wire_bytes(coll: str, count: int, n: int, dtype, block: int = None,
             "ratio": quant / native if native else float("inf")}
 
 
+def _span_args(wb: dict, block: int, sdt, roundings: int,
+               requantize_count: int) -> dict:
+    """Trace payload for one quantized execution: the EQuARX accounting
+    (wire bytes, block config, how many stochastic roundings touch each
+    element, whether an accumulated value is requantized)."""
+    ratio = wb["ratio"]
+    return {"wire_bytes": wb["quant_bytes"],
+            "native_bytes": wb["native_bytes"],
+            "ratio": round(ratio, 4) if math.isfinite(ratio) else None,
+            "block": block, "scale_dtype": _dtype_name(sdt),
+            "roundings": roundings, "requantize_count": requantize_count}
+
+
+def grad_bucket_span_args(nbytes: int, n: int, dtype, block: int = None,
+                          scale_dtype=None) -> dict:
+    """EQuARX accounting for ONE quantized grad-sync bucket of ``nbytes``
+    raw gradient bytes allreduced over ``n`` devices — the detail payload
+    of parallel/overlap's per-bucket decision events.  psum_quant rounds
+    each element twice (quantize + the post-accumulate requantize) and
+    requantizes the accumulated value once, hence the fixed counts."""
+    block, sdt = _params(block, scale_dtype)
+    count = max(1, int(nbytes) // _itemsize(dtype))
+    wb = wire_bytes("allreduce", count, n, dtype, block, sdt)
+    return _span_args(wb, block, sdt, roundings=2, requantize_count=1)
+
+
 # -- the canonical-layout engine (DeviceComm's entry points) ------------------
 
 class QuantDeviceComm:
@@ -354,4 +380,5 @@ class QuantDeviceComm:
 
 
 __all__ = ["check_quantizable", "quantize_blocks", "dequantize_blocks",
-           "psum_quant", "padded_len", "wire_bytes", "QuantDeviceComm"]
+           "psum_quant", "padded_len", "wire_bytes",
+           "grad_bucket_span_args", "QuantDeviceComm"]

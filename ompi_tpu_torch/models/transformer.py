@@ -87,6 +87,7 @@ from __future__ import annotations
 
 import functools
 import math
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -1015,7 +1016,11 @@ def make_train_step(cfg: Config, mesh: Any = None,
     (``make_value_and_grad``) and AdamW, elementwise, runs on each rank's
     shards.  Making the step is collective.  With ``mlp="moe"`` the step
     differentiates the einsum block whatever ``moe_impl`` names, as the
-    reference's does."""
+    reference's does.  With the perf plane on (``perf.enabled``) each
+    step is timed to completion and folded into the goodput ledger
+    (``perf.record_step``: tokens, ``train_flops_per_token``,
+    ``perf.peak_tflops()``); off, the step is one attribute read away
+    from the plain one."""
     if cfg.mlp == "moe" and cfg.moe_impl not in ("einsum", "ragged"):
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r} "
                          "(expected 'einsum' or 'ragged')")
@@ -1029,7 +1034,27 @@ def make_train_step(cfg: Config, mesh: Any = None,
         optim.adamw_update(params, list(grads), opt_state, learning_rate)
         return params, opt_state, loss
 
-    return init_opt, step
+    fpt = train_flops_per_token(cfg)
+
+    def timed_step(params, opt_state, tokens):
+        from .. import perf
+        if not perf.enabled:
+            return step(params, opt_state, tokens)
+        # goodput/MFU ledger: the step's wall to completion (on the card,
+        # a synchronize closes it).  Only wall + token FLOPs are
+        # measurable from one step — the comm split is never fabricated.
+        t0 = time.perf_counter()
+        out = step(params, opt_state, tokens)
+        if out[2].is_cuda:
+            torch.cuda.synchronize()
+        perf.record_step(time.perf_counter() - t0,
+                         tokens=tokens.shape[0] * max(tokens.shape[1] - 1,
+                                                      1),
+                         flops_per_token=fpt,
+                         peak_tflops=perf.peak_tflops())
+        return out
+
+    return init_opt, timed_step
 
 
 # -- the ragged expert-parallel forward (moe_impl="ragged") -------------------

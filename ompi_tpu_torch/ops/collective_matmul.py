@@ -32,6 +32,11 @@ is the other ring: the gradient of ``allgather_matmul``'s input is a
 ``matmul_reduce_scatter`` of the output's gradient, and the gradient of
 ``matmul_reduce_scatter``'s input an ``allgather_matmul``, whose gathered
 blocks also give the weight's gradient.
+
+With the traffic plane on, a call given an axis name of a ``mesh``
+charges its ring (its n-1 hops, in the direction run) to the traffic
+matrix, as the reference's eager call does; a bare process group carries
+no mesh grid to charge and charges nothing.
 """
 
 from __future__ import annotations
@@ -256,6 +261,14 @@ def allgather_matmul(x: torch.Tensor, w: torch.Tensor, axis, mesh=None,
     group, n = _setup(x, axis, mesh, "allgather_matmul")
     if bidirectional:
         _check_bidir(x.shape[-2] * n, n)
+    from .. import traffic
+    if traffic.enabled and mesh is not None:
+        # this rank's x block makes n-1 ring hops; the direction follows
+        # the schedule run (the collmm decision's reverse/bidir)
+        traffic.note_ring(
+            mesh, axis, (n - 1) * x.nbytes, "allgather_matmul",
+            "bidir" if bidirectional else ("rev" if reverse else "fwd"))
+    if bidirectional:
         return ring_allgather_matmul_bidir_local(x, w, group)
     return ring_allgather_matmul_local(x, w, group, reverse)
 
@@ -275,6 +288,17 @@ def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, axis,
         raise ValueError(f"m={m} not divisible by ring size {n}")
     if bidirectional:
         _check_bidir(m, n)
+    from .. import traffic
+    if traffic.enabled and mesh is not None:
+        # the ring carries (m/n, c) partial-sum blocks in the promoted
+        # output dtype for n-1 hops per rank
+        batch = x.shape[0] if x.dim() == 3 else 1
+        odt = torch.promote_types(x.dtype, w.dtype)
+        traffic.note_ring(
+            mesh, axis, (n - 1) * (m // n) * batch * w.shape[-1]
+            * odt.itemsize, "matmul_reduce_scatter",
+            "bidir" if bidirectional else "fwd")
+    if bidirectional:
         return ring_matmul_reduce_scatter_bidir_local(x, w, group)
     return ring_matmul_reduce_scatter_local(x, w, group)
 

@@ -736,6 +736,26 @@ class DeviceComm:
         s = shift % (r * n)
         off = (-s) % r
         q = (-s - off) // r
+        from .. import traffic
+        if traffic.enabled:
+            # the reference's perms for the same shift; per-rank bytes,
+            # and note_ppermute banks the matching coll_wire_bytes
+            row = x.nbytes // max(r, 1)
+            if r == 1:
+                traffic.note_ppermute(
+                    self.mesh, self.axis,
+                    [(i, (i + shift) % n) for i in range(n)], row,
+                    spc=self.spc, coll="ring_shift")
+            else:
+                traffic.note_ppermute(
+                    self.mesh, self.axis,
+                    [((d + q) % n, d) for d in range(n)], (r - off) * row,
+                    spc=self.spc, coll="ring_shift")
+                if off:
+                    traffic.note_ppermute(
+                        self.mesh, self.axis,
+                        [((d + q + 1) % n, d) for d in range(n)],
+                        off * row, spc=self.spc, coll="ring_shift")
         a = torch.empty_like(x[off:])
         sends = [(x[off:], (me - q) % n, 0)]
         recvs = [(a, (me + q) % n, 0)]
@@ -752,6 +772,12 @@ class DeviceComm:
         r = self._rows(x)
         src_dev, src_loc = divmod(int(src), r)
         dst_dev, dst_loc = divmod(int(dst), r)
+        from .. import traffic
+        if traffic.enabled and src_dev != dst_dev:
+            # exactly one row crosses, on the (src_dev, dst_dev) edge
+            traffic.note_ppermute(self.mesh, self.axis, [(src_dev, dst_dev)],
+                                  x.nbytes // max(r, 1), spc=self.spc,
+                                  coll="push_row")
         out = x.clone(memory_format=torch.contiguous_format)
         row = torch.empty_like(x[0])
         sends = [(x[src_loc], dst_dev, 0)] if self.pos == src_dev else []

@@ -92,6 +92,11 @@ def hierarchical_allreduce(x: torch.Tensor, mesh, inner: str,
     """Two-level allreduce over both axes of a mesh: this rank's buffer
     in (the reference's row (i, j) of its (n_outer, n_inner, *elem)
     array), the global sum out."""
+    from .. import traffic
+    if traffic.enabled:
+        # inner RS/AG rings + the outer ring on the scattered 1/n_inner
+        # fraction — the per-plane rollup shows the HAN bandwidth shape
+        traffic.note_hierarchical(mesh, inner, outer, x.nbytes)
     flat = x.reshape(-1)
     return hierarchical_psum(flat, inner, outer, mesh).reshape(x.shape)
 

@@ -39,6 +39,37 @@ def sim_dcn_axes() -> FrozenSet[str]:
     return frozenset(a.strip() for a in raw.split(",") if a.strip())
 
 
+# The host of every world rank (a small int id per distinct host name),
+# taken once per world by make_mesh: the traffic plane classifies an edge
+# ICI or DCN by it, from inside audits that must not gather.
+_WORLD_HOSTS: Dict[int, list] = {}
+
+
+def _world_key() -> int:
+    return id(dist.distributed_c10d._get_default_group())
+
+
+def world_hosts() -> Optional[list]:
+    """Host id per world rank, or None before any ``make_mesh`` of this
+    world (no gather happens here)."""
+    if not dist.is_initialized():
+        return None
+    return _WORLD_HOSTS.get(_world_key())
+
+
+def _take_world_hosts() -> None:
+    """Collective (every rank of the world): all-gather the host names
+    once per world."""
+    key = _world_key()
+    if key in _WORLD_HOSTS:
+        return
+    hosts = [None] * dist.get_world_size()
+    dist.all_gather_object(hosts, socket.gethostname())
+    ids = {h: i for i, h in enumerate(dict.fromkeys(hosts))}
+    _WORLD_HOSTS.clear()
+    _WORLD_HOSTS[key] = [ids[h] for h in hosts]
+
+
 def make_mesh(axes: Dict[str, int]) -> DeviceMesh:
     """A named mesh over every rank of the world, e.g.
     ``make_mesh({"dp": 2, "tp": 4})``; ranks fill it in row-major order.
@@ -47,7 +78,8 @@ def make_mesh(axes: Dict[str, int]) -> DeviceMesh:
     one axis to absorb the remainder (like a reshape).  The mesh's device
     type follows the backend: ``cuda`` under NCCL, else ``cpu``.  Every
     rank of the world calls it (each axis's process group is made
-    collectively)."""
+    collectively; the first mesh of a world also gathers every rank's
+    host, which the traffic plane's ICI/DCN split reads)."""
     world = dist.get_world_size()
     names, sizes = list(axes.keys()), list(axes.values())
     if -1 in sizes:
@@ -59,8 +91,10 @@ def make_mesh(axes: Dict[str, int]) -> DeviceMesh:
             f"mesh {dict(zip(names, sizes))} needs {total} ranks, "
             f"have {world}")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, tuple(sizes),
+    mesh = init_device_mesh(device_type, tuple(sizes),
                             mesh_dim_names=tuple(names))
+    _take_world_hosts()
+    return mesh
 
 
 def axis_index_of(mesh: DeviceMesh, axis: str, rank: int) -> int:
@@ -222,4 +256,4 @@ def sharded(mesh: DeviceMesh, *spec: Optional[str]) -> Sharding:
 
 __all__ = ["make_mesh", "axis_index_of", "axis_size", "axis_rank",
            "axes_group", "axes_position", "group_order", "classify_axes",
-           "sim_dcn_axes", "Sharding", "sharded"]
+           "sim_dcn_axes", "world_hosts", "Sharding", "sharded"]

@@ -30,13 +30,23 @@ cut row-major over it): on a two-tier domain (``dpo`` slow, ``dp`` fast,
 ``parallel/hierarchy.hier_axes``) a bucket may also take the
 hierarchical arms, ``hier`` (reduce-scatter over dp, allreduce over dpo
 on the scattered 1/n_dp, allgather over dp) and ``hier+quant`` (the outer
-stage block-quantized).  The reference's ``decide:`` events, spans,
-traffic and numerics hooks come with P16.
+stage block-quantized).
+
+Audit (each behind its plane's one flag): one ``decide:grad_sync`` trace
+event per bucket and one ``decide:collmm`` per collective-matmul call; a
+measured ``grad_sync:run`` span per sync (``status=error`` when it
+raises) with per-bucket ``grad_sync:bucket`` spans, an even subdivision
+marked ``synthetic``, which the perf cost model ingests through the
+trace span sink; and the sync's ring (or hierarchical) charge to the
+traffic plane.  The reference does this only outside an enclosing jit
+trace; the port has no jit, so every step decides, spans and charges.
+Its numerics hook comes with ROADMAP P16b.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -44,6 +54,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..core import var as _var
 from ..optim import tree_leaves
 from .mesh import axes_group, axes_position, axis_size, classify_axes
@@ -166,21 +177,34 @@ def resolve_bucket_bytes(bucket_bytes: Optional[int] = None) -> int:
 
 def _decide_buckets(plan: BucketPlan, ndev: int, platform: str,
                     plane: Optional[str] = None, hier_ok: bool = False,
-                    hier_why: str = "") -> Tuple[str, ...]:
+                    hier_why: str = "",
+                    block: Optional[int] = None) -> Tuple[str, ...]:
     """One decision-layer pass per bucket (coll name ``grad_sync``, arms
     native|quant|hier|hier+quant — the hier arms only when the sync spans
-    a two-tier dpo×dp split) and the bucket pvars.  Runs once per built
-    sync."""
+    a two-tier dpo×dp split), one ``decide:grad_sync`` audit event per
+    bucket when tracing, and the bucket pvars.  Runs once per sync."""
     from ..coll import nccl
 
     rules = nccl._load_device_rules()
     arms = []
-    for b in plan.buckets:
-        arm, _reason, _chain = nccl.decide_mode(
+    for i, b in enumerate(plan.buckets):
+        arm, reason, chain = nccl.decide_mode(
             "grad_sync", b.nbytes, ndev, platform, rules,
             allowed=("native", "quant"), quant_ok=True, dtype=np.float32,
             plane=plane, hier_ok=hier_ok, hier_why=hier_why)
         arms.append(arm)
+        if trace.enabled:
+            details = dict(bucket=i, n_buckets=plan.n_buckets,
+                           bucket_bytes=plan.bucket_bytes,
+                           leaves=len(b.indices), ndev=ndev,
+                           total_bytes=plan.total_bytes, chain=list(chain))
+            if arm == "quant":
+                from ..coll.quant import grad_bucket_span_args
+                details.update(grad_bucket_span_args(
+                    b.nbytes, ndev, np.float32, block))
+            trace.decision("grad_sync", arm=arm, reason=reason,
+                           verdict=None, nbytes=b.nbytes,
+                           rank=dist.get_rank(), **details)
     _PVARS["grad_bucket_count"] = plan.n_buckets
     _PVARS["grad_bucket_bytes"] = plan.total_bytes
     return tuple(arms)
@@ -374,14 +398,80 @@ def make_grad_sync(mode: str, mesh, local_loss: Callable,
         if hier_ok:
             levels = (inner, outer, axis_size(mesh, outer))
 
+    def note_traffic(grads, plan, arms) -> None:
+        # ring-allreduce model of the sync over the (possibly two-tier)
+        # sync domain: 2(n-1)/n x grad bytes per rank (quant buckets send
+        # less — the matrix keeps the native-wire convention the busbw
+        # factors use).  Buckets the decision layer routed to a hier arm
+        # charge the HAN stage split instead.
+        from .. import traffic
+        if mode == "unsynced" or n < 2:
+            return
+        tot = sum(g.nbytes for g in grads)
+        hier_b = 0
+        if plan is not None and levels is not None:
+            hier_b = min(tot, sum(b.nbytes for b, a in zip(plan.buckets,
+                                                           arms)
+                                  if a in ("hier", "hier+quant")))
+            if hier_b:
+                traffic.note_hierarchical(mesh, levels[0], levels[1],
+                                          hier_b)
+        if tot - hier_b:
+            traffic.note_ring(mesh, sync_axes,
+                              2 * (n - 1) * (tot - hier_b) // n, "grad_sync")
+
     def vg(params, batch):
+        from .. import traffic
+        if not trace.enabled:
+            loss, grads, plan, arms = sync(params, batch)
+        else:
+            t0 = time.perf_counter()
+            try:
+                loss, grads, plan, arms = sync(params, batch)
+                if grads and grads[0].is_cuda:
+                    # the span closes when the sync is done on the card
+                    torch.cuda.synchronize()
+            except BaseException:
+                # a raising sync still closes its span, tagged error —
+                # never open-ended, never a latency sample for perf
+                trace.record_span(
+                    "grad_sync:run", "overlap", t0, time.perf_counter(),
+                    rank=dist.get_rank(),
+                    args={"mode": mode, "ndev": n, "status": "error"})
+                raise
+            t1 = time.perf_counter()
+            bucketed = plan is not None
+            trace.record_span(
+                "grad_sync:run", "overlap", t0, t1, rank=dist.get_rank(),
+                args={"mode": mode, "ndev": n,
+                      "buckets": plan.n_buckets if bucketed else None,
+                      "total_bytes": plan.total_bytes if bucketed
+                      else None})
+            if bucketed:
+                # bucket boundaries are inside the backward: an even
+                # subdivision, marked synthetic
+                per = (t1 - t0) / max(plan.n_buckets, 1)
+                for i, (b, arm) in enumerate(zip(plan.buckets, arms)):
+                    trace.record_span(
+                        "grad_sync:bucket", "overlap-buckets",
+                        t0 + i * per, t0 + (i + 1) * per,
+                        rank=dist.get_rank(),
+                        args={"bucket": i, "synthetic": True, "arm": arm,
+                              "nbytes": b.nbytes, "ndev": n,
+                              "leaves": len(b.indices)})
+        if traffic.enabled:
+            note_traffic(grads, plan, arms)
+        _run_post_sync(grads)
+        return loss, tuple(grads)
+
+    def sync(params, batch):
         leaves = tree_leaves(params)
         local = dp_batch(torch.as_tensor(batch), mesh)
-        buckets = None
+        buckets = plan = arms = None
         if mode == "bucketed":
             plan = bucket_plan(leaves, nb)
             arms = _decide_buckets(plan, n, mesh.device_type, plane,
-                                   hier_ok, hier_why)
+                                   hier_ok, hier_why, block=quant_block)
         for p in leaves:
             p.requires_grad_(True)
         try:
@@ -401,8 +491,7 @@ def make_grad_sync(mode: str, mesh, local_loss: Callable,
         elif mode == "perleaf":
             grads = [pmean(g, group, n) for g in grads]
         loss = pmean(loss.detach(), group, n)
-        _run_post_sync(grads)
-        return loss, tuple(grads)
+        return loss, list(grads), plan, arms
 
     return vg
 
@@ -415,13 +504,19 @@ def decide_collmm(kind: str, nbytes: int, mesh, axis: str,
     shared decision layer (coll name ``collmm``; arms native = one ring |
     bidir = two half-rings, one each way).  Shapes whose per-rank row
     count is odd drop the bidir arm: the decision never names a schedule
-    the op cannot run."""
+    the op cannot run.  One ``decide:collmm`` audit event per call when
+    tracing (``explain_last("collmm")``)."""
     from ..coll import nccl
 
+    n = axis_size(mesh, axis)
     allowed = ("native", "bidir") if eligible_bidir else ("native",)
-    arm, _reason, _chain = nccl.decide_mode(
-        "collmm", int(nbytes), axis_size(mesh, axis), mesh.device_type,
+    arm, reason, chain = nccl.decide_mode(
+        "collmm", int(nbytes), n, mesh.device_type,
         nccl._load_device_rules(), allowed, quant_ok=False)
+    if trace.enabled:
+        trace.decision("collmm", arm=arm, reason=reason, verdict=None,
+                       nbytes=int(nbytes), rank=dist.get_rank(), ndev=n,
+                       op_kind=kind, chain=list(chain))
     return arm
 
 

@@ -115,6 +115,17 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
                            "only (flash_attention_partials has no VJP); "
                            "train through block_impl='jnp'")
     n, my = axis_size(mesh, axis), axis_rank(mesh, axis)
+    from .. import traffic
+    if traffic.enabled and n > 1:
+        # the reference's per-rank wire: all n ring steps rotate (its
+        # schedule permutes after the last block too) its K/V shard of
+        # the global arrays = the whole K+V bytes.  The port stops after
+        # n - 1 hops but charges the reference's figure.
+        whole = n * (k.nbytes + v.nbytes)
+        for name in (batch_axis, head_axis):
+            if name is not None:
+                whole *= axis_size(mesh, name)
+        traffic.note_ring(mesh, axis, whole, "ring_attention")
     b, s, h, d = q.shape
     qf, kf, vf = (t.transpose(1, 2).reshape(b * h, s, d) for t in (q, k, v))
     kv = torch.stack([kf, vf])              # one hop carries both

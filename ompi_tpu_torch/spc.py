@@ -5,17 +5,21 @@ finalize). One Counters instance per Context; the p2p engine and coll
 framework increment them; ``dump()`` prints at finalize when
 ``spc_dump_enabled`` is set.
 
-The port's copy of ``ompi_tpu/spc.py``: ``Counters`` and the counters the
-MPI surface and the device component feed.  The reads of the later planes
-(trace, health, perf, traffic, numerics, reshard, elastic, policy,
-serving, history) come with their slices (ROADMAP P16), as do the MPI_T
-and Prometheus export and the per-peer monitoring matrices; the MoE
-routing plane's three counters read through to ``ompi_tpu_torch.moe``.
+The port's copy of ``ompi_tpu/spc.py``: ``Counters``, the counters the
+MPI surface and the device component feed, and the reads of the audit
+planes (``trace_dropped_events``, ``perf.PVARS``, ``traffic.PVARS``),
+the overlap scheduler's bucket pair and the MoE routing plane's three
+counters, all read through to their (process-wide) planes; the
+Prometheus text exposition (``export_prometheus``) with the traffic
+plane's per-edge and per-plane rows.  The reads of the later planes
+(health, numerics, reshard, elastic, policy, serving, history) come with
+their slices (ROADMAP P16a-2, P16b), as do the MPI_T pvar surface and
+the per-peer monitoring matrices.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 from .core import var as _var
 
@@ -49,8 +53,29 @@ COUNTERS = [
     ("coll_arm_quant_count", "device collectives decided onto the quant arm"),
     ("coll_wire_bytes", "modeled per-rank wire bytes for device collectives"),
     ("device_quant_collectives", "device collectives run block-quantized"),
+    ("trace_dropped_events", "trace events lost to ring-buffer overflow"),
     ("grad_bucket_count", "bucket exchanges in the last grad-sync plan"),
     ("grad_bucket_bytes", "total gradient bytes in the last grad-sync plan"),
+    # continuous performance plane (fed by ompi_tpu_torch.perf;
+    # process-wide)
+    ("perf_regressions",
+     "sentry trips: sustained busbw/goodput shortfall vs the ledger"),
+    ("perf_goodput_pct",
+     "EWMA step goodput (compute share of wall time, percent)"),
+    ("perf_mfu_pct", "EWMA model-FLOPs utilization, percent"),
+    ("perf_ledger_buckets",
+     "(coll, arm, size-bucket) cells held by the learned cost model"),
+    # topology traffic plane (fed by ompi_tpu_torch.traffic; process-wide)
+    ("traffic_attributed_bytes",
+     "wire bytes placed on mesh edges / the host plane by the traffic "
+     "matrix"),
+    ("traffic_unattributed_bytes",
+     "wire bytes the traffic matrix could not place on any edge "
+     "(attribution bugs; 0 when the conservation invariant holds)"),
+    ("traffic_hotlink_trips",
+     "hot-link sentry trips (one directed edge carrying "
+     "disproportionate bytes)"),
+    ("traffic_edge_count", "directed mesh edges holding attributed bytes"),
     # MoE routing plane (fed by ompi_tpu_torch.moe; process-wide)
     ("moe_routed_tokens",
      "tokens dispatched to experts by the MoE routing plane"),
@@ -60,12 +85,35 @@ COUNTERS = [
      "hot-expert sentry trips (one expert carrying disproportionate "
      "token load)"),
 ]
-# the grad_bucket_* pair lives in the overlap scheduler and the moe_*
-# counters in the MoE plane (one state per process, not per Context):
-# every read goes through to them
-_READ_THROUGH = ("grad_bucket_count", "grad_bucket_bytes",
-                 "moe_routed_tokens", "moe_dropped_tokens",
-                 "moe_hot_expert_trips")
+# trace_dropped_events lives in the tracer, the grad_bucket_* pair in the
+# overlap scheduler, the perf_*/traffic_* pvars in their planes and the
+# moe_* counters in the MoE plane (one state per process, not per
+# Context): every read goes through to them
+_READ_THROUGH = ("trace_dropped_events", "grad_bucket_count",
+                 "grad_bucket_bytes", "moe_routed_tokens",
+                 "moe_dropped_tokens", "moe_hot_expert_trips")
+
+
+def _read_through(name: str):
+    """The plane-held value of ``name``, or None when no plane holds it."""
+    if name == "trace_dropped_events":
+        from . import trace
+        return trace.dropped_events()
+    if name in ("grad_bucket_count", "grad_bucket_bytes"):
+        from .parallel import overlap
+        return overlap.pvar_value(name)
+    if name.startswith("perf_"):
+        from . import perf
+        if name in perf.PVARS:
+            return perf.pvar_value(name)
+    if name.startswith("traffic_"):
+        from . import traffic
+        if name in traffic.PVARS:
+            return traffic.pvar_value(name)
+    if name in _READ_THROUGH:       # the MoE routing plane's three
+        from . import moe
+        return moe.pvar_value(name)
+    return None
 
 
 class Counters:
@@ -76,19 +124,29 @@ class Counters:
         self._v[name] = self._v.get(name, 0) + delta
 
     def get(self, name: str) -> float:
-        if name in _READ_THROUGH:
-            if name.startswith("moe_"):
-                from . import moe
-                return moe.pvar_value(name)
-            from .parallel import overlap
-            return overlap.pvar_value(name)
-        return self._v.get(name, 0)
+        got = _read_through(name)
+        return self._v.get(name, 0) if got is None else got
 
     def snapshot(self) -> Dict[str, float]:
         out = dict(self._v)
-        for name in _READ_THROUGH:
+        from . import perf, traffic
+        for name in _READ_THROUGH + perf.PVARS + traffic.PVARS:
             out[name] = self.get(name)
         return out
+
+    def export_prometheus(self, rank: int = 0, comm: str = "world",
+                          prefix: str = "ompi_tpu") -> str:
+        """This rank's pvars as Prometheus text exposition (counter
+        families labeled by rank); module-level :func:`export_prometheus`
+        adds the traffic plane's rows."""
+        lines: List[str] = []
+        snap = self.snapshot()
+        for name, help_ in COUNTERS:
+            lines.append(f"# HELP {prefix}_{name} {_prom_escape(help_)}")
+            lines.append(f"# TYPE {prefix}_{name} counter")
+            lines.append(f'{prefix}_{name}{{rank="{rank}",'
+                         f'comm="{comm}"}} {snap.get(name, 0):.10g}')
+        return "\n".join(lines) + "\n"
 
     def dump(self, rank: int) -> str:
         lines = [f"SPC counters (rank {rank}):"]
@@ -100,3 +158,34 @@ class Counters:
         print(text, flush=True)
         return text
 
+
+# -- Prometheus text exposition ----------------------------------------------
+
+def _prom_escape(s: str) -> str:
+    """HELP-text escaping per the Prometheus text format (backslash and
+    newline)."""
+    return s.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def export_prometheus(ctx, comm=None, prefix: str = "ompi_tpu") -> str:
+    """One rank's metrics surface in the Prometheus text exposition format:
+    every counter as a ``<prefix>_<name>{rank,comm}`` counter family plus,
+    once the traffic plane holds bytes, its per-edge and per-plane gauge
+    families (``traffic.prometheus_rows``).
+
+        open(f"metrics.{ctx.rank}.prom", "w").write(
+            spc.export_prometheus(ctx))
+
+    ``ctx`` is a Context (anything with ``.spc``; ``.rank`` is honored
+    when present).  ``comm`` optionally names the communicator label on
+    every sample (default ``world``)."""
+    rank = int(getattr(ctx, "rank", 0))
+    label = comm if isinstance(comm, str) else (
+        getattr(comm, "name", None) or "world")
+    counters = getattr(ctx, "spc", ctx)
+    text = counters.export_prometheus(rank=rank, comm=label, prefix=prefix)
+    from . import traffic
+    trows = traffic.prometheus_rows(rank, comm=label, prefix=prefix)
+    if trows:
+        text += "\n".join(trows) + "\n"
+    return text

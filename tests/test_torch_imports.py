@@ -54,7 +54,10 @@ def test_every_module_is_listed():
                  "serving.cache", "serving.engine", "serving.fused",
                  "serving.scheduler", "parallel.simdcn", "serving.fleet",
                  "parallel.hierarchy", "parallel.ulysses",
-                 "parallel.pipeline", "moe", "models.moe"):
+                 "parallel.pipeline", "moe", "models.moe", "tools.mpisync",
+                 "trace", "trace.merge", "trace.analyze", "perf",
+                 "perf.model", "perf.goodput", "perf.sentry", "traffic",
+                 "traffic.matrix", "traffic.planes", "traffic.sentry"):
         assert f"ompi_tpu_torch.{name}" in MODULES
 
 
