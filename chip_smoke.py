@@ -184,9 +184,24 @@ Phases, in order; any failure raises and the script exits non-zero:
                host's dispatch ms (no synchronize, as perf.timed_coll
                samples) beside its CUDA-event ms, and the cost model's
                cells, none with one process (audit_numbers lines).
-The last lines are the collectives, mesh, mpi, grad_sync, serve, decode,
-fleet, moe, audit and kernels JSON objects (the kernels line carries each
-kernel's launches in one MoE step, moe_step_launches),
+ 19. audit, second half — in phase 9's world, after phase 17 (P16a-2):
+               (a) ContinuousBatchingScheduler over the first 8 requests
+               of 13c's stream on the engine at tp 1, full width, bf16,
+               once with every plane off and once with serve, trace,
+               perf, traffic and the request plane on: one decide:decode_*
+               event a dispatch, one serve:decode_step span a step, one
+               serve:prefill span a request carrying its rid, 8 requests
+               completed, trace.critical's conservation on every rid,
+               the streams those of the planes-off run, no K1-K4 launch;
+               one request's req:decode span dropped must fail
+               conservation on exactly that rid (audit2_check); the decode
+               step's ms off and on, the events by category, the stage
+               and e2e quantiles (audit2_numbers).
+Each phase's seconds on the host's clock are logged as it ends
+(phase_seconds lines).  The last lines are the collectives, mesh, mpi,
+grad_sync, serve, decode, fleet, moe, audit, audit2 and kernels JSON
+objects (the kernels line carries each kernel's launches in one MoE step,
+moe_step_launches),
 the nvidia-smi line and {"ok": true, "device": {...}}.  Without CUDA it
 exits 1 and prints no result.
 
@@ -337,7 +352,29 @@ their check (entry_skew flags exactly rank 2, and nobody without the
 sleep); the cost model's cells for comm.coll.allreduce at 1 and 64 MB a
 rank (dispatch-time samples) beside their CUDA-event ms (audit_check,
 audit_numbers lines); (c) the flagship step on {"dp": 4} as in 18a, the
-planes off and on (then the audit line).
+planes off and on (then the audit line).  Phase 19 in the same rank
+program: (b) the engine at tp 4 at full width, eager and
+decode_overlap="fused", answering 13a's four prompts for four tokens
+with the planes on: one decision a dispatch and a fused ring,
+traffic_attributed_bytes = coll_wire_bytes with nothing unattributed on
+every rank (a second decision event planted for decode_rs must fail
+one-a-dispatch); a disaggregated fleet of 1 + 1 replicas at tp 2 over
+the first 8 requests of 13c's stream with the request plane on: one
+serve:migrate span and one cross decide:reshard a migration on every
+rank, the reshard edges summing to those decisions' wire, then
+trace.gather to rank 0 and critical.analyze_requests: one tree a
+request, each stage once, conservation within the mpisync bound; (c)
+convert_params(to="decode") on {"tp": 4} (one decide:reshard a plan
+step, the reshard edges their wire), moe_block_ep at 17c's shape (its
+edges the routing plan's per-pair token bytes; uniform weights planted
+must fail that), ulysses_attention at 16d's shape (the charge
+(2·Q + K + V)/4 of the whole tensors), one pipeline run at 16f's shape
+(one pipeline:run span and M + P − 1 ticks) and one forced-quant
+comm.coll.allreduce (its quant:allreduce span beside its decision)
+(audit2_check, audit2_numbers lines, then the audit2 line).  Every
+process group of the rank program ends through leave_world.  Each
+world's sub-phases and each tpurun program log their seconds
+(phase_seconds lines).
 """
 
 from __future__ import annotations
@@ -546,6 +583,21 @@ PEAK_BYTES = 3.35e12
 
 def log(obj) -> None:
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
+
+
+class PhaseClock:
+    """One ``phase_seconds`` line a phase: the seconds since the previous
+    lap (or since the clock was made), read on the host's clock."""
+
+    def __init__(self, log_fn=log) -> None:
+        self.log_fn, self.t = log_fn, time.perf_counter()
+
+    def lap(self, name: str) -> float:
+        now = time.perf_counter()
+        seconds, self.t = now - self.t, now
+        self.log_fn({"phase": "phase_seconds", "of": name,
+                     "seconds": seconds})
+        return seconds
 
 
 def card_line() -> str:
@@ -5879,13 +5931,17 @@ def moe_card_worker(rank: int, world: int, init_method: str,
     init_device_plane(rank=rank, world_size=world, init_method=init_method,
                       timeout_s=600)
     out = log if rank == 0 else (lambda obj: None)
+    clock = PhaseClock(out)
     moe = moe_multi_card(torch, np, tfm, world, card, out)
     torch.cuda.empty_cache()
+    clock.lap("17c")
     # 17d: the MoE mesh train step on the cards
     moe["mesh_step"] = moe_mesh_multi_card(torch, np, tfm, optim, attention,
                                            world, card, out)
+    clock.lap("17d")
     out({"moe": moe})
     leave_world(torch, out)
+    clock.lap("17 teardown")
 
 
 # -- 11. the MPI surface: runtime, comm and coll/nccl under tpurun ----------
@@ -6574,6 +6630,7 @@ def audit_rank(torch, np) -> None:
         return int(spc.get("coll_wire_bytes") - before)
 
     failed = []
+    clock = PhaseClock(out)
     with audit_planes(True):
         # 18b: the twelve entries
         wire = audited(lambda: audit_entries(comm, d, n))
@@ -6691,6 +6748,7 @@ def audit_rank(torch, np) -> None:
             del xs
     if failed:
         raise AssertionError(f"18b: {failed}")
+    clock.lap("18b")
     # 18c: the flagship step on {"dp": n}
     cfg = tfm.flagship_config()
     pristine = tfm.init_params(torch.Generator().manual_seed(0), cfg)
@@ -6700,7 +6758,493 @@ def audit_rank(torch, np) -> None:
                         make_mesh({"dp": n}), card, out)
     out({"audit_rank0": {"entries": list(AUDIT_OPS), "arms": arms,
                          "train": train}})
+    del pristine, tokens
+    torch.cuda.empty_cache()
+    clock.lap("18c")
+    # 19b: the serving tier's seams and the request plane; 19c: the
+    # training side's
+    failed = audit2_serve_rank(torch, np, tfm, comm, rank, gate, out, card)
+    clock.lap("19b")
+    failed += audit2_seams_rank(torch, np, tfm, comm, rank, gate, out, card)
+    clock.lap("19c")
+    if failed:
+        raise AssertionError(f"19b-c: {failed}")
+    out({"audit2_rank0": {"checks_passed": True, "cards": n}})
+    leave_world(torch, out)
     runtime.finalize()
+
+
+# -- 19. the audit planes, second half ----------------------------------------
+
+AUDIT2_REQUESTS = 8            # 19a/19b: the first requests of 13c's stream
+AUDIT2_STEPS = 4               # 19b: tokens a request on the tp 4 engines
+
+
+@contextlib.contextmanager
+def request_plane(on: bool):
+    """The serve plane on and the request plane on (or off), both emptied
+    first; both off after."""
+    from ompi_tpu_torch import serving
+    from ompi_tpu_torch.serving import requests
+    serving.reset()
+    requests.reset()
+    serving.enable()
+    if on:
+        requests.enable()
+    else:
+        requests.disable()
+    try:
+        yield
+    finally:
+        serving.disable()
+        requests.disable()
+
+
+def audit2_stream(cfg):
+    from ompi_tpu_torch.serving.scheduler import poisson_stream
+    return poisson_stream(AUDIT2_REQUESTS, SCHED_QPS, cfg.vocab, seed=1,
+                          prompt_len=SCHED_PROMPT, max_new=SCHED_NEW)
+
+
+def failed_rids(critical, tl) -> list:
+    """The rids whose stage sum misses their e2e wall."""
+    return [r["rid"] for r in critical.conservation(tl)["requests"]
+            if not r["ok"]]
+
+
+def one_tree_a_request(trees, rids) -> bool:
+    """Every rid has one tree holding each stage it ran once."""
+    if sorted(trees) != sorted(rids):
+        return False
+    for tree in trees.values():
+        names = [s["name"] for s in tree["spans"]]
+        if len(names) != len(set(names)) or tree["e2e"] is None:
+            return False
+    return True
+
+
+def audit2_one_card(torch, np, tfm, attention, card, log_fn=log) -> dict:
+    """19a, in phase 9's world: ContinuousBatchingScheduler over the first
+    AUDIT2_REQUESTS requests of 13c's stream on the engine at tp 1, full
+    flagship width (bf16), first with the audit and request planes off,
+    then with serve, trace, perf, traffic and the request plane on.  The
+    checks: one decide:decode_* event a dispatch, one serve:decode_step
+    span a step and one serve:prefill span a request carrying its rid,
+    req_completed = the requests, critical.conservation on every rid of
+    the rank's timeline, the streams those of the planes-off run, K1-K4
+    launched by neither; a planted fault (one request's req:decode span
+    dropped) must fail conservation on exactly that rid.  The decode
+    step's ms (the host's clock around decode_step, which ends on the
+    host) with the planes off and on."""
+    from ompi_tpu_torch import spc as spc_mod
+    from ompi_tpu_torch import trace
+    from ompi_tpu_torch.parallel import DeviceComm, make_mesh
+    from ompi_tpu_torch.serving import requests
+    from ompi_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
+    from ompi_tpu_torch.trace import critical, merge
+    cfg = tfm.flagship_config()
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    mesh = make_mesh({"tp": 1})
+    dc = DeviceComm(mesh, "tp")
+    eng = serve_engine(tfm, dc, tfm.shard_params(params, mesh, cfg), cfg,
+                       SERVE_SEQS, serve_pages(SCHED_PROMPT[1]
+                                               + SCHED_NEW[1]))
+    del params
+    runs = {}
+    for on in (False, True):
+        step_ms = []
+
+        def timed(tokens, positions, _real=eng.decode_step):
+            t0 = time.perf_counter()
+            got = _real(tokens, positions)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return got
+
+        dc.spc = spc_mod.Counters()
+        before = dict(eng.dispatches)
+        with audit_planes(on), request_plane(on), \
+                planted(eng, "decode_step", timed):
+            zero_counts(attention)
+            out = ContinuousBatchingScheduler(eng,
+                                              audit2_stream(cfg)).run()
+            torch.cuda.synchronize()
+            evs = trace.events()
+            rep = requests.report()
+        runs[on] = {"out": out, "evs": evs, "rep": rep,
+                    "completed": dc.spc.get("req_completed"),
+                    "launches": launch_counts(attention),
+                    "dispatches": {k: v - before[k]
+                                   for k, v in eng.dispatches.items()},
+                    "step_ms": step_ms}
+    off, on = runs[False], runs[True]
+    evs = on["evs"]
+    count = lambda name: sum(e["name"] == name for e in evs)  # noqa
+    rids = list(range(AUDIT2_REQUESTS))
+    tl = merge.merge({0: evs})
+    trees = critical.request_trees(tl)
+    cons = critical.conservation(tl, trees=trees)
+    prefill_rids = sorted(e["args"]["rid"] for e in evs
+                          if e["name"] == "serve:prefill")
+    # the planted fault: request 3's req:decode span dropped
+    cut = [e for e in evs if not (e["name"] == "req:decode"
+                                  and e["args"]["rid"] == 3)]
+    planted_failed = failed_rids(critical, merge.merge({0: cut}))
+    streams = lambda r: {rid: x["tokens"]  # noqa: E731
+                         for rid, x in r["out"]["results"].items()}
+    checks = {
+        "one_decision_a_dispatch": all(
+            count(f"decide:{c}") == on["dispatches"][c]
+            for c in ("decode_ag", "decode_rs")),
+        "one_decode_step_span_a_step": count("serve:decode_step")
+        == on["out"]["decode_steps"] == len(on["step_ms"]),
+        "one_prefill_span_a_request_with_its_rid": prefill_rids == rids,
+        "req_completed": on["completed"] == on["rep"]["completed"]
+        == AUDIT2_REQUESTS,
+        "one_tree_a_request": one_tree_a_request(trees, rids),
+        "conservation": cons["checked"] == AUDIT2_REQUESTS
+        and cons["all_ok"],
+        "tokens_equal_planes_off": streams(on) == streams(off),
+        "no_kernel_launched": list(on["launches"]) == [0, 0, 0, 0]
+        == list(off["launches"]),
+        "planted_dropped_decode_fails_its_rid": planted_failed == [3]}
+    ok = all(checks.values())
+    log_fn({"phase": "audit2_check", "check": "serve_one_card",
+            "checks": checks, "dispatches": on["dispatches"],
+            "planted_failed_rids": planted_failed, "ok": ok})
+    by_cat = {}
+    for e in evs:
+        by_cat[e["cat"]] = by_cat.get(e["cat"], 0) + 1
+    row = {"phase": "audit2_numbers", "what": "serve_one_card",
+           "requests": AUDIT2_REQUESTS, "decode_steps":
+           on["out"]["decode_steps"],
+           "decode_step_ms_p50_off": statistics.median(off["step_ms"]),
+           "decode_step_ms_p50_on": statistics.median(on["step_ms"]),
+           "events_by_category": by_cat,
+           "dropped_events": trace.dropped_events(),
+           "e2e_ms": on["rep"]["e2e"], "stages_ms": on["rep"]["stages"],
+           "tail_attribution": critical.tail_attribution(
+               tl, trees=trees)["rollup"], "card": card}
+    log_fn(row)
+    if not ok:
+        raise AssertionError(f"19a: {checks}")
+    del eng
+    torch.cuda.empty_cache()
+    return {"checks": checks, **{k: v for k, v in row.items()
+                                 if k not in ("phase", "card")}}
+
+
+def audit2_serve_rank(torch, np, tfm, comm, rank: int, gate, out,
+                      card: str) -> list:
+    """19b, in the tpurun program after 18c: the engine at tp = the world
+    (eager, then decode_overlap="fused") answering phase 13's prompts for
+    AUDIT2_STEPS tokens with the planes on — one decision a dispatch and a
+    ring, conservation on every rank, and a planted second decision event
+    for decode_rs failing one-a-dispatch; then a disaggregated fleet of
+    1 + 1 replicas at tp = world/2 over AUDIT2_REQUESTS requests with the
+    request plane on, every rank's trace gathered to rank 0 by trace.gather
+    and read by critical.analyze_requests: one tree a request,
+    conservation within the mpisync bound, one serve:migrate span and one
+    cross decide:reshard a migration on every rank, the cross edges
+    summing to their wire.  Returns the failed checks."""
+    from ompi_tpu_torch import serving, trace, traffic
+    from ompi_tpu_torch import spc as spc_mod
+    from ompi_tpu_torch.parallel import DeviceComm, make_mesh
+    from ompi_tpu_torch.trace import critical, merge
+    n = comm.size
+    failed = []
+    cfg = tfm.flagship_config()
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    prompts = serve_prompts(np, cfg.vocab)
+    pages = serve_pages(SCHED_PROMPT[1] + SCHED_NEW[1])
+    mesh = make_mesh({"tp": n})
+    engines = {}
+    for path in ("eager", "fused"):
+        c = dataclasses.replace(cfg, decode_overlap=path) \
+            if path == "fused" else cfg
+        dc = DeviceComm(mesh, "tp")
+        eng = serve_engine(tfm, dc, tfm.shard_params(params, mesh, c), c,
+                           SERVE_SEQS, pages)
+        engines[path] = eng
+
+        def served(eng=eng):
+            """Phase 13's prompts from an empty trace and matrix: the
+            dispatches, the decision events by coll, the wire."""
+            eng.dc.spc = spc_mod.Counters()
+            trace.clear()
+            traffic.reset()
+            before = dict(eng.dispatches)
+            t0 = time.perf_counter()
+            serve_requests(torch, np, eng, prompts, AUDIT2_STEPS)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            disp = {k: v - before[k] for k, v in eng.dispatches.items()}
+            dec = {k: sum(e["name"] == f"decide:{k}"
+                          for e in trace.events(rank)) for k in disp}
+            return disp, dec, int(eng.dc.spc.get("coll_wire_bytes")), \
+                seconds
+
+        with audit_planes(True):
+            disp, dec, wire, seconds = served()
+            ok_cons = (traffic.matrix.placed_bytes == wire > 0
+                       and traffic.matrix.unattributed_bytes == 0)
+            name = f"engine_{path}_one_decision_a_dispatch"
+            if not gate(name, disp == dec and sum(disp.values()) > 0,
+                        dispatches=disp, decisions=dec):
+                failed.append(name)
+            name = f"engine_{path}_conservation"
+            if not gate(name, ok_cons, wire=wire,
+                        attributed=traffic.matrix.placed_bytes,
+                        unattributed=traffic.matrix.unattributed_bytes):
+                failed.append(name)
+            out({"phase": "audit2_numbers", "what": f"engine_{path}",
+                 "cards": n, "requests": len(prompts),
+                 "tokens": AUDIT2_STEPS, "seconds": seconds,
+                 "dispatches": disp, "wire_bytes": wire, "card": card})
+            if path == "eager":
+                real = trace.decision
+
+                def twice(op, *a, **kw):
+                    real(op, *a, **kw)
+                    if op == "decode_rs":
+                        real(op, *a, **kw)
+
+                with planted(trace, "decision", twice):
+                    disp, dec, _w, _s = served()
+                if not gate("planted_second_decision_fails_one_a_dispatch",
+                            disp != dec, dispatches=disp, decisions=dec):
+                    failed.append("planted second decision")
+    del engines, eng
+    torch.cuda.empty_cache()
+    # the disaggregated fleet, 1 + 1 at tp n/2
+    fl = fleet_of(params, cfg, 2, n // 2, 1, pages)
+    del params
+    with audit_planes(True), request_plane(True):
+        t0 = time.perf_counter()
+        res = fl.run(audit2_stream(cfg))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        migrations = serving.fleet_report()["migrations"]
+        mine = trace.events(rank)
+        cross = [e["args"] for e in mine if e["name"] == "decide:reshard"
+                 and e["args"].get("cross")]
+        migrate_spans = sum(e["name"] == "serve:migrate" for e in mine)
+        reshard_edges = traffic.matrix.per_coll().get("reshard", 0)
+        wire = int(fl.spc.get("coll_wire_bytes"))
+        placed = traffic.matrix.placed_bytes
+        t1 = time.perf_counter()
+        tl = merge.gather(comm)
+        gather_s = time.perf_counter() - t1
+    name = "fleet_spans_and_cross_decisions_a_migration"
+    if not gate(name, migrations == AUDIT2_REQUESTS == len(cross)
+                == migrate_spans and res["completed"] == AUDIT2_REQUESTS,
+                migrations=migrations, cross_decisions=len(cross),
+                migrate_spans=migrate_spans):
+        failed.append(name)
+    name = "fleet_cross_edges_sum_to_their_wire"
+    if not gate(name, reshard_edges == sum(d["wire_bytes"] for d in cross)
+                > 0 and placed == wire, reshard_edge_bytes=reshard_edges,
+                cross_wire=sum(d["wire_bytes"] for d in cross),
+                attributed=placed, coll_wire_bytes=wire):
+        failed.append(name)
+    verdict = None
+    if rank == 0:
+        ana = critical.analyze_requests(tl)
+        trees = critical.request_trees(tl)
+        verdict = {"trees": ana["requests"], "finished": ana["finished"],
+                   "one_tree_a_request": one_tree_a_request(
+                       trees, list(range(AUDIT2_REQUESTS))),
+                   "conservation": ana["conservation"]["all_ok"],
+                   "max_resid_s": max(r["resid_s"] for r in
+                                      ana["conservation"]["requests"]),
+                   "max_tol_s": max(r["tol_s"] for r in
+                                    ana["conservation"]["requests"]),
+                   "lanes": sorted({tuple(t["ranks"])
+                                    for t in ana["trees"]}),
+                   "tail": ana["tail"]["rollup"],
+                   "events": len(tl.events)}
+    got = [None] * n
+    torch.distributed.all_gather_object(got, verdict)
+    verdict = got[0]
+    name = "fleet_one_tree_a_request_and_conservation"
+    if not gate(name, verdict["one_tree_a_request"]
+                and verdict["conservation"], gather_s=gather_s, **verdict):
+        failed.append(name)
+    out({"phase": "audit2_numbers", "what": "fleet_1+1", "cards": n,
+         "tp": n // 2, "requests": AUDIT2_REQUESTS, "seconds": seconds,
+         "clock_s": res["clock_s"], "migrations": migrations,
+         "gather_s": gather_s, "card": card})
+    del fl
+    torch.cuda.empty_cache()
+    return failed
+
+
+def audit2_seams_rank(torch, np, tfm, comm, rank: int, gate, out,
+                      card: str) -> list:
+    """19c, in the tpurun program after 19b, with the planes on:
+    convert_params(to="decode") of the flagship's train shards on {"tp":
+    world} — one decide:reshard a plan step, the reshard edges the plan
+    steps' wire; moe_block_ep at 17c's shape (2048 tokens a card, bf16,
+    {"ep": world}) — its edges the routing plan's per-pair token bytes,
+    a planted uniform weighting failing that; ulysses_attention at 16d's
+    shape — the charge (2·Q + K + V)/n of the whole tensors; one pipeline
+    run at 16f's shape — one pipeline:run span and M + P − 1 ticks; one
+    forced-quant comm.coll.allreduce — its quant:allreduce span beside its
+    decide:allreduce.  K1-K4 launches with the planes on are counted
+    (pipeline and Ulysses run K1).  Returns the failed checks."""
+    from ompi_tpu_torch import trace, traffic
+    from ompi_tpu_torch.core import var
+    from ompi_tpu_torch.models import moe as moe_mod
+    from ompi_tpu_torch.ops import attention
+    from ompi_tpu_torch.parallel import DeviceComm, make_mesh
+    from ompi_tpu_torch.parallel import pipeline as pp
+    from ompi_tpu_torch.parallel import reshard, ulysses
+    n = comm.size
+    failed = []
+    cfg = tfm.flagship_config()
+
+    def mark(name, ok, **info):
+        if not gate(name, ok, **info):
+            failed.append(name)
+
+    with audit_planes(True):
+        # convert_params on {"tp": n}
+        params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+        mesh = make_mesh({"tp": n})
+        train = tfm.shard_params(params, mesh, cfg)
+        del params
+        trace.clear()
+        traffic.reset()
+        steps0 = reshard.report()["counters"]["reshard_steps"]
+        dec = tfm.convert_params(train, mesh, cfg, to="decode")
+        torch.cuda.synchronize()
+        steps = reshard.report()["counters"]["reshard_steps"] - steps0
+        evs = [e["args"] for e in trace.events(rank)
+               if e["name"] == "decide:reshard"]
+        edges = traffic.matrix.per_coll().get("reshard", 0)
+        mark("convert_one_decision_a_plan_step", len(evs) == steps > 0
+             and edges == sum(d["wire_bytes"] for d in evs)
+             and traffic.matrix.unattributed_bytes == 0,
+             plan_steps=steps, decisions=len(evs), edge_bytes=edges,
+             wire=sum(d["wire_bytes"] for d in evs))
+        del train, dec
+        torch.cuda.empty_cache()
+        # moe_block_ep at 17c's shape
+        mcfg = dataclasses.replace(cfg, mlp="moe")
+        dc = DeviceComm(make_mesh({"ep": n}), "ep")
+        d, E, k = mcfg.d_model, mcfg.n_experts, mcfg.moe_top_k
+        t = MOE_TRAIN_BATCH * mcfg.seq // n
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        full = moe_mod.init_moe_params(gen, d, mcfg.d_ff, E)
+        local = {nm: (w if nm == "router" else w.to(torch.bfloat16))
+                 for nm, w in moe_mod.local_experts(full, dc).items()}
+        del full
+        h = torch.randn((n, t, d), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)[dc.pos:dc.pos + 1]
+        plans = []
+
+        def recording(*a, _real=moe_mod._route_plan):
+            plans.append(_real(*a))
+            return plans[-1]
+
+        def moe_edges():
+            trace.clear()
+            traffic.reset()
+            plans.clear()
+            with planted(moe_mod, "_route_plan", recording):
+                moe_mod.moe_block_ep(dc, h, local, E, k,
+                                     mcfg.moe_capacity_factor)
+            torch.cuda.synchronize()
+            C = plans[0]["C"]
+            tok = d * h.element_size()
+            want = {}
+            for i in range(n):
+                for j in range(n):
+                    b = (C[i, j] + C[j, i]) * tok if i != j else 0
+                    if b:
+                        want[(i, j)] = int(b)
+            got = {(r["src"], r["dst"]): r["bytes"]
+                   for r in traffic.matrix.rows()}
+            decisions = sum(e["name"].startswith("decide:moe_")
+                            for e in trace.events(rank))
+            return got == want, got, want, decisions
+
+        ok, got, want, decisions = moe_edges()
+        mark("moe_edges_the_routing_plans_pair_bytes", ok and decisions
+             == 2 and len(set(want.values())) > 1,
+             decisions=decisions, pairs=len(want),
+             pair_bytes_min=min(want.values()),
+             pair_bytes_max=max(want.values()))
+        uniform = lambda C, n_lines=1: [1.0] * (  # noqa: E731
+            len(C) * (len(C) - 1) * max(int(n_lines), 1))
+        with planted(traffic, "a2a_weights", uniform):
+            ok_u, *_ = moe_edges()
+        mark("planted_uniform_weights_fail_the_pair_bytes", not ok_u)
+        del local, h
+        torch.cuda.empty_cache()
+        # ulysses at 16d's shape
+        smesh = make_mesh({"sp": n})
+        shape = (BATCH, cfg.seq // n, cfg.n_heads, cfg.head_dim)
+        gen = torch.Generator(device="cuda").manual_seed(16 + rank)
+        q, kk, v = (torch.randn(shape, generator=gen, device="cuda",
+                                dtype=torch.bfloat16) for _ in range(3))
+        traffic.reset()
+        ulysses.ulysses_attention(q, kk, v, smesh, "sp", causal=True)
+        torch.cuda.synchronize()
+        charge = traffic.matrix.per_coll().get("ulysses", 0)
+        whole = lambda x: x.numel() * x.element_size() * n  # noqa: E731
+        want_u = (2 * whole(q) + whole(kk) + whole(v)) // n
+        mark("ulysses_charge", charge == want_u, charge=charge,
+             want=want_u)
+        del q, kk, v
+        # one pipeline run at 16f's shape, forward
+        params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+        pmesh = make_mesh({"dp": 2, "pp": PIPE_STAGES})
+        per = cfg.n_layers // PIPE_STAGES
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (PIPE_MICRO, cfg.seq))).cuda()
+        mbs = params["embed"].to(cfg.dtype)[tokens][:, None]
+        mine = pp.shard_stage_params(pp.stack_stage_params(
+            params["layers"], PIPE_STAGES), pmesh, "pp")
+        del params
+
+        def stage_fn(p, x):
+            for i in range(per):
+                x, _ = tfm._layer_apply(x, {kk: w[i] for kk, w in p.items()},
+                                        cfg)
+            return x
+
+        trace.clear()
+        zero_counts(attention)
+        with torch.no_grad():
+            pp.pipeline(stage_fn, mine, mbs, pmesh, "pp")
+        pipe_launches = list(launch_counts(attention))
+        spans = [e for e in trace.events(rank)
+                 if e["name"].startswith("pipeline:")]
+        runs = [e for e in spans if e["name"] == "pipeline:run"]
+        ticks = sum(e["name"] == "pipeline:tick" for e in spans)
+        mark("pipeline_one_run_span_and_its_ticks", len(runs) == 1
+             and ticks == PIPE_MICRO + PIPE_STAGES - 1
+             and runs[0]["args"]["ticks"] == ticks, ticks=ticks,
+             run_ms=runs[0]["dur"] * 1e3 if runs else None,
+             k1_k2_k3_k4_launches=pipe_launches)
+        del mine, mbs
+        torch.cuda.empty_cache()
+        # one forced-quant allreduce
+        trace.clear()
+        x = torch.randn((1, 1 << 20), device="cuda")
+        var.registry.set_cli("coll_nccl_allreduce_mode", "quant")
+        try:
+            comm.coll.allreduce(comm, x)
+            torch.cuda.synchronize()
+        finally:
+            var.registry.clear_cli("coll_nccl_allreduce_mode")
+        names = [e["name"] for e in trace.events(rank)]
+        arms = [e["args"]["arm"] for e in trace.events(rank)
+                if e["name"] == "decide:allreduce"]
+        mark("quant_allreduce_span_beside_its_decision",
+             names.count("quant:allreduce") == 1 and arms == ["quant"],
+             names=sorted(set(names)))
+    return failed
 
 
 RANK_SCRIPT = """import sys
@@ -6712,7 +7256,8 @@ sys.exit(chip_smoke.rank_main(sys.argv[1:]))
 
 def rank_main(argv) -> int:
     """Entry of phase 11's rank programs: ``device R_PER TIMED HOST`` or
-    ``ring LAPS``; of phase 16b's, ``hier``; of phase 18b-c's, ``audit``."""
+    ``ring LAPS``; of phase 16b's, ``hier``; of phases 18b-c and 19b-c,
+    ``audit``."""
     import numpy as np
     if argv[0] == "ring":
         ring_rank(np, int(argv[1]))
@@ -6802,28 +7347,37 @@ def multi_card_worker(rank: int, world: int, init_method: str,
     torch.cuda.empty_cache()
     dc = DeviceComm(make_mesh({"x": world}), "x")
     out = log if rank == 0 else (lambda obj: None)
+    clock = PhaseClock(out)
     # the staged arm is single-controller code: phase 9 on one card runs it
     rows = device_coll(torch, np, dc, card, grad_numel, out, staged=False)
     torch.cuda.empty_cache()
+    clock.lap("9")
     mesh_rows = mesh_multi_card(torch, np, tfm, optim, world, card, out)
     torch.cuda.empty_cache()
+    clock.lap("10c")
     # 12d, 12e: the grad-sync arms on a dp mesh, the fused tp step
     sync = grad_sync_multi_card(torch, np, tfm, optim, world, card, out)
     torch.cuda.empty_cache()
+    clock.lap("12d")
     fused = fused_multi_card(torch, np, tfm, optim, world, card, out)
     torch.cuda.empty_cache()
+    clock.lap("12e")
     # 13e: convert_params and the engine on a {"tp": world} mesh
     serve = serve_multi_card(torch, np, tfm, attention, world, card, out)
     torch.cuda.empty_cache()
+    clock.lap("13e")
     # 14c: the fused decode program on a {"tp": world} mesh
     decode = decode_multi_card(torch, np, tfm, world, card, out)
     torch.cuda.empty_cache()
+    clock.lap("14c")
     # 15b-d: the serving fleet across the cards
     fleet = fleet_multi_card(torch, np, tfm, world, card, out)
     torch.cuda.empty_cache()
+    clock.lap("15b-d")
     # 16a, 16c-f: hierarchy and sequence parallelism (16c beside 12d's
     # native timings)
     hier = p13_multi_card(torch, np, tfm, optim, world, card, sync, out)
+    clock.lap("16a, 16c-f")
     out({"collectives": rows})
     out({"mesh": mesh_rows})
     out({"grad_sync": sync})
@@ -6833,6 +7387,7 @@ def multi_card_worker(rank: int, world: int, init_method: str,
     out({"fleet": fleet})
     out({"hier": hier})
     leave_world(torch, out)
+    clock.lap("9-16 teardown")
 
 
 def group_purposes() -> dict:
@@ -6942,26 +7497,34 @@ def multi_card_main() -> int:
     card = card_line()
     log({"phase": "device", "card": card, "cards": world,
          "torch": torch.__version__, "cuda": torch.version.cuda})
+    clock = PhaseClock()
     with tempfile.TemporaryDirectory() as tmp:
         mp.spawn(multi_card_worker, args=(
             world, "file://" + os.path.join(tmp, "store"), card),
             nprocs=world)
+        clock.lap("world of 9-16")
         # 17c, 17d: MoE expert parallelism and the MoE mesh step, a world
         # of its own
         mp.spawn(moe_card_worker, args=(
             world, "file://" + os.path.join(tmp, "store17"), card),
             nprocs=world)
+        clock.lap("world of 17c-d")
     # 11. the MPI surface across the cards, one rank bound to each
     log({"mpi": mpi_phase(1, world, ["allreduce", "bcast", "allgather",
                                      "alltoall"], True,
                           extra=("--gpus-per-rank", "1"))})
+    clock.lap("11")
     # 16b: comm.coll.allreduce on a comm attached to ("dpo", "dp")
     lines = tpurun(world, ["hier"], extra=("--gpus-per-rank", "1"))
     log({"hier_mpi": last_json(lines, "hier_rank0")})
-    # 18b, 18c: the audit planes on comm_world attached to {"x": 4}, then
-    # the flagship step on {"dp": 4}
+    clock.lap("16b")
+    # 18b, 18c, 19b, 19c: the audit planes on comm_world attached to {"x":
+    # 4}, the flagship step on {"dp": 4}, then the seams of the serving
+    # tier and the training side
     lines = tpurun(world, ["audit"], extra=("--gpus-per-rank", "1"))
     log({"audit": last_json(lines, "audit_rank0")})
+    log({"audit2": last_json(lines, "audit2_rank0")})
+    clock.lap("18b-c, 19b-c program")
     log(card)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
@@ -6986,6 +7549,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
+    clock = PhaseClock()
     card = card_line()
     props = torch.cuda.get_device_properties(0)
     log({"phase": "device", "card": card, "name": props.name,
@@ -6993,6 +7557,7 @@ def main() -> int:
          "memory_bytes": props.total_memory,
          "capability": f"{props.major}.{props.minor}",
          "torch": torch.__version__, "cuda": torch.version.cuda})
+    clock.lap("1")
 
     # 2. build
     t0 = time.perf_counter()
@@ -7002,6 +7567,7 @@ def main() -> int:
          "sources": [s.name for s in _build.sources()]})
     check_ptxas(_build, _build.library("flash_attention"),
                 _build.library("flash_bwd"))
+    clock.lap("2")
 
     # 3. kernels against their plain versions
     path_err = None
@@ -7029,6 +7595,7 @@ def main() -> int:
             bwd_err = errs
     check_grad(torch, attention, ring)
     torch.cuda.empty_cache()
+    clock.lap("3")
 
     # 4. flash_attention (K4): against its plain version, then its path at
     # full flagship width
@@ -7058,6 +7625,7 @@ def main() -> int:
     check_sdpa_alignment(torch, attention)
     k4_rows = k4_path(torch, attention, cfg, card)
     torch.cuda.empty_cache()
+    clock.lap("4")
 
     # 5. the forward path at full width
     rng = np.random.default_rng(0)
@@ -7116,6 +7684,7 @@ def main() -> int:
             raise AssertionError(f"flash vs dense logits: relative RMS "
                                  f"{rel:.4g} >= {FLASH_VS_DENSE_RMS}")
         del logits, logits_d, truth
+        clock.lap("5")
 
         # 6. numbers, CUDA-event medians
         bh, s, d = 4 * cfg.n_heads, cfg.seq, cfg.head_dim
@@ -7161,6 +7730,7 @@ def main() -> int:
 
     del params
     torch.cuda.empty_cache()
+    clock.lap("6")
 
     # 7. the train path at full width
     pristine = tfm.init_params(torch.Generator().manual_seed(0), cfg)
@@ -7169,6 +7739,7 @@ def main() -> int:
     per_step = train_path(torch, tfm, optim, attention, cfg, pristine,
                           train_tokens)
     torch.cuda.empty_cache()
+    clock.lap("7")
 
     # 8. train numbers, CUDA-event medians
     args = bwd_args(torch, attention, "bfloat16", True, bh, s, s, d)
@@ -7214,6 +7785,7 @@ def main() -> int:
                pristine, train_tokens, card)
     grad_numel = sum(p.numel() for p in optim.tree_leaves(pristine))
     torch.cuda.empty_cache()
+    clock.lap("8")
 
     # 9. device collectives: DeviceComm in a one-process NCCL world, R = 8
     # rank rows on this card
@@ -7225,6 +7797,7 @@ def main() -> int:
     coll_rows = device_coll(torch, np, dc, card, grad_numel, log)
     del dc
     torch.cuda.empty_cache()
+    clock.lap("9")
 
     # 10. the flagship on a mesh, in the same world: K1 on every ring hop,
     # then the mesh step at dp·sp·tp = 1·1·1
@@ -7233,6 +7806,7 @@ def main() -> int:
     mesh_rows = mesh_world_of_one(torch, tfm, optim, attention, cfg,
                                   pristine, train_tokens, card)
     torch.cuda.empty_cache()
+    clock.lap("10a-b")
 
     # 12. the grad-sync arms in the same world: the codec at the
     # gradients' size, then every arm on a {"dp": 1} mesh
@@ -7240,6 +7814,7 @@ def main() -> int:
                 "dp1": grad_sync_one_card(torch, tfm, optim, cfg, pristine,
                                           train_tokens, card)}
     torch.cuda.empty_cache()
+    clock.lap("12a-b")
 
     # 18a. the audit planes in the same world: the step on {"dp": 1} with
     # trace, perf and traffic off and on; DeviceComm.allreduce's dispatch
@@ -7248,21 +7823,25 @@ def main() -> int:
                                pristine, train_tokens, card)
     del pristine, train_tokens
     torch.cuda.empty_cache()
+    clock.lap("18a")
 
     # 13. serving in the same world: the engine against greedy (f32) and
     # forward (bf16), its planted faults, the scheduler, the numbers
     serve_row = serve_one_card(torch, np, tfm, attention, card)
     torch.cuda.empty_cache()
+    clock.lap("13")
 
     # 14. speculative decoding in the same world: stream identity (f32),
     # its planted faults, decode_window beside decode_step (bf16)
     decode_row = decode_one_card(torch, np, tfm, card)
     torch.cuda.empty_cache()
+    clock.lap("14")
 
     # 15. the serving fleet in the same world: a fleet of one replica
     # against the bare scheduler
     fleet_row = fleet_one_card(torch, np, tfm, attention, card)
     torch.cuda.empty_cache()
+    clock.lap("15a")
 
     # 17. MoE in the same world: the einsum block card against CPU,
     # moe_block_ep against moe_block, the MoE engine against greedy, then
@@ -7271,12 +7850,20 @@ def main() -> int:
     # each kernel's launches in one MoE train step, by remat mode
     moe_steps = [{r["remat"]: r["k1_k2_k3_k4_launches_per_step"][i]
                   for r in moe_row["flagship"]["train"]} for i in range(4)]
+    torch.cuda.empty_cache()
+    clock.lap("17a-b")
+
+    # 19a. the audit planes' second half in the same world: the request
+    # plane and the serving tier's seams on the scheduler at full width
+    audit2_row = audit2_one_card(torch, np, tfm, attention, card)
     torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
+    clock.lap("19a")
 
     # 11. the MPI surface under the port's tpurun: the device program on
     # this card, R = 8 rows in one rank; the ring on the host plane
     mpi_row = mpi_phase(COLL_ROWS, 1, ["allreduce"], False)
+    clock.lap("11")
 
     # K2: q, k, v, dO, lse, delta in; dk, dv out; 4 causal products
     k2_flops, k3_flops = 8 * d * pairs, 6 * d * pairs
@@ -7309,6 +7896,7 @@ def main() -> int:
     log({"fleet": fleet_row})
     log({"moe": moe_row})
     log({"audit": audit_row})
+    log({"audit2": audit2_row})
     log({"kernels": [
         {"name": "flash_partials", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_partials.cu",
@@ -7365,7 +7953,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multi-card", action="store_true",
                     help="run only phases 9, 10c, 11, 12d-f, 13e, 14c, "
-                         "15b-d, 16, 17c, 17d and 18b-c, across every "
-                         "visible card")
+                         "15b-d, 16, 17c, 17d, 18b-c and 19b-c, across "
+                         "every visible card")
     ns = ap.parse_args()
     sys.exit(multi_card_main() if ns.multi_card else main())

@@ -31,18 +31,23 @@ program, the port issues the same NCCL collectives on the axis's process
 group (gloo on the CPU tests' plane): ``all_to_all_single`` and
 ``all_gather_into_tensor`` of the int8 payload and of the scales, the
 codec and the f32 accumulation as torch ops.  Nothing here is a kernel:
-the reference wrote the codec in jnp.  The trace spans and the numerics
-hook of the reference come with ROADMAP P16.
+the reference wrote the codec in jnp.  With tracing on, each quantized
+collective of ``QuantDeviceComm`` records the reference's span
+(``quant:allreduce``, ``quant:reduce_scatter``, ``quant:allgather``)
+with its EQuARX accounting (``_span_args``), under this process's world
+rank.  The reference's numerics hook comes with ROADMAP P16b.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..core import var as _var
 from ..op import SUM, Op, quantizable
 from ..parallel.collectives import _check_backend, _group_of, _repeat_rows
@@ -273,6 +278,17 @@ def grad_bucket_span_args(nbytes: int, n: int, dtype, block: int = None,
     return _span_args(wb, block, sdt, roundings=2, requantize_count=1)
 
 
+def _span(name: str, coll: str, count: int, n: int, dtype, block: int,
+          sdt, roundings: int, requantize_count: int):
+    """The reference's ``quant:<coll>`` span around one quantized
+    execution when tracing is on, else a null context."""
+    if not trace.enabled:
+        return contextlib.nullcontext()
+    return trace.span(name, "quant", rank=dist.get_rank(), args=_span_args(
+        wire_bytes(coll, count, n, dtype, block, sdt), block, sdt,
+        roundings=roundings, requantize_count=requantize_count))
+
+
 # -- the canonical-layout engine (DeviceComm's entry points) ------------------
 
 class QuantDeviceComm:
@@ -312,18 +328,22 @@ class QuantDeviceComm:
         Lpad = padded_len(L, n, block)
         avg = op.name == "avg"
         self._spc("device_quant_collectives")
-        folded = self._fold32(self._padded(x, L, Lpad))
-        if n == 1:
-            out = folded / R if avg else folded
-        else:
-            acc = _reduce_scatter_quant(folded.reshape(n, Lpad // n),
-                                        dc.group, n, block, sdt)
-            if avg:
-                # average over CONTRIBUTIONS: R ranks in all, r of them
-                # folded locally in each process
-                acc = acc / R
-            out = _all_gather_quant(acc, dc.group, n, block,
-                                    sdt).reshape(-1)
+        # allreduce = quantized reduce_scatter ring (accumulate in f32,
+        # requantize once) + quantized allgather
+        with _span("quant:allreduce", "allreduce", L, n, x.dtype, block,
+                   sdt, 2, 1):
+            folded = self._fold32(self._padded(x, L, Lpad))
+            if n == 1:
+                out = folded / R if avg else folded
+            else:
+                acc = _reduce_scatter_quant(folded.reshape(n, Lpad // n),
+                                            dc.group, n, block, sdt)
+                if avg:
+                    # average over CONTRIBUTIONS: R ranks in all, r of
+                    # them folded locally in each process
+                    acc = acc / R
+                out = _all_gather_quant(acc, dc.group, n, block,
+                                        sdt).reshape(-1)
         return _repeat_rows(out[:L].to(x.dtype).reshape(elem), r)
 
     def reduce_scatter(self, x: torch.Tensor, op: Op = SUM,
@@ -348,10 +368,14 @@ class QuantDeviceComm:
         Cpad = block * max(1, math.ceil(C / block))
         avg = op.name == "avg"
         self._spc("device_quant_collectives")
-        chunks = self._fold32(x.reshape(r, R * b * E)).reshape(n, C)
-        if Cpad != C:
-            chunks = torch.nn.functional.pad(chunks, (0, Cpad - C))
-        acc = _reduce_scatter_quant(chunks, dc.group, n, block, sdt)
+        # the ring phase alone: one rounding an element, the accumulation
+        # stays f32 (never requantized)
+        with _span("quant:reduce_scatter", "reduce_scatter", R * b * E, n,
+                   x.dtype, block, sdt, 1, 0):
+            chunks = self._fold32(x.reshape(r, R * b * E)).reshape(n, C)
+            if Cpad != C:
+                chunks = torch.nn.functional.pad(chunks, (0, Cpad - C))
+            acc = _reduce_scatter_quant(chunks, dc.group, n, block, sdt)
         if avg:
             acc = acc / R     # R contributions (r folded locally x n)
         return acc[:C].to(x.dtype).reshape((r, b) + elem)
@@ -374,7 +398,10 @@ class QuantDeviceComm:
         Lpad = block * max(1, math.ceil(L / block))
         self._spc("device_quant_collectives")
         flat = self._padded(x, L, Lpad).reshape(-1)      # r rows end to end
-        full = _all_gather_quant(flat.float(), dc.group, n, block, sdt)
+        # each contribution quantized exactly once on the wire
+        with _span("quant:allgather", "allgather", L, n, x.dtype, block,
+                   sdt, 1, 0):
+            full = _all_gather_quant(flat.float(), dc.group, n, block, sdt)
         full = full.reshape(R, Lpad)[:, :L].to(x.dtype)
         return _repeat_rows(full.reshape((R * b,) + e), r)
 

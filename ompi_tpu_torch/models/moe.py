@@ -44,10 +44,17 @@ sums the router's probabilities over the comm: both are the reference's
 global values.  Rows may outnumber processes: one process can hold all R
 (``make_mesh({"x": 1})``).
 
-The audit keeps the reference's spc half: ``coll_arm_<arm>_count``,
-``coll_wire_bytes`` and the simulated-DCN charge of the cross-plane bytes
-(``parallel/simdcn``).  The perf sample, the traffic edges and the trace
-decision event come with ROADMAP P16a.  The routing outcome feeds the MoE
+The audit is the reference's fan-out, one record an exchange:
+``coll_arm_<arm>_count``, ``coll_wire_bytes``, the simulated-DCN charge
+of the cross-plane bytes (``parallel/simdcn``), the perf sample of the
+timed dispatch (``perf.note_sample``; the host's time to issue the
+exchange, as ``perf.timed_coll`` times any collective), the traffic
+edges weighted by the routing plan's per-(src, dst) token bytes (a hot
+expert shows as a hot link) and one ``decide:moe_dispatch`` /
+``decide:moe_combine`` event with the chain and the exchange's a2av plan.
+The reference charges only outside a trace; the port has none, so every
+call charges (ROADMAP, Departures: eager charging).  The routing outcome
+feeds the MoE
 plane (``ompi_tpu_torch.moe``), whose live capacity factor the block reads.
 No kernel of the port runs here: the products are ``torch.matmul`` and
 ``torch.einsum``, as the reference left them to XLA.
@@ -56,12 +63,15 @@ No kernel of the port runs here: the products are ``torch.matmul`` and
 from __future__ import annotations
 
 import math
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from .. import perf, trace, traffic
 from ..core import var as _var
 from ..device import DeviceLike, resolve_device
 from ..parallel.collectives import _all_gather, copy_to, gather_from
@@ -447,17 +457,48 @@ def _decide_moe_coll(dc, coll: str, nbytes: int, dtype, quant_ok: bool,
                        plane=plane, hier_ok=hier_ok, hier_why=why or "")
 
 
-def _audit_moe_coll(dc, arm: str, wire: int, cross_bytes: int) -> None:
-    """One audit record per moe collective, the spc half of the
-    reference's: the arm and wire pvars, then the simulated-DCN charge of
-    the cross-slab lane.  The perf sample, traffic edges and trace event
-    come with ROADMAP P16a."""
+def _audit_moe_coll(dc, coll: str, arm: str, reason: str, chain: List,
+                    wire: int, W: np.ndarray, cross_bytes: int,
+                    nbytes: int, dtype, dur_s: float,
+                    extra: Dict[str, Any]) -> None:
+    """ONE audit record per moe collective, the reference's fan-out: the
+    arm and wire pvars, the simulated-DCN charge of the cross-slab lane,
+    the timed perf sample, the traffic edges weighted by the REAL
+    per-(src, dst) token bytes ``W`` (R × R over the rows; folded to the
+    processes when one holds several rows) and the trace decision event
+    with the chain and the a2av plan."""
     spc = dc.spc
     if spc is not None:
         spc.inc(f"coll_arm_{arm}_count")
         spc.inc("coll_wire_bytes", int(wire))
     if simdcn.us_per_mib() > 0 and cross_bytes > 0:
         simdcn.charge(int(cross_bytes))
+    if perf.enabled:
+        perf.note_sample(coll, arm, int(wire), dur_s, dc.n)
+    if traffic.enabled:
+        n = dc.n
+        r = W.shape[0] // n
+        if r > 1:
+            W = W.reshape(n, r, n, r).sum(axis=(1, 3))
+        traffic.note_coll(dc, coll, arm, int(wire), weights=W, hier=None)
+    if trace.enabled:
+        from ..coll.quant import _dtype_name
+        trace.decision(coll, arm=arm, reason=reason, verdict=None,
+                       nbytes=int(nbytes), rank=dist.get_rank(),
+                       dtype=_dtype_name(dtype), ndev=dc.n, wire_bytes=int(wire),
+                       chain=list(chain), **extra)
+
+
+def _a2av_extra(dc, plan: Dict[str, Any], inner: int,
+                outer: int) -> Dict[str, Any]:
+    """The decision event's plan fields: the a2av slice plan the last
+    exchange took (``DeviceComm._last_a2av``) and the routing counts."""
+    a2av = dict(dc._last_a2av or {})
+    return {"a2av_slice_cap": a2av.get("slice_cap"),
+            "a2av_scan_steps": a2av.get("scan_steps"),
+            "routed_tokens": plan["routed"],
+            "dropped_tokens": plan["dropped"],
+            "moe_inner_bytes": inner, "moe_outer_bytes": outer}
 
 
 def _route_plan(expert_idx: np.ndarray, n_experts: int, epr: int,
@@ -573,7 +614,7 @@ def moe_block_ep(dc, h: torch.Tensor, params: Dict, n_experts: int,
     payload = plan["routed"] * tok_bytes // max(R, 1)
 
     # -- dispatch: token payloads to their owning expert rank -------------
-    arm_d, _reason_d, _chain_d = _decide_moe_coll(
+    arm_d, reason_d, chain_d = _decide_moe_coll(
         dc, "moe_dispatch", payload, h.dtype, False, kinds, R)
     lanes: List[Tuple[str, Dict[str, Any]]] = []
     if arm_d in ("hier", "hier+quant"):
@@ -587,16 +628,20 @@ def moe_block_ep(dc, h: torch.Tensor, params: Dict, n_experts: int,
                           top_k, epr, dc._bucket)
         if ln is not None:
             lanes.append(("all", ln))
+    t0 = time.perf_counter()
     recvs = []
     for lname, ln in lanes:
         sendbuf = dc.row_gather(h, ln["send_idx"])
         recv, _cnt = dc.alltoallv_from_rows(sendbuf, ln["C"])
         recvs.append((lname, ln, recv))
+    dur_d = time.perf_counter() - t0
     Wd = plan["C"] * tok_bytes
     wire_d = int(Wd[offdiag].sum())
     inner_d = int(Wd[offdiag & ~cross].sum())
     outer_d = wire_d - inner_d
-    _audit_moe_coll(dc, arm_d, wire_d, outer_d)
+    _audit_moe_coll(dc, "moe_dispatch", arm_d, reason_d, chain_d, wire_d,
+                    Wd, outer_d, payload, h.dtype, dur_d,
+                    _a2av_extra(dc, plan, inner_d, outer_d))
 
     # -- the experts on each lane's receive buffer ------------------------
     wg = params["w_gate"].reshape(r, epr, d, -1)
@@ -607,12 +652,13 @@ def moe_block_ep(dc, h: torch.Tensor, params: Dict, n_experts: int,
             for lname, ln, recv in recvs]
 
     # -- combine: expert outputs back to their (token, slot) --------------
-    arm_c, _reason_c, _chain_c = _decide_moe_coll(
+    arm_c, reason_c, chain_c = _decide_moe_coll(
         dc, "moe_combine", payload, h.dtype, h.dtype in _QUANT_DTYPES,
         kinds, R)
     block = int(_var.get("coll_quant_block", 256))
     block = block if block and d % block == 0 else d
     qtok_bytes = d + (d // block) * 4            # int8 + an f32 scale a block
+    t1 = time.perf_counter()
     slot_sum = None
     for lname, ln, obuf in outs:
         if arm_c == "hier+quant" and lname == "outer":
@@ -627,6 +673,7 @@ def moe_block_ep(dc, h: torch.Tensor, params: Dict, n_experts: int,
         slot_sum = back if slot_sum is None else slot_sum + back
     if slot_sum is None:
         slot_sum = h.new_zeros((r, t * top_k, d))
+    dur_c = time.perf_counter() - t1
     CT = plan["C"].T
     Wc = CT * tok_bytes
     if arm_c == "hier+quant":
@@ -634,7 +681,9 @@ def moe_block_ep(dc, h: torch.Tensor, params: Dict, n_experts: int,
     wire_c = int(Wc[offdiag].sum())
     inner_c = int(Wc[offdiag & ~cross].sum())
     outer_c = wire_c - inner_c
-    _audit_moe_coll(dc, arm_c, wire_c, outer_c)
+    _audit_moe_coll(dc, "moe_combine", arm_c, reason_c, chain_c, wire_c,
+                    Wc, outer_c, payload, h.dtype, dur_c,
+                    _a2av_extra(dc, plan, inner_c, outer_c))
 
     keep = dc.from_ranks(list(plan["keep"].reshape(R, t, top_k)))
     out = _gate_combine(slot_sum.reshape(r, t, top_k, d), gate_vals, keep)

@@ -18,18 +18,28 @@ the schedule).
 
 ``checkpoint=True`` runs ``stage_fn`` under ``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint``: a stage keeps its inputs, not its
-activations, and recomputes them in the backward.  The reference's trace
-spans (``_traced_run``) come with ROADMAP P16: ``_traced_run`` is the
-seam, and records nothing.
+activations, and recomputes them in the backward.
+
+With tracing on, ``_traced_run`` records the reference's spans on this
+process's world rank: one measured ``pipeline:run`` span a run (on the
+card bounded by a synchronize, taken under ``trace.enabled`` only;
+``status="error"`` when the run raises) and M + P − 1 ``pipeline:tick``
+spans, an even subdivision of the run marked ``synthetic`` (the host
+sees no tick boundary inside the run either).  The reference's ``cache``
+arg (hit or miss of its compiled schedule) has no counterpart: the port
+compiles nothing (ROADMAP, Departures).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
+from .. import trace
 from .collectives import reduce_from, ring_hop
 from .mesh import axis_rank, axis_size
 
@@ -98,10 +108,45 @@ class _Tie(torch.autograd.Function):
         return g, torch.zeros(shape, dtype=dtype, device=device)
 
 
-def _traced_run(run: Callable, stage_params, microbatches):
-    """The seam of the reference's pipeline trace spans (ROADMAP P16):
-    runs the schedule and records nothing."""
-    return run(stage_params, microbatches)
+def _traced_run(run: Callable, stage_params, microbatches, n_stages: int,
+                m_count: int, axis: str):
+    """Run the schedule; when tracing is on, record one measured
+    ``pipeline:run`` span (a synchronize on the card bounds it) plus
+    M + P − 1 synthetic ``pipeline:tick`` spans, each annotating what its
+    tick's shift sends and which microbatch stage 0 ingests and the last
+    stage emits."""
+    if not trace.enabled:
+        return run(stage_params, microbatches)
+    rank = dist.get_rank()
+    cuda = microbatches.device.type == "cuda"
+    t0 = time.perf_counter()
+    try:
+        out = run(stage_params, microbatches)
+        if cuda:
+            torch.cuda.synchronize(microbatches.device)
+    except BaseException:
+        trace.record_span("pipeline:run", "pipeline", t0,
+                          time.perf_counter(), rank=rank,
+                          args={"stages": n_stages,
+                                "microbatches": m_count,
+                                "axis": axis, "status": "error"})
+        raise
+    t1 = time.perf_counter()
+    ticks = m_count + n_stages - 1
+    trace.record_span("pipeline:run", "pipeline", t0, t1, rank=rank,
+                      args={"stages": n_stages, "microbatches": m_count,
+                            "ticks": ticks, "axis": axis})
+    per = (t1 - t0) / max(ticks, 1)
+    for t in range(ticks):
+        trace.record_span(
+            "pipeline:tick", "pipeline-ticks", t0 + t * per,
+            t0 + (t + 1) * per, rank=rank,
+            args={"tick": t, "synthetic": True,
+                  "send": "ppermute ring shift (stage i -> i+1)",
+                  "ingest": t if t < m_count else None,
+                  "emit": t - (n_stages - 1)
+                  if t >= n_stages - 1 else None})
+    return out
 
 
 def pipeline(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
@@ -149,7 +194,8 @@ def pipeline(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
             mine = _Tie.apply(mine, y)
         return reduce_from(mine, axis, mesh)
 
-    return _traced_run(run, stage_params, microbatches)
+    return _traced_run(run, stage_params, microbatches, n_stages, m_count,
+                       axis)
 
 
 __all__ = ["stack_stage_params", "shard_stage_params", "pipeline"]

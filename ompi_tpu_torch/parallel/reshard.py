@@ -46,9 +46,19 @@ axis's process group (NCCL on the card, gloo on CPU tensors):
 ``all_to_all_axis``, ``all_gather_axis``, a local slice, ``ppermute``.
 Each step is decided under the coll name ``reshard`` through
 ``coll/nccl.decide_mode`` (force var ``coll_nccl_reshard_mode``; native
-is the only arm a layout step has) and, with an spc table attached,
-counts ``coll_arm_<arm>_count`` and ``coll_wire_bytes``.  The trace
-event and the perf and traffic halves of the audit come with ROADMAP P16.
+is the only arm a layout step has) and audited as the reference audits
+it: the module's ``reshard_steps``/``reshard_bytes`` counters, with an
+spc table attached ``coll_arm_<arm>_count`` and ``coll_wire_bytes``, the
+traffic edges of the step's wire (``all_to_all`` and ``device_put`` the
+axes' bipartite exchange, ``all_gather`` their ring, ``ppermute`` its
+pairs), a perf sample of each step with wire on two or more devices
+(timed to completion, with a synchronize on the card taken under
+``perf.enabled`` only) and one ``decide:reshard`` event a step, under
+this process's world rank.  ``run`` keeps the steps' rows in
+``report()["last"]``; a compiled plan enters the plan log once, with a
+``reshard:compile_plan`` span (a cache hit: a ``cache_hit:reshard_plan``
+instant).  The reference's ``build:*`` spans time its per-step program
+compiles; the port compiles nothing and has none (ROADMAP, Departures).
 A dim sharded over a tuple of axes is cut in row-major blocks over their
 product, and a step over several axes runs on their product group
 (``mesh.axes_group``); such a dim must divide over the product.
@@ -63,15 +73,21 @@ and a mesh may cover any subset of the world (the fleet's KV-page
 migration moves pages between two rows of its mesh).  Each piece whose
 source rank is not its destination rank is one send and one receive on
 the world group, in one ``batch_isend_irecv``; local pieces are copies;
-every piece lands in place in the destination block.  The cross path
-keeps the reference's plan log, counters and last-run audit
-(``report()``); the intra-mesh ``Resharder``'s rows in them come with P16.
+every piece lands in place in the destination block.  A cross plan is
+audited once, as in the reference: one decision (``cross=True``), the
+counters, a perf sample, and one traffic charge a (source, destination)
+pair of the plan's moving pieces, placed on the WORLD ranks the pair
+joins (``RankMesh.ranks``), so a migration's edges sum to its wire on
+the same edge space as every other collective of the world; its compile
+records ``reshard:compile_cross_plan`` (a hit:
+``cache_hit:reshard_cross_plan``).
 """
 
 from __future__ import annotations
 
 import math
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -80,6 +96,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import perf, trace, traffic
 from ..core import var as _var
 from .collectives import (_p2p, _wire, all_gather_axis, all_to_all_axis,
                           ppermute)
@@ -96,8 +113,8 @@ _var.register("reshard", "", "peak_factor", 2.0, type=float, level=3,
 _lock = threading.Lock()
 _counts: Dict[str, int] = {"reshard_plans": 0, "reshard_steps": 0,
                            "reshard_bytes": 0}
-# compiled cross-plan summaries + the last executed cross plan's audit
-# (bounded: a cache view, not a history)
+# compiled plan summaries (intra-mesh and cross) + the last executed
+# plan's audit (bounded: a cache view, not a history)
 _plan_log: "deque" = deque(maxlen=32)
 _last_run: Optional[Dict[str, Any]] = None
 
@@ -551,9 +568,39 @@ class Resharder:
         hit = self._plans.get(key)
         if hit is not None:
             self._plan_hits += 1
+            if trace.enabled:
+                trace.instant("cache_hit:reshard_plan", "cache",
+                              rank=dist.get_rank(),
+                              args={"plan": hit.label})
             return hit
-        plan = compile_plan(shape, dtype, src_spec, dst_spec, self.mesh)
+        t0 = time.perf_counter()
+        try:
+            plan = compile_plan(shape, dtype, src_spec, dst_spec, self.mesh)
+        except BaseException:
+            if trace.enabled:
+                trace.record_span("reshard:compile_plan", "compile", t0,
+                                  time.perf_counter(), rank=dist.get_rank(),
+                                  args={"status": "error"})
+            raise
         self._plans[key] = plan
+        with _lock:
+            _counts["reshard_plans"] += 1
+            _plan_log.append({
+                "plan": plan.label, "steps": plan.describe(),
+                "wire_bytes": plan.wire_bytes,
+                "peak_bytes": plan.peak_bytes,
+                "bound_bytes": plan.bound_bytes,
+                "src_shard_bytes": plan.src_shard_bytes,
+                "dst_shard_bytes": plan.dst_shard_bytes,
+                "fallback_reason": plan.fallback_reason,
+                "mesh": dict(self._sizes)})
+        if trace.enabled:
+            trace.record_span("reshard:compile_plan", "compile", t0,
+                              time.perf_counter(), rank=dist.get_rank(),
+                              args={"plan": plan.label,
+                                    "steps": plan.describe(),
+                                    "peak_bytes": plan.peak_bytes,
+                                    "wire_bytes": plan.wire_bytes})
         return plan
 
     # -- per-step execution -------------------------------------------------
@@ -661,11 +708,40 @@ class Resharder:
             hier_ok=False,
             hier_why="reshard steps are single layout-pure collectives")
 
-    def _audit_step(self, step: PlanStep, arm: str) -> None:
+    def _audit_step(self, plan: ReshardPlan, i: int, arm: str,
+                    reason: str, chain: list, ndev: int,
+                    dur_s: Optional[float]) -> Dict[str, int]:
+        """The reference's audit of one plan step: the counters, the spc
+        pvars, the traffic edges of the step's wire (returning their plane
+        split), the perf sample and one ``decide:reshard`` event."""
+        step = plan.steps[i]
+        wire = int(step.wire_bytes)
+        with _lock:
+            _counts["reshard_steps"] += 1
+            _counts["reshard_bytes"] += wire
         if self.spc is not None:
             self.spc.inc(f"coll_arm_{arm}_count")
-            if step.wire_bytes:
-                self.spc.inc("coll_wire_bytes", int(step.wire_bytes))
+            if wire:
+                self.spc.inc("coll_wire_bytes", wire)
+        planes: Dict[str, int] = {}
+        if traffic.enabled and wire:
+            kind = _TRAFFIC_KIND.get(step.op)
+            if kind is not None:
+                planes = traffic.note_reshard_step(
+                    self.mesh, kind, step.axes, wire,
+                    pairs=step.perm or None)
+        if perf.enabled and dur_s is not None and wire and ndev >= 2:
+            perf.note_sample("reshard", arm, wire, dur_s, ndev,
+                             planes=planes)
+        if trace.enabled:
+            trace.decision(
+                "reshard", arm=arm, reason=reason, verdict=None,
+                nbytes=wire, rank=dist.get_rank(),
+                step=i, step_op=step.describe(), plan=plan.label,
+                plan_steps=len(plan.steps), peak_bytes=plan.peak_bytes,
+                bound_bytes=plan.bound_bytes, ndev=ndev,
+                wire_bytes=wire, chain=chain)
+        return planes
 
     # -- execution ----------------------------------------------------------
 
@@ -675,6 +751,7 @@ class Resharder:
         ``dst_spec``, a fresh tensor.  ``global_shape`` defaults to the
         shard's extents times the sizes of the axes that cut them (give it
         for a dim its axis does not divide).  Collective over the mesh."""
+        global _last_run
         if x.device.type != self._platform:
             raise ValueError(f"reshard: tensor on {x.device}, mesh on "
                              f"{self._platform}")
@@ -691,14 +768,41 @@ class Resharder:
                              f"{_spec_of(src)}")
         plan = self.plan(shape, x.dtype, src, dst)
         _check_tuple_dims(plan, self._sizes)
-        for step in plan.steps:
+        audit: List[Dict[str, Any]] = []
+        for i, step in enumerate(plan.steps):
             ndev = 1
             for a in step.axes:
                 ndev *= self._sizes[a]
-            arm, _reason, _chain = self._decide(step, ndev)
+            arm, reason, chain = self._decide(step, ndev)
+            t0 = time.perf_counter()
             x = self._step(plan, step, x)
-            self._audit_step(step, arm)
+            dur = None
+            if perf.enabled:
+                # to completion, as the reference's block_until_ready
+                _sync(x)
+                dur = time.perf_counter() - t0
+            self._audit_step(plan, i, arm, reason, chain, ndev, dur)
+            audit.append({"step": i, "op": step.describe(), "arm": arm,
+                          "reason": reason, "wire_bytes": step.wire_bytes,
+                          "dur_us": (round(dur * 1e6, 1)
+                                     if dur is not None else None)})
+        if plan.steps:
+            with _lock:
+                _last_run = {"plan": plan.label, "steps": audit,
+                             "wire_bytes": plan.wire_bytes,
+                             "peak_bytes": plan.peak_bytes,
+                             "bound_bytes": plan.bound_bytes,
+                             "fallback_reason": plan.fallback_reason}
         return x.clone(memory_format=torch.contiguous_format)
+
+
+_TRAFFIC_KIND = {"all_to_all": "a2a", "all_gather": "ring",
+                 "ppermute": "perm", "device_put": "a2a"}
+
+
+def _sync(x: torch.Tensor) -> None:
+    if x.device.type == "cuda":
+        torch.cuda.synchronize(x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -978,11 +1082,29 @@ def _cross_plan(shape, dtype, src_spec, dst_spec, src_mesh: RankMesh,
            src_mesh, dst_mesh, frozenset(int(p) for p in dead))
     hit = _cross_plans.get(key)
     if hit is not None:
+        if trace.enabled:
+            trace.instant("cache_hit:reshard_cross_plan", "cache",
+                          rank=dist.get_rank(), args={"plan": hit.label})
         return hit
     if len(_cross_plans) >= _CROSS_CAP:
         _cross_plans.pop(next(iter(_cross_plans)))
-    plan = compile_cross_plan(shape, dtype, src_spec, dst_spec,
-                              src_mesh, dst_mesh, dead=dead)
+    t0 = time.perf_counter()
+    try:
+        plan = compile_cross_plan(shape, dtype, src_spec, dst_spec,
+                                  src_mesh, dst_mesh, dead=dead)
+    except BaseException:
+        if trace.enabled:
+            trace.record_span("reshard:compile_cross_plan", "compile", t0,
+                              time.perf_counter(), rank=dist.get_rank(),
+                              args={"status": "error"})
+        raise
+    if trace.enabled:
+        trace.record_span("reshard:compile_cross_plan", "compile", t0,
+                          time.perf_counter(), rank=dist.get_rank(),
+                          args={"plan": plan.label,
+                                "pieces": len(plan.pieces),
+                                "peak_bytes": plan.peak_bytes,
+                                "wire_bytes": plan.wire_bytes})
     _cross_plans[key] = plan
     with _lock:
         _counts["reshard_plans"] += 1
@@ -1073,7 +1195,7 @@ def cross_reshard(x: Optional[torch.Tensor], shape: Sequence[int], dtype,
     if plane is None:
         plane = ("dcn" if any(a in sim_dcn_axes() for a in src_mesh.shape)
                  else "ici")
-    arm, reason, _chain = _nccl.decide_mode(
+    arm, reason, chain = _nccl.decide_mode(
         "reshard", wire, plan.n_src, x.device.type,
         _nccl._load_device_rules(), allowed=("native",), quant_ok=False,
         dtype=None, op=None, plane=plane, hier_ok=False,
@@ -1097,10 +1219,16 @@ def cross_reshard(x: Optional[torch.Tensor], shape: Sequence[int], dtype,
                                        memory_format=torch.contiguous_format)
                 recvs.append((tmp, ranks[pc.src_pos], 0))
                 later.append((view, tmp))
+    t0 = time.perf_counter()
     _p2p(dist.group.WORLD, sends, recvs)
     for view, tmp in later:
         view.copy_(tmp)
-    # -- audit: the decision's arm, the counters, the last run -------------
+    dur = None
+    if perf.enabled:
+        # to completion, as the reference's block_until_ready
+        _sync(x)
+        dur = time.perf_counter() - t0
+    # -- audit: one decision, the counters, the per-pair traffic -----------
     with _lock:
         _counts["reshard_steps"] += 1
         _counts["reshard_bytes"] += int(wire)
@@ -1108,12 +1236,27 @@ def cross_reshard(x: Optional[torch.Tensor], shape: Sequence[int], dtype,
         spc.inc(f"coll_arm_{arm}_count")
         if wire:
             spc.inc("coll_wire_bytes", int(wire))
+    planes: Dict[str, int] = {}
+    if traffic.enabled and wire:
+        planes = _charge_pairs(plan, ranks)
+    if perf.enabled and dur is not None and wire and plan.n_src >= 2:
+        perf.note_sample("reshard", arm, int(wire), dur, plan.n_src,
+                         planes=planes)
+    step_op = plan.describe()[0]
+    if trace.enabled:
+        trace.decision(
+            "reshard", arm=arm, reason=reason, verdict=None,
+            nbytes=int(wire), rank=me,
+            step=0, step_op=step_op, plan=plan.label, plan_steps=1,
+            peak_bytes=plan.peak_bytes, bound_bytes=plan.bound_bytes,
+            ndev=plan.n_src, wire_bytes=int(wire), chain=chain,
+            cross=True, dead=sorted(int(p) for p in dead))
     with _lock:
         _last_run = {"plan": plan.label,
-                     "steps": [{"step": 0, "op": plan.describe()[0],
-                                "arm": arm,
+                     "steps": [{"step": 0, "op": step_op, "arm": arm,
                                 "reason": reason, "wire_bytes": int(wire),
-                                "dur_us": None}],
+                                "dur_us": (round(dur * 1e6, 1)
+                                           if dur is not None else None)}],
                      "wire_bytes": int(wire),
                      "peak_bytes": plan.peak_bytes,
                      "bound_bytes": plan.bound_bytes,
@@ -1121,9 +1264,46 @@ def cross_reshard(x: Optional[torch.Tensor], shape: Sequence[int], dtype,
     return out
 
 
+class _WorldGrid:
+    """The world as a one-axis grid (flat position = world rank): the edge
+    space the traffic matrix uses for a cross plan's pairs, which join
+    ranks of two meshes."""
+    mesh_dim_names = ("world",)
+
+    def __init__(self, n: int) -> None:
+        self.mesh = np.arange(n)
+
+
+_world_grids: Dict[int, _WorldGrid] = {}
+
+
+def _charge_pairs(plan: CrossMeshPlan, ranks: Tuple[int, ...]
+                  ) -> Dict[str, int]:
+    """One ``note_reshard_step("perm")`` a (source, destination) pair of
+    the plan's moving pieces, on the world ranks the pair joins; the
+    pairs' bytes sum to the plan's wire.  Returns the plane split."""
+    n = dist.get_world_size()
+    grid = _world_grids.get(n)
+    if grid is None:
+        grid = _world_grids[n] = _WorldGrid(n)
+    pair_bytes: Dict[Tuple[int, int], int] = {}
+    for pc in plan.pieces:
+        if pc.src_pos != pc.dst_pos:
+            key = (ranks[pc.src_pos], ranks[pc.dst_pos])
+            pair_bytes[key] = pair_bytes.get(key, 0) + int(pc.nbytes)
+    planes: Dict[str, int] = {}
+    for pair, nb in sorted(pair_bytes.items()):
+        part = traffic.note_reshard_step(grid, "perm", ("world",), nb,
+                                         pairs=[pair])
+        for k, v in part.items():
+            planes[k] = planes.get(k, 0) + v
+    return planes
+
+
 def report() -> Dict[str, Any]:
-    """The cross plans compiled (``plans``, each ``cross: True``), the
-    counters and the last cross plan's audit (``last``)."""
+    """The plans compiled (``plans``: the intra-mesh ``Resharder``'s and
+    the cross plans, each ``cross: True``), the counters and the last
+    executed plan's audit (``last``)."""
     with _lock:
         return {"counters": dict(_counts),
                 "plans": list(_plan_log),

@@ -14,6 +14,16 @@ runs two tiled ``lax.all_to_all``s inside ``shard_map``; here each is one
 ``attention_reference``; the flagship's ``attn="flash"`` passes
 ``flash_mha``, so kernel K1 runs the forward and K2/K3 the backward on
 every member at the full sequence length.
+
+With the traffic plane on, each call charges its exchanges once
+(``traffic.note_a2a``, coll ``ulysses``): four all-to-alls (q, k and v
+to heads, the output back), each moving this member's shard, so the
+per-rank wire is 2·q + k + v of this member's shards — the reference's
+(2·Q + K + V)/n over the whole arrays.  The reference charges only
+outside a trace; the port has none, so every call charges, the train
+step's included (ROADMAP, Departures: eager charging).  A call on a bare
+process group (``mesh`` None) has no grid to place edges on and charges
+nothing.
 """
 
 from __future__ import annotations
@@ -23,8 +33,13 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from .. import traffic
 from .collectives import _check_backend, _group_of, _wire
 from .ring import attention_reference
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def _seq_to_heads(x: torch.Tensor, group, n: int) -> torch.Tensor:
@@ -100,6 +115,10 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n = dist.get_world_size(group)
     if q.shape[2] % n != 0:
         raise ValueError(f"heads {q.shape[2]} not divisible by axis size {n}")
+    if traffic.enabled and n > 1 and mesh is not None:
+        traffic.note_a2a(mesh, axis,
+                         2 * _nbytes(q) + _nbytes(k) + _nbytes(v),
+                         "ulysses")
     attn = attn_fn or (lambda qq, kk, vv: attention_reference(
         qq, kk, vv, causal=causal, scale=scale))
     qh, kh, vh = (seq_to_heads(t, group) for t in (q, k, v))

@@ -56,11 +56,19 @@ n_experts/tp experts whole, resharded once at construction from the
 padded, as the reference pads it, with positions that write the scratch
 page and never enter the causal window.
 
-Replicas of the engine make a fleet (``serving/fleet``).  Left for later
-slices: the trace, perf and traffic halves of the audit (ROADMAP P16;
-the audit charges the simulated-DCN shim) and the static proof of the
-fused program's wire (``verify_decode_program``: ``analysis/commgraph``,
-P17).
+Each audit record is the reference's fan-out (``_audit_serve_coll``,
+``_audit_collmm``): the spc pvars, the simulated-DCN charge, a perf
+sample under the logical per-row bytes (the dispatch as the host issued
+it, timed as ``perf.timed_coll`` times a collective; a fused ring gets
+its share of the program's), the traffic edges of the same wire (a ring
+on the comm's axis) and ONE ``decide:<coll>`` event with the chain, under
+this process's world rank.  With tracing on, ``prefill``,
+``decode_step`` and ``decode_window`` each record the reference's
+``serve:*`` span (``prefill`` carries the request's ``rid``); the span
+ends after the result reached the host, so it covers the step's device
+work.  Replicas of the engine make a fleet (``serving/fleet``).  Left for
+a later slice: the static proof of the fused program's wire
+(``verify_decode_program``: ``analysis/commgraph``, P17).
 
 Prefill runs the prompt at its own length: the reference pads it to a
 power-of-two bucket only to bound its JIT compiles, and the padded
@@ -73,12 +81,14 @@ CUDA mesh without CUDA it raises.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .. import optim, serving
+from .. import optim, perf, serving, trace, traffic
 from ..device import check_on, resolve_device
 from ..models.transformer import _rms_norm, decode_attention, rope_rows
 from ..parallel import simdcn
@@ -219,19 +229,25 @@ def _charge_simdcn(dc, kinds, wire: int) -> None:
             dc.mesh, dc.axis, kinds=kinds)))
 
 
-def _audit_serve_coll(dc, coll: str, arm: str, x: torch.Tensor,
+def _audit_serve_coll(dc, coll: str, arm: str, reason: str,
+                      chain: List[str], x: torch.Tensor, dur_s: float,
                       kinds=None) -> int:
-    """ONE audit record per decode collective: the arm's wire bytes
-    (``coll/quant.wire_bytes``'s figure for this rank's payload), counted
-    as ``coll_arm_<arm>_count`` and ``coll_wire_bytes`` in the comm's spc,
-    then the simulated-DCN charge of the comm's axes (``kinds``)."""
-    from ..coll.quant import wire_bytes
+    """ONE audit record per decode collective — the same fan-out as
+    coll/nccl's audit: the arm's wire bytes (``coll/quant.wire_bytes``'s
+    figure for this rank's payload) counted as ``coll_arm_<arm>_count``
+    and ``coll_wire_bytes`` in the comm's spc, the simulated-DCN charge
+    of the comm's axes (``kinds``), a perf sample under the LOGICAL
+    payload bytes (what ``decide_mode`` sees, so native and quant land in
+    one cell), the traffic ring edges of the same wire figure and the
+    decision event carrying the precedence chain."""
+    from ..coll.quant import _dtype_name, wire_bytes
     nbytes = x.numel() * x.element_size()
     qcoll = "allgather" if coll == "decode_ag" else "reduce_scatter"
     try:
         wb = wire_bytes(qcoll, max(x.numel(), 1), dc.n, x.dtype)
     except (ValueError, TypeError):
         wb = None
+    ratio = wb["ratio"] if wb is not None else None
     wire = nbytes
     if wb is not None:
         wire = wb["quant_bytes"] if arm == "quant" else wb["native_bytes"]
@@ -240,6 +256,18 @@ def _audit_serve_coll(dc, coll: str, arm: str, x: torch.Tensor,
         spc.inc(f"coll_arm_{arm}_count")
         spc.inc("coll_wire_bytes", int(wire))
     _charge_simdcn(dc, kinds, int(wire))
+    if perf.enabled:
+        perf.note_sample(coll, arm, int(nbytes), dur_s, dc.n)
+    if traffic.enabled:
+        traffic.note_coll(dc, coll, arm, int(wire))
+    if trace.enabled:
+        bucket = 1 << max(int(nbytes) - 1, 0).bit_length()
+        trace.decision(coll, arm=arm, reason=reason, verdict=None,
+                       nbytes=int(nbytes), rank=dist.get_rank(),
+                       shape_bucket=bucket, shape=tuple(x.shape),
+                       dtype=_dtype_name(x.dtype), ndev=dc.n,
+                       wire_bytes=int(wire), quant_ratio=ratio,
+                       chain=list(chain))
     return int(wire)
 
 
@@ -403,7 +431,9 @@ class ServingEngine:
     # -- audited collective dispatch ---------------------------------------
 
     def _dispatch(self, coll: str, x: torch.Tensor) -> torch.Tensor:
-        arm, _reason, _chain = _decide_serve_coll(
+        # the decision and the dispatch timed as the host issues them
+        t0 = time.perf_counter()
+        arm, reason, chain = _decide_serve_coll(
             self.dc, coll, x.numel() * x.element_size(), x.dtype,
             self._plane)
         if coll == "decode_ag":
@@ -412,8 +442,9 @@ class ServingEngine:
         else:
             out = (self.dc.quant.reduce_scatter(x) if arm == "quant"
                    else self.dc.reduce_scatter(x))
-        self.wire_bytes += _audit_serve_coll(self.dc, coll, arm, x,
-                                             self._kinds)
+        dur = time.perf_counter() - t0
+        self.wire_bytes += _audit_serve_coll(self.dc, coll, arm, reason,
+                                             chain, x, dur, self._kinds)
         self.dispatches[coll] += 1
         if serving.enabled:
             serving.note_dispatch("eager")
@@ -456,20 +487,41 @@ class ServingEngine:
 
     # -- fused decode (decode_overlap="fused") -----------------------------
 
-    def _audit_collmm(self, wire: int, arm: str) -> None:
+    def _audit_collmm(self, site: str, payload: int, wire: int, arm: str,
+                      reason: str, chain: List[str], dur_s: float,
+                      rows: int) -> None:
         """One audit record per fused ring — the decode_collmm counterpart
         of ``_audit_serve_coll``.  The ring is an n−1-hop rotation, so the
         wire figure is exact (``ring_schedule``): counted as
         ``coll_arm_<arm>_count`` and ``coll_wire_bytes`` in the comm's spc,
         in ``dispatches`` and ``wire_bytes``, and as a ``"fused"``
-        dispatch in the serve plane; then the simulated-DCN charge.  The
-        trace decision event, the perf sample and the traffic ring-edge
-        charge wait for ROADMAP P16."""
-        spc = self.dc.spc
+        dispatch in the serve plane; then the simulated-DCN charge, the
+        perf sample (this ring's share of the program's time), the ring
+        edges on the comm's axis (``note_ring``: ``decode_collmm`` has no
+        entry in traffic's coll table) and one ``decide:decode_collmm``
+        event naming the ring's site."""
+        from ..coll.quant import _dtype_name
+        dc = self.dc
+        spc = dc.spc
         if spc is not None:
             spc.inc(f"coll_arm_{arm}_count")
             spc.inc("coll_wire_bytes", int(wire))
-        _charge_simdcn(self.dc, self._kinds, int(wire))
+        _charge_simdcn(dc, self._kinds, int(wire))
+        if perf.enabled:
+            perf.note_sample("decode_collmm", arm, int(payload), dur_s,
+                             dc.n)
+        if traffic.enabled:
+            traffic.note_ring(dc.mesh, dc.axis, int(wire), "decode_collmm",
+                              "fwd")
+        if trace.enabled:
+            bucket = 1 << max(int(payload) - 1, 0).bit_length()
+            trace.decision("decode_collmm", arm=arm, reason=reason,
+                           verdict=None, nbytes=int(payload),
+                           rank=dist.get_rank(), shape_bucket=bucket,
+                           shape=(rows // dc.n, self.cfg.d_model),
+                           dtype=_dtype_name(self.cfg.dtype), ndev=dc.n,
+                           wire_bytes=int(wire), quant_ratio=None,
+                           chain=list(chain), site=site)
         self.dispatches["decode_collmm"] += 1
         self.wire_bytes += int(wire)
         if serving.enabled:
@@ -492,17 +544,21 @@ class ServingEngine:
         if sched is None:
             sched = self._ring_rows[rows] = ring_schedule(
                 cfg.n_layers, rows, cfg.d_model, n, cfg.dtype.itemsize)
-        arms = [_decide_serve_coll(self.dc, "decode_collmm", payload,
-                                   cfg.dtype, self._plane,
-                                   allowed=("native",))[0]
-                for _site, payload, _wire in sched]
+        decided = [(site, payload, wire)
+                   + _decide_serve_coll(self.dc, "decode_collmm", payload,
+                                        cfg.dtype, self._plane,
+                                        allowed=("native",))
+                   for site, payload, wire in sched]
         x = _regroup(self._ag(_embed(self._embed, self._index(tokens))), n)
+        t0 = time.perf_counter()
         lg = self._fused(x, self._index(bt), self._index(positions),
                          self._index(page_idx), self._index(offset),
                          self._fused_layers, self._final_norm,
                          self._embed_lg, self.cache.k, self.cache.v)
-        for (_site, _payload, wire), arm in zip(sched, arms):
-            self._audit_collmm(wire, arm)
+        share = (time.perf_counter() - t0) / max(len(decided), 1)
+        for site, payload, wire, arm, reason, chain in decided:
+            self._audit_collmm(site, payload, wire, arm, reason, chain,
+                               share, rows)
         return _fused_logits_argmax(self._ag(lg), n)
 
     def _decode_rows(self, tokens, positions, page_idx, offset, bt):
@@ -524,11 +580,29 @@ class ServingEngine:
 
     # -- serving entry points ----------------------------------------------
 
-    def prefill(self, slot: int, prompt: np.ndarray):
+    def _span(self, name: str, t0: Optional[float], args: Dict) -> None:
+        """Record one ``serve:*`` span begun at ``t0`` (None when tracing
+        was off at the start)."""
+        if t0 is not None:
+            trace.record_span(name, "serve", t0, time.perf_counter(),
+                              rank=dist.get_rank(), args=args)
+
+    def prefill(self, slot: int, prompt: np.ndarray, rid: Any = None):
         """Run one request's prompt through the decode-layout model: writes
         its KV pages, returns (first greedy token, last-position logits
         (1, 1, V), this rank's row).  Prefill is eager on either path, as
-        in the reference."""
+        in the reference.  ``rid`` tags the ``serve:prefill`` span with the
+        owning request."""
+        t0 = time.perf_counter() if trace.enabled else None
+        try:
+            first, logits = self._prefill(slot, prompt)
+        finally:
+            self._span("serve:prefill", t0,
+                       {"slot": slot, "prompt_len": int(len(prompt)),
+                        "rid": rid})
+        return first, logits
+
+    def _prefill(self, slot: int, prompt: np.ndarray):
         prompt = np.asarray(prompt, np.int64)
         s = int(prompt.shape[0])
         # MoE: pad to the reference's power-of-2 bucket of at least 8
@@ -562,10 +636,17 @@ class ServingEngine:
         positions = np.asarray(positions, np.int64)
         page_idx, offset = self.cache.write_indices(np.arange(b),
                                                     positions)
-        logits, nxt = self._decode_rows(
-            np.where(positions >= 0, tokens, 0), positions, page_idx,
-            offset, self.cache.block_tables)
-        return nxt[0].cpu().numpy(), logits
+        t0 = time.perf_counter() if trace.enabled else None
+        try:
+            logits, nxt = self._decode_rows(
+                np.where(positions >= 0, tokens, 0), positions, page_idx,
+                offset, self.cache.block_tables)
+            nxt = nxt[0].cpu().numpy()
+        finally:
+            self._span("serve:decode_step", t0,
+                       {"active": int((positions >= 0).sum()), "slots": b,
+                        "path": "fused" if self.fused else "eager"})
+        return nxt, logits
 
     def decode_window(self, tokens: np.ndarray, positions: np.ndarray):
         """Teacher-forced k-token verify window for speculative decoding:
@@ -590,12 +671,19 @@ class ServingEngine:
         k = int(tokens.shape[1])
         slots = np.broadcast_to(np.arange(b)[:, None], (b, k))
         page_idx, offset = self.cache.write_indices(slots, positions)
-        logits, nxt = self._decode_rows(
-            np.where(positions >= 0, tokens, 0).reshape(-1),
-            positions.reshape(-1), page_idx.reshape(-1),
-            offset.reshape(-1), np.repeat(self.cache.block_tables, k,
-                                          axis=0))
-        return nxt[0].cpu().numpy().reshape(b, k), logits
+        t0 = time.perf_counter() if trace.enabled else None
+        try:
+            logits, nxt = self._decode_rows(
+                np.where(positions >= 0, tokens, 0).reshape(-1),
+                positions.reshape(-1), page_idx.reshape(-1),
+                offset.reshape(-1), np.repeat(self.cache.block_tables, k,
+                                              axis=0))
+            nxt = nxt[0].cpu().numpy().reshape(b, k)
+        finally:
+            self._span("serve:decode_window", t0,
+                       {"active": int((positions[:, 0] >= 0).sum()),
+                        "slots": b, "k": k})
+        return nxt, logits
 
     def verify_decode_program(self):
         """The reference proves the fused program's static wire against

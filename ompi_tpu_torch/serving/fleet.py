@@ -59,9 +59,20 @@ the prefill ranks' prefill and migration, so on the host's clock a
 prefill does not overlap the decode steps.  Only the virtual clock keeps
 the two lanes apart, as the reference's does.
 
+The request plane (``serving/requests``) records each request on the
+first rank of the replica that decodes it: in the colocated topology
+that replica's scheduler (admit, prefill, tokens, finish); in the
+disaggregated one the decode replica's first rank, which runs the
+prefill lane in step and so sees its agreed clock and first token, notes
+the admission, the prefill and the migration on the prefill replica's
+lane and the join, the tokens and the finish on its own.  Every event's
+``rank`` is a replica index, as in the reference; the router notes its
+assignment on the process that records the picked replica.  With
+tracing on, every rank of a migration records its ``serve:migrate``
+span (``status="error"`` when the move raises).
+
 Left for later slices: the ``hot_replica`` sentry
-(``check_hot_replicas``: the policy bus, ROADMAP P16), the request
-plane's stage notes and the ``serve:migrate`` span (P16) and
+(``check_hot_replicas``: the policy bus, ROADMAP P16b) and
 ``comm_doctor --fleet`` (P18).
 """
 
@@ -74,13 +85,14 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from .. import serving
+from .. import serving, trace
 from ..core import var as _var
 from ..op import MAX
 from ..parallel import reshard as _reshard
 from ..parallel import simdcn
 from ..parallel.collectives import DeviceComm
 from ..parallel.mesh import axis_rank, classify_axes, make_mesh
+from . import requests as _requests
 from .engine import ServingEngine
 from .scheduler import (ContinuousBatchingScheduler, FleetRouter, Request,
                         _Active)
@@ -141,6 +153,8 @@ class _ReplicaScheduler(ContinuousBatchingScheduler):
                  **kw: Any) -> None:
         super().__init__(replica.engine, requests, **kw)
         self.replica = replica
+        self.rank = replica.idx
+        self.req_records = dist.get_rank() == replica.ranks[0]
         self.itl: List[float] = []
         self._last_t: Dict[Any, float] = {}
 
@@ -202,12 +216,17 @@ class _DisaggScheduler(_ReplicaScheduler):
             if serving.enabled:
                 serving.note_admit(req.rid, len(req.prompt), req.max_new,
                                    req.arrival, pre.clock)
+            if _requests.enabled and self.req_records:
+                _requests.note_admit(req.rid, req.arrival, pre.clock,
+                                     len(req.prompt), req.max_new,
+                                     replica=dec.idx, rank=pre.idx)
             pslot, first = None, _NONE
             if side:
                 pcache = pre.engine.cache
                 pslot = pcache.admit(len(req.prompt), req.max_new)
                 t0 = time.perf_counter()
-                first, _ = pre.engine.prefill(pslot, req.prompt)
+                first, _ = pre.engine.prefill(pslot, req.prompt,
+                                              rid=req.rid)
                 pdur = time.perf_counter() - t0
                 # fault injection: a slowed prefill replica is a
                 # multiplier on the VIRTUAL prefill duration
@@ -226,6 +245,10 @@ class _DisaggScheduler(_ReplicaScheduler):
             if serving.enabled:
                 serving.note_prefill(pdur, len(req.prompt))
                 serving.note_token(req.rid, pre.clock)
+            if _requests.enabled and self.req_records:
+                _requests.note_stage(req.rid, "prefill", pre.clock - pdur,
+                                     pre.clock, rank=pre.idx)
+                _requests.note_token(req.rid, pre.clock, rank=pre.idx)
             self._last_t[req.rid] = pre.clock
             eos = (req.eos_id if req.eos_id is not None else self.eos_id)
             if (eos is not None and first == eos) or req.max_new <= 1:
@@ -239,6 +262,8 @@ class _DisaggScheduler(_ReplicaScheduler):
                     "finished_at": pre.clock}
                 if serving.enabled:
                     serving.note_evict(req.rid, reason, pre.clock)
+                if _requests.enabled and self.req_records:
+                    _requests.note_finish(req.rid, pre.clock, reason)
                 continue
             t0 = time.perf_counter()
             dslot = self.fleet.migrate(pre, dec, pslot, len(req.prompt),
@@ -249,7 +274,15 @@ class _DisaggScheduler(_ReplicaScheduler):
             mdur += 1e-3 * float(_var.get("serve_req_chaos_migrate_ms",
                                           0.0))
             # both sides timed the move: the lane's clock after it, agreed
+            before = pre.clock
             pre.clock = self._agree([pre.clock + mdur])[0]
+            if _requests.enabled and self.req_records:
+                last = _reshard.report()["last"] or {}
+                _requests.note_stage(
+                    req.rid, "migrate", before, pre.clock, rank=pre.idx,
+                    src=pre.idx, dst=dec.idx,
+                    wire_bytes=int(last.get("wire_bytes", 0)),
+                    link="decide:reshard")
             if side:
                 pre.engine.cache.release(pslot)
             else:
@@ -261,6 +294,9 @@ class _DisaggScheduler(_ReplicaScheduler):
             if t <= self.clock:
                 self.active[dslot] = _Active(req=req, slot=dslot,
                                              tokens=[first], last=first)
+                if _requests.enabled and self.req_records:
+                    _requests.note_stage(req.rid, "join", t, self.clock,
+                                         rank=self.replica.idx)
             else:
                 rest.append((t, req, dslot, first))
         self.ready = rest
@@ -358,6 +394,11 @@ class ServingFleet:
         self.serve_ids = list(range(prefill_replicas, replicas))
         self.router = router if router is not None else \
             FleetRouter(len(self.serve_ids))
+        # the route decision is noted where the picked replica's
+        # requests are recorded: its first rank
+        me = dist.get_rank()
+        self.router.req_owner = \
+            lambda pick: self.replicas[self.serve_ids[pick]].ranks[0] == me
         # each prefill/decode pair's comm (its agreements) over a group
         # made by every rank in one order; a member builds the comm
         self._pairs: Dict[Tuple[int, int], Optional[DeviceComm]] = {}
@@ -409,8 +450,23 @@ class ServingFleet:
         pages with one ``index_copy_`` a pool, carries ``seq_lens`` over
         (the prompt's rows) and returns the dest slot; on the prefill
         ranks it returns None.  Pages move bitwise — whole pages, dest
-        pages fully overwritten."""
+        pages fully overwritten.  With tracing on, each rank records one
+        ``serve:migrate`` span."""
         t0 = time.perf_counter()
+        try:
+            return self._migrate(src, dst, src_slot, prompt_len, max_new,
+                                 rid, t0)
+        except BaseException:
+            if trace.enabled:
+                trace.record_span("serve:migrate", "serve", t0,
+                                  time.perf_counter(), rank=dist.get_rank(),
+                                  args={"rid": rid, "src": src.idx,
+                                        "dst": dst.idx, "status": "error"})
+            raise
+
+    def _migrate(self, src: _Replica, dst: _Replica,
+                 src_slot: Optional[int], prompt_len: int, max_new: int,
+                 rid: Any, t0: float) -> Optional[int]:
         on_src = self.me == src.idx
         if not on_src and self.me != dst.idx:
             raise ValueError(f"ServingFleet.migrate: this process serves "
@@ -459,11 +515,18 @@ class ServingFleet:
                 cache.v[li].index_copy_(
                     1, didx, payload[:, (L + li) * npg:(L + li + 1) * npg])
             cache.seq_lens[dst_slot] = prompt_len
+        t1 = time.perf_counter()
         if serving.enabled:
             serving.note_migration(rid, src.idx, dst.idx, npg, wire,
                                    int(last["peak_bytes"]),
-                                   int(last["bound_bytes"]),
-                                   time.perf_counter() - t0)
+                                   int(last["bound_bytes"]), t1 - t0)
+        if trace.enabled:
+            trace.record_span("serve:migrate", "serve", t0, t1,
+                              rank=dist.get_rank(),
+                              args={"rid": rid, "src": src.idx,
+                                    "dst": dst.idx, "pages": npg,
+                                    "wire_bytes": wire,
+                                    "seq_len": prompt_len})
         return dst_slot
 
     # -- the fleet run -----------------------------------------------------
@@ -577,7 +640,7 @@ class ServingFleet:
 
     def check_hot_replicas(self, step: int = 0):
         """The reference's hot_replica sentry publishes on the policy bus,
-        which comes with ROADMAP P16."""
+        which comes with ROADMAP P16 (P16b)."""
         raise NotImplementedError(
             "ServingFleet.check_hot_replicas: the hot_replica sentry "
             "publishes on the policy bus, which comes with ROADMAP P16")

@@ -29,21 +29,29 @@ tokens a slot by an n-gram self-draft over the request's own history and
 verifies them in one ``engine.decode_window``; the longest prefix the
 model's greedy output agrees with is accepted, so the streams are the
 non-speculative ones.  ``FleetRouter`` assigns a stream's requests to
-the replicas of a ``serving/fleet`` fleet.  The per-request ledger
-(``serving/requests.py``) comes with ROADMAP P16.
+the replicas of a ``serving/fleet`` fleet.
+
+The request plane (``serving/requests``: admit, the prefill stage,
+tokens, finish and the router's decision, each behind ONE
+``requests.enabled`` read) records a request on one process only: a
+scheduler's ``req_records`` is true on the first rank of its engine's
+comm (in a fleet, of its replica), and ``rank`` is the lane its events
+take (the replica).  The tp ranks run the same loop on the same agreed
+clock, so that process sees every event of the request.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .. import serving
 from ..op import MAX
+from . import requests as _requests
 
 
 @dataclass
@@ -108,6 +116,11 @@ class ContinuousBatchingScheduler:
         self.pending: List[Request] = sorted(requests,
                                              key=lambda r: r.arrival)
         self.active: Dict[int, _Active] = {}       # slot -> state
+        self.rank = 0                  # request-plane lane (replica id)
+        # the request plane records on the comm's first rank only (a
+        # fleet's scheduler on a rank without its replica's engine sets
+        # its own)
+        self.req_records = engine is None or engine.dc.pos == 0
         self.clock = 0.0
         self.decode_steps = 0
         self.decode_s = 0.0
@@ -127,8 +140,12 @@ class ContinuousBatchingScheduler:
             serving.note_admit(req.rid, len(req.prompt), req.max_new,
                                req.arrival, self.clock)
             serving.set_pages_used(cache.pages_used)
+        if _requests.enabled and self.req_records:
+            _requests.note_admit(req.rid, req.arrival, self.clock,
+                                 len(req.prompt), req.max_new,
+                                 replica=self.rank)
         t0 = time.perf_counter()
-        first, _ = self.engine.prefill(slot, req.prompt)
+        first, _ = self.engine.prefill(slot, req.prompt, rid=req.rid)
         dur = time.perf_counter() - t0
         self.clock += dur
         st = _Active(req=req, slot=slot, tokens=[first], last=first)
@@ -136,6 +153,10 @@ class ContinuousBatchingScheduler:
         if serving.enabled:
             serving.note_prefill(dur, len(req.prompt))
             serving.note_token(req.rid, self.clock)
+        if _requests.enabled and self.req_records:
+            _requests.note_stage(req.rid, "prefill", self.clock - dur,
+                                 self.clock, rank=self.rank)
+            _requests.note_token(req.rid, self.clock, rank=self.rank)
         self._on_token(st)
         self._maybe_finish(st, first)
 
@@ -148,6 +169,8 @@ class ContinuousBatchingScheduler:
         if serving.enabled:
             serving.note_evict(st.req.rid, reason, self.clock)
             serving.set_pages_used(self.engine.cache.pages_used)
+        if _requests.enabled and self.req_records:
+            _requests.note_finish(st.req.rid, self.clock, reason)
 
     def _maybe_finish(self, st: _Active, tok: int) -> bool:
         eos = (st.req.eos_id if st.req.eos_id is not None
@@ -237,6 +260,9 @@ class ContinuousBatchingScheduler:
             st.last = tok
             if serving.enabled:
                 serving.note_token(st.req.rid, self.clock)
+            if _requests.enabled and self.req_records:
+                _requests.note_token(st.req.rid, self.clock,
+                                     rank=self.rank)
             self._on_token(st)
             self._maybe_finish(st, tok)
         host = time.perf_counter() - th0
@@ -331,6 +357,9 @@ class ContinuousBatchingScheduler:
                 emitted += 1
                 if serving.enabled:
                     serving.note_token(st.req.rid, self.clock)
+                if _requests.enabled and self.req_records:
+                    _requests.note_token(st.req.rid, self.clock,
+                                         rank=self.rank)
                 self._on_token(st)
                 if self._maybe_finish(st, tok):
                     finished = True
@@ -371,7 +400,13 @@ class FleetRouter:
     itl_p99_ms)`` feeds a replica's goodput/ITL (a replica with high tail
     latency per unit goodput loses share), and the per-replica bias of
     ``serving.apply_route_weight`` (``serving.fleet_route_bias``), read on
-    EVERY assignment."""
+    EVERY assignment.
+
+    With the request plane on, each assignment is noted with the weight
+    snapshot (``requests.note_route``) where ``req_owner(pick)`` holds:
+    a fleet sets it to "this process records the picked replica's
+    requests"; None notes every assignment (a router alone in its
+    process)."""
 
     def __init__(self, n: int,
                  weights: Optional[List[float]] = None) -> None:
@@ -383,6 +418,7 @@ class FleetRouter:
         self.weights = ([1.0] * n if weights is None
                         else [float(w) for w in weights])
         self._credits = [0.0] * n
+        self.req_owner: Optional[Callable[[int], bool]] = None
 
     def set_weight(self, replica: int, w: float) -> None:
         self.weights[int(replica)] = max(float(w), 0.0)
@@ -414,4 +450,9 @@ class FleetRouter:
         self._credits[pick] -= 1.0
         if serving.enabled:
             serving.note_route(rid, pick, eff)
+        if _requests.enabled and (self.req_owner is None
+                                  or self.req_owner(pick)):
+            # the weight snapshot rides the route DECISION event too, so
+            # "why this replica" is answerable from the trace alone
+            _requests.note_route(rid, pick, eff)
         return pick

@@ -8,13 +8,14 @@ framework increment them; ``dump()`` prints at finalize when
 The port's copy of ``ompi_tpu/spc.py``: ``Counters``, the counters the
 MPI surface and the device component feed, and the reads of the audit
 planes (``trace_dropped_events``, ``perf.PVARS``, ``traffic.PVARS``),
-the overlap scheduler's bucket pair and the MoE routing plane's three
-counters, all read through to their (process-wide) planes; the
-Prometheus text exposition (``export_prometheus``) with the traffic
-plane's per-edge and per-plane rows.  The reads of the later planes
-(health, numerics, reshard, elastic, policy, serving, history) come with
-their slices (ROADMAP P16a-2, P16b), as do the MPI_T pvar surface and
-the per-peer monitoring matrices.
+the overlap scheduler's bucket pair, the MoE routing plane's three
+counters and the request plane's four (``serving.requests.PVARS``), all
+read through to their (process-wide) planes; the Prometheus text
+exposition (``export_prometheus``) with the traffic plane's per-edge and
+per-plane rows and the request plane's stage quantiles.  The reads of
+the later planes (health, numerics, reshard, elastic, policy, serving,
+history) come with their slices (ROADMAP P16b), as do the MPI_T pvar
+surface and the per-peer monitoring matrices.
 """
 
 from __future__ import annotations
@@ -84,11 +85,21 @@ COUNTERS = [
     ("moe_hot_expert_trips",
      "hot-expert sentry trips (one expert carrying disproportionate "
      "token load)"),
+    # request plane (fed by ompi_tpu_torch/serving/requests; process-wide)
+    ("req_active",
+     "requests currently in flight through the request plane"),
+    ("req_completed",
+     "requests finished end-to-end (stage tree folded or kept)"),
+    ("req_slo_breaches",
+     "finished requests that breached a TTFT/ITL/e2e SLO target"),
+    ("req_exemplars_kept",
+     "full span trees held in the slowest-k + breach reservoir"),
 ]
 # trace_dropped_events lives in the tracer, the grad_bucket_* pair in the
 # overlap scheduler, the perf_*/traffic_* pvars in their planes and the
-# moe_* counters in the MoE plane (one state per process, not per
-# Context): every read goes through to them
+# moe_* counters in the MoE plane and the req_* counters in the request
+# plane (one state per process, not per Context): every read goes
+# through to them
 _READ_THROUGH = ("trace_dropped_events", "grad_bucket_count",
                  "grad_bucket_bytes", "moe_routed_tokens",
                  "moe_dropped_tokens", "moe_hot_expert_trips")
@@ -110,6 +121,10 @@ def _read_through(name: str):
         from . import traffic
         if name in traffic.PVARS:
             return traffic.pvar_value(name)
+    if name.startswith("req_"):
+        from .serving import requests
+        if name in requests.PVARS:
+            return requests.pvar_value(name)
     if name in _READ_THROUGH:       # the MoE routing plane's three
         from . import moe
         return moe.pvar_value(name)
@@ -130,7 +145,9 @@ class Counters:
     def snapshot(self) -> Dict[str, float]:
         out = dict(self._v)
         from . import perf, traffic
-        for name in _READ_THROUGH + perf.PVARS + traffic.PVARS:
+        from .serving import requests
+        for name in (_READ_THROUGH + perf.PVARS + traffic.PVARS
+                     + requests.PVARS):
             out[name] = self.get(name)
         return out
 
@@ -171,7 +188,9 @@ def export_prometheus(ctx, comm=None, prefix: str = "ompi_tpu") -> str:
     """One rank's metrics surface in the Prometheus text exposition format:
     every counter as a ``<prefix>_<name>{rank,comm}`` counter family plus,
     once the traffic plane holds bytes, its per-edge and per-plane gauge
-    families (``traffic.prometheus_rows``).
+    families (``traffic.prometheus_rows``) and, once the request plane
+    has finished a request, its per-stage quantile family
+    (``serving.requests.prometheus_rows``).
 
         open(f"metrics.{ctx.rank}.prom", "w").write(
             spc.export_prometheus(ctx))
@@ -188,4 +207,8 @@ def export_prometheus(ctx, comm=None, prefix: str = "ompi_tpu") -> str:
     trows = traffic.prometheus_rows(rank, comm=label, prefix=prefix)
     if trows:
         text += "\n".join(trows) + "\n"
+    from .serving import requests
+    rrows = requests.prometheus_rows(rank, comm=label, prefix=prefix)
+    if rrows:
+        text += "\n".join(rrows) + "\n"
     return text

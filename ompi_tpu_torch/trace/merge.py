@@ -137,18 +137,33 @@ def merge(per_rank: Dict[int, List[dict]],
 
 # -- in-band gather over the comm --------------------------------------------
 
+def _is_request_event(e: dict) -> bool:
+    """The request plane's events (``req:*`` and the route decision),
+    whose ``rank`` is a replica lane rather than the recording process."""
+    return e["cat"] == "req" or e["name"] == "decide:route"
+
+
 def _payload(rank: int, t_cut: Optional[float] = None) -> bytes:
     from . import _jsonable
+
+    def ship(e: dict) -> dict:
+        return {k: (_jsonable(v) if k == "args" else v) for k, v in e.items()}
 
     evs = []
     for e in _local_events(rank):
         if t_cut is not None and e["t"] > t_cut:
             continue            # gather's own instrumentation (clock-sync
             # bcast arrivals, p2p ship spans) must not pollute the skew
-        evs.append({k: (_jsonable(v) if k == "args" else v)
-                    for k, v in e.items()})
-    return json.dumps({"events": evs,
-                       "dropped": dropped_events(rank)}).encode()
+        evs.append(ship(e))
+    # the request plane records on one process a replica, each event on
+    # its replica's lane: ship the lanes this process holds besides its own
+    lanes: Dict[str, List[dict]] = {}
+    for e in _local_events():
+        if e["rank"] != rank and _is_request_event(e) and (
+                t_cut is None or e["t"] <= t_cut):
+            lanes.setdefault(str(e["rank"]), []).append(ship(e))
+    return json.dumps({"events": evs, "dropped": dropped_events(rank),
+                       "lanes": lanes}).encode()
 
 
 def gather(comm, rounds: int = DEFAULT_ROUNDS,
@@ -159,7 +174,11 @@ def gather(comm, rounds: int = DEFAULT_ROUNDS,
 
     Each rank contributes the ring keyed by its WORLD rank (what the
     instrumented layers record under ``ctx.rank``); pid = world rank in
-    the merged timeline.  ``sync=False`` skips the ping-pong and merges
+    the merged timeline.  The request plane's events are the exception:
+    a replica's first rank records them under the replica's lane, so each
+    rank also ships the request events of the other lanes it holds, and
+    they join that lane aligned by the SENDER's offset (the clock they
+    were read on).  ``sync=False`` skips the ping-pong and merges
     on raw clocks (single-process thread ranks share one clock).
     """
     import time
@@ -175,8 +194,7 @@ def gather(comm, rounds: int = DEFAULT_ROUNDS,
         comm.send(np.array([len(blob)], np.int64), 0, MERGE_TAG)
         comm.send(blob, 0, MERGE_TAG)
         return None
-    per_rank: Dict[int, List[dict]] = {}
-    dropped: Dict[int, int] = {}
+    docs: Dict[int, dict] = {}
     off_w: Dict[int, float] = {}
     rtt_w: Dict[int, float] = {}
     for src in range(comm.size):
@@ -190,11 +208,33 @@ def gather(comm, rounds: int = DEFAULT_ROUNDS,
             blob = np.zeros(int(n[0]), np.uint8)
             comm.recv(blob, src, MERGE_TAG)
             doc = json.loads(blob.tobytes())
-        per_rank[world] = doc["events"]
-        dropped[world] = int(doc["dropped"])
+        docs[world] = doc
         off_w[world] = float(offsets[src])
         rtt_w[world] = float(rtts[src])
-    return merge(per_rank, offsets=off_w, best_rtt=rtt_w, dropped=dropped)
+    return merge_payloads(docs, off_w, rtt_w)
+
+
+def merge_payloads(docs: Dict[int, dict], offsets: Dict[int, float],
+                   best_rtt: Dict[int, float]) -> FleetTimeline:
+    """The root's half of ``gather``: each world rank's shipped ring
+    (``docs[rank]``, the payload a rank sends) and the request-plane
+    lanes it held, merged onto rank 0's clock."""
+    per_rank: Dict[int, List[dict]] = {}
+    dropped: Dict[int, int] = {}
+    lanes: List[tuple] = []          # (lane, sender's offset, events)
+    for world, doc in docs.items():
+        per_rank[world] = list(doc["events"])
+        dropped[world] = int(doc["dropped"])
+        lanes += [(int(lane), float(offsets.get(world, 0.0)), evs)
+                  for lane, evs in doc.get("lanes", {}).items()]
+    for lane, off_src, evs in lanes:
+        # merge subtracts the lane's own offset: pre-shift so the events
+        # land on the sender's alignment instead
+        shift = offsets.get(lane, 0.0) - off_src
+        per_rank.setdefault(lane, []).extend(
+            dict(e, t=e["t"] + shift) for e in evs)
+    return merge(per_rank, offsets=offsets, best_rtt=best_rtt,
+                 dropped=dropped)
 
 
 # -- post-mortem: N per-rank Chrome dumps from disk --------------------------

@@ -211,7 +211,7 @@ def note_a2a(mesh, axis: str, nbytes: int, coll: str) -> None:
     full bipartite edge set (the audited dispatch convention: wire =
     the per-rank shard payload, factor 1 — the (n-1)/n on-wire
     discount lives in the busbw factor table, not the byte ledger).
-    The ulysses wrapper is its caller (ROADMAP P16a-2)."""
+    ``parallel/ulysses.ulysses_attention`` is its caller."""
     nbytes = int(nbytes)
     if nbytes <= 0:
         return

@@ -239,3 +239,92 @@ def fleet_refusals(dc, cfg_kw, tree):
     except NotImplementedError as e:
         out["hot"] = str(e)
     return out
+
+
+def fleet_requests(dc, cfg_kw, tree, topo, stream, clock, planes=True,
+                   cli=None):
+    """One run of a fleet of ``topo`` over ``stream`` on a uniform
+    ``_StepClock`` of ``clock`` seconds a reading, with the serve plane
+    and (``planes``) the trace and request planes on: this process's
+    shipped trace payload (``trace.merge._payload``, the request lanes
+    it holds included), the request plane's report and pvars, the
+    streams and the spc's request pvars.  ``cli`` holds variables set for
+    the run (name → string); a run the request plane refuses (an SLO
+    breach: P16b) returns the refusal's message."""
+    import json
+
+    from ompi_tpu_torch import trace
+    from ompi_tpu_torch.serving import requests
+    from ompi_tpu_torch.trace import merge
+    c = spc_mod.Counters()
+    fl = _fleet(cfg_kw, tree, topo, spc=c)
+    real = sched.time, fleet_mod.time
+    sched.time = fleet_mod.time = _StepClock(clock)
+    for name, value in (cli or {}).items():
+        var.registry.set_cli(name, value)
+    serving.reset()
+    serving.enable()
+    requests.reset()
+    trace.clear()
+    if planes:
+        requests.enable()
+        trace.enable()
+    refused = res = None
+    try:
+        res = fl.run(_requests(stream))
+    except NotImplementedError as e:
+        refused = str(e)
+    finally:
+        sched.time, fleet_mod.time = real
+        for name in cli or {}:
+            var.registry.clear_cli(name)
+        serving.disable()
+        requests.disable()
+        trace.disable()
+    out = {"rank": dist.get_rank(), "refused": refused,
+           "payload": json.loads(merge._payload(dist.get_rank())),
+           "report": requests.report(),
+           "pvars": {n: c.get(n) for n in requests.PVARS},
+           "events": len(trace.events()),
+           "streams": (None if res is None else
+                       {rid: r["tokens"]
+                        for rid, r in res["results"].items()})}
+    requests.reset()
+    trace.clear()
+    return out
+
+
+def cross_audit(dc, cases, dtype="float32"):
+    """``cross_cases`` with the trace, perf and traffic planes on: per case
+    this rank's decision events, compile marks, the traffic edges and
+    the attributed and unattributed bytes, beside the spc's wire."""
+    from ompi_tpu_torch import perf, trace, traffic
+    out = []
+    try:
+        for case in cases:
+            trace.clear()
+            trace.enable()
+            traffic.reset()
+            traffic.enable()
+            perf.reset()
+            perf.enable()
+            got = cross_cases(dc, [case], dtype)[0]
+            evs = trace.events()
+            got.update(
+                decisions=[dict(e["args"]) for e in evs
+                           if e["name"] == "decide:reshard"],
+                marks=[e["name"] for e in evs
+                       if e["name"].startswith(("reshard:", "cache_hit:"))],
+                edges=traffic.matrix.rows(),
+                attributed=traffic.matrix.placed_bytes,
+                unattributed=traffic.matrix.unattributed_bytes)
+            got.pop("out")
+            out.append(got)
+    finally:
+        trace.disable()
+        trace.clear()
+        traffic.disable()
+        traffic.reset()
+        perf.disable()
+        perf.reset()
+    return out

@@ -96,3 +96,37 @@ def eval_loss(dc, axes, cfg_kw, tree, tokens, rows=None):
     for layer in params["layers"]:
         layer["moe"] = moe.local_experts(layer["moe"], comm)
     return float(tfm.moe_eval_loss(comm, params, tokens, cfg, rows=rows))
+
+
+def block_ep_audit(dc, axes, h, params, n_experts, top_k, cf, sim=None,
+                   force=None):
+    """``block_ep`` with the trace, perf and traffic planes on: besides
+    its result, this process's ``decide:moe_*`` events, the traffic edges,
+    the attributed and unattributed bytes and the perf cells."""
+    from ompi_tpu_torch import perf, trace, traffic
+    trace.clear()
+    trace.enable()
+    traffic.reset()
+    traffic.enable()
+    perf.reset()
+    perf.enable()
+    try:
+        got = block_ep(dc, axes, h, params, n_experts, top_k, cf, sim=sim,
+                       force=force)
+        got.update(
+            decisions=[(e["name"], e["rank"], dict(e["args"]))
+                       for e in trace.events()
+                       if e["name"].startswith("decide:moe")],
+            edges=traffic.matrix.rows(),
+            attributed=traffic.matrix.placed_bytes,
+            unattributed=traffic.matrix.unattributed_bytes,
+            perf_cells=sorted({(r["coll"], r["arm"])
+                               for r in perf.model.table()}))
+        return got
+    finally:
+        trace.disable()
+        trace.clear()
+        traffic.disable()
+        traffic.reset()
+        perf.disable()
+        perf.reset()

@@ -302,3 +302,89 @@ def grad_sync(dc, axes, sim, cfg_kw, tree, tokens, force=None, rules=None):
 def leaves_of(dc, tree):
     return [np.asarray(x) for x in optim.tree_leaves(
         tfm.params_from_numpy(tree, device="cpu"))]
+
+
+# -- the audit seams ------------------------------------------------------------
+
+def _planes_on():
+    from ompi_tpu_torch import perf, trace, traffic
+    trace.clear()
+    trace.enable()
+    traffic.reset()
+    traffic.enable()
+    perf.reset()
+    perf.enable()
+
+
+def _planes_off():
+    from ompi_tpu_torch import perf, trace, traffic
+    trace.disable()
+    trace.clear()
+    traffic.disable()
+    traffic.reset()
+    perf.disable()
+    perf.reset()
+
+
+def ulysses_charge(dc, axes, q, k, v):
+    """ulysses_attention on this process's sequence shards with the
+    traffic plane on: the traffic edges and the charge by coll."""
+    from ompi_tpu_torch import traffic
+    mesh = _mesh(axes)
+    n, i = mesh.mesh.shape[mesh.mesh_dim_names.index("sp")], \
+        axis_rank(mesh, "sp")
+    qs, ks, vs = (torch.from_numpy(np.ascontiguousarray(
+        np.split(t, n, axis=1)[i])) for t in (q, k, v))
+    _planes_on()
+    try:
+        ulysses_attention(qs, ks, vs, mesh, "sp")
+        return {"edges": traffic.matrix.rows(),
+                "per_coll": traffic.matrix.per_coll(),
+                "unattributed": traffic.matrix.unattributed_bytes}
+    finally:
+        _planes_off()
+
+
+def pipe_trace(dc, axes, layers, mbs, fail=False):
+    """pipeline of the toy stage over "pp" with tracing on (``fail``: a
+    stage that raises): this process's ``pipeline:*`` spans."""
+    from ompi_tpu_torch import trace
+    mesh = _mesh(axes)
+    n = mesh.mesh.shape[mesh.mesh_dim_names.index("pp")]
+    tree = [{k: torch.from_numpy(v) for k, v in lay.items()}
+            for lay in layers]
+    mine = shard_stage_params(stack_stage_params(tree, n), mesh, "pp")
+
+    def bad(p, x):
+        raise ValueError("a stage that fails")
+
+    _planes_on()
+    try:
+        try:
+            pipeline(bad if fail else _toy_stage, mine,
+                     torch.from_numpy(mbs), mesh, "pp")
+        except ValueError:
+            pass
+        return [{"name": e["name"], "cat": e["cat"], "rank": e["rank"],
+                 "dur": e["dur"], "args": dict(e["args"])}
+                for e in trace.events() if e["name"].startswith("pipeline:")]
+    finally:
+        _planes_off()
+
+
+def quant_spans(dc, axes, x):
+    """The three quantized collectives of ``dc.quant`` on this process's
+    row of the canonical ``x`` with tracing on: their ``quant:*`` spans'
+    names and args."""
+    from ompi_tpu_torch import trace
+    comm = DeviceComm(_mesh(axes), tuple(axes)[0])
+    row = torch.from_numpy(np.ascontiguousarray(x[comm.pos:comm.pos + 1]))
+    _planes_on()
+    try:
+        comm.quant.allreduce(row)
+        comm.quant.reduce_scatter(row)
+        comm.quant.allgather(row)
+        return [(e["name"], e["rank"], dict(e["args"]))
+                for e in trace.events() if e["name"].startswith("quant:")]
+    finally:
+        _planes_off()

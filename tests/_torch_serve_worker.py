@@ -338,3 +338,112 @@ def fused_views(dc, axes, cfg_kw, tree):
     return {"pos": eng.dc.pos, "embed_lg": f(eng._embed_lg),
             "layers": [{k: f(lw[k]) for k in ("wqkv", "wgu", "wo", "wd")}
                        for lw in eng._fused_layers]}
+
+
+# -- the audit planes on the engine -------------------------------------------
+
+def _event_rows(evs, prefix):
+    return [{"name": e["name"], "ph": e["ph"], "rank": e["rank"],
+             "args": dict(e["args"])}
+            for e in evs if e["name"].startswith(prefix)]
+
+
+def engine_audit(dc, axes, cfg_kw, tree, prompt, steps, force=None,
+                 engine_kw=None):
+    """``_greedy_decode`` with the trace, perf and traffic planes on,
+    opened after the engine's construction (its ``convert_params``
+    reshard is audited under coll ``reshard``): this process's decision
+    events and ``serve:*`` spans, the dispatches, the wire the spc and the
+    engine counted, the traffic edges and the perf cells."""
+    from ompi_tpu_torch import perf, trace, traffic
+    eng = _engine(axes, cfg_kw, tree, engine_kw)
+    comm = eng.dc
+    comm.spc = spc_mod.Counters()
+    eng.wire_bytes = 0
+    before = dict(eng.dispatches)
+    for name, value in (force or {}).items():
+        var.registry.set_override(name, value)
+    trace.clear()
+    trace.enable()
+    traffic.reset()
+    traffic.enable()
+    perf.reset()
+    perf.enable()
+    try:
+        run = _greedy_decode(eng, np.asarray(prompt), steps)
+        evs = trace.events()
+        return {"tokens": run["tokens"],
+                "decisions": _event_rows(evs, "decide:"),
+                "spans": _event_rows(evs, "serve:"),
+                "dispatches": {k: v - before[k]
+                               for k, v in eng.dispatches.items()},
+                "wire_bytes": eng.wire_bytes,
+                "spc_wire": comm.spc.get("coll_wire_bytes"),
+                "attributed": comm.spc.get("traffic_attributed_bytes"),
+                "unattributed": comm.spc.get("traffic_unattributed_bytes"),
+                "edges": traffic.matrix.rows(),
+                "perf_cells": sorted({(r["coll"], r["arm"], r["count"])
+                                      for r in perf.model.table()}),
+                "rank": torch.distributed.get_rank()}
+    finally:
+        for name in (force or {}):
+            var.registry.set_override(
+                name, var.registry.lookup(name).default)
+        trace.disable()
+        trace.clear()
+        traffic.disable()
+        traffic.reset()
+        perf.disable()
+        perf.reset()
+
+
+def reshard_audit(dc, axes, host, cases):
+    """Each (src, dst) of ``cases`` run on this rank's block of ``host``
+    by one Resharder with the trace, perf and traffic planes on (the first
+    case twice, so its plan is a cache hit): per run the decision events,
+    the compile spans and cache-hit instants, the traffic edges, the wire
+    the spc counted, the module counters' moves and ``report()["last"]``."""
+    from ompi_tpu_torch import perf, trace, traffic
+    from ompi_tpu_torch.parallel import reshard
+    mesh = _mesh(axes)
+    coords = _coords(mesh)
+    rs = Resharder(mesh, spc=spc_mod.Counters())
+    out = []
+    try:
+        for src, dst in [cases[0]] + list(cases):
+            x = torch.from_numpy(block(host, dict(axes), coords, src))
+            trace.clear()
+            trace.enable()
+            traffic.reset()
+            traffic.enable()
+            perf.reset()
+            perf.enable()
+            wire = rs.spc.get("coll_wire_bytes")
+            counts = dict(reshard.report()["counters"])
+            rs.run(x, src, dst, global_shape=host.shape)
+            evs = trace.events()
+            after = reshard.report()
+            out.append({
+                "decisions": [dict(e["args"]) for e in evs
+                              if e["name"] == "decide:reshard"],
+                "rank": torch.distributed.get_rank(),
+                "marks": [e["name"] for e in evs
+                          if e["name"].startswith(("reshard:",
+                                                   "cache_hit:"))],
+                "edges": traffic.matrix.rows(),
+                "unattributed": traffic.matrix.unattributed_bytes,
+                "wire": rs.spc.get("coll_wire_bytes") - wire,
+                "counters": {k: v - counts[k]
+                             for k, v in after["counters"].items()},
+                "last": after["last"],
+                "plan_log": after["plans"][-1],
+                "perf_cells": sorted({(r["coll"], r["arm"])
+                                      for r in perf.model.table()})})
+    finally:
+        trace.disable()
+        trace.clear()
+        traffic.disable()
+        traffic.reset()
+        perf.disable()
+        perf.reset()
+    return out

@@ -57,7 +57,8 @@ def test_every_module_is_listed():
                  "parallel.pipeline", "moe", "models.moe", "tools.mpisync",
                  "trace", "trace.merge", "trace.analyze", "perf",
                  "perf.model", "perf.goodput", "perf.sentry", "traffic",
-                 "traffic.matrix", "traffic.planes", "traffic.sentry"):
+                 "traffic.matrix", "traffic.planes", "traffic.sentry",
+                 "serving.requests", "trace.critical"):
         assert f"ompi_tpu_torch.{name}" in MODULES
 
 
