@@ -197,6 +197,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                conservation on exactly that rid (audit2_check); the decode
                step's ms off and on, the events by category, the stage
                and e2e quantiles (audit2_numbers).
+ 20. static analysis — in phase 9's world, after 18a (P17): (a) the
+               comm-lint over ompi_tpu_torch/ has no live finding and
+               every waiver its why; verify_action over its whole
+               vocabulary (every (coll, arm) verified, the quant arms of
+               ops without a quantized codec refused); the flagship's
+               one-card train step at full width extracted under the
+               recording dispatch mode: no collective record, its host
+               transfers by site, K1-K4 launched as phase 7's step
+               (commgraph_check, commgraph_numbers lines).
 Each phase's seconds on the host's clock are logged as it ends
 (phase_seconds lines).  The last lines are the collectives, mesh, mpi,
 grad_sync, serve, decode, fleet, moe, audit, audit2 and kernels JSON
@@ -371,8 +380,19 @@ must fail that), ulysses_attention at 16d's shape (the charge
 (2·Q + K + V)/4 of the whole tensors), one pipeline run at 16f's shape
 (one pipeline:run span and M + P − 1 ticks) and one forced-quant
 comm.coll.allreduce (its quant:allreduce span beside its decision)
-(audit2_check, audit2_numbers lines, then the audit2 line).  Every
-process group of the rank program ends through leave_world.  Each
+(audit2_check, audit2_numbers lines, then the audit2 line).  Phase 20b
+in the same rank program, the planes off: analysis.commgraph.verify,
+static against the traffic plane's runtime charge, on the flagship's
+mesh step on {"dp": 4} with grad_sync "perleaf" (2·3·flat/4, every
+rank's signature list the same) and "bucketed" (the buckets' allreduces
+issued inside the backward), convert_params(to="decode") on {"tp":
+4} through its plans' from_reshard_plan, verify_decode_program on 14c's
+fused engine at tp 4, ring attention at 10a's shape (K1 hops: 3 ppermute
+records of K and V, the whole ring perm) and Ulysses at 16d's shape;
+planted faults (a ring charging one hop fewer, a non-bijective perm
+record, rank 2 issuing one extra allreduce) each fail their check
+(commgraph_check, commgraph_numbers lines, then the commgraph line).
+Every process group of the rank program ends through leave_world.  Each
 world's sub-phases and each tpurun program log their seconds
 (phase_seconds lines).
 """
@@ -6596,11 +6616,11 @@ def audit_rank(torch, np) -> None:
         dist.all_gather_object(got, obj)
         return got
 
-    def gate(name: str, ok: bool, **info) -> bool:
+    def gate(name: str, ok: bool, phase: str = "audit_check",
+             **info) -> bool:
         """Every rank's verdict; the check holds where all ranks' do."""
         oks = agree(bool(ok))
-        out({"phase": "audit_check", "check": name, "ok_by_rank": oks,
-             **info})
+        out({"phase": phase, "check": name, "ok_by_rank": oks, **info})
         return all(oks)
 
     def one_per_coll() -> tuple:
@@ -6770,6 +6790,12 @@ def audit_rank(torch, np) -> None:
     if failed:
         raise AssertionError(f"19b-c: {failed}")
     out({"audit2_rank0": {"checks_passed": True, "cards": n}})
+    # 20b: static analysis on the cards
+    failed = commgraph_rank(torch, np, tfm, comm, rank, gate, out, card)
+    clock.lap("20b")
+    if failed:
+        raise AssertionError(f"20b: {failed}")
+    out({"commgraph_rank0": {"checks_passed": True, "cards": n}})
     leave_world(torch, out)
     runtime.finalize()
 
@@ -7247,6 +7273,296 @@ def audit2_seams_rank(torch, np, tfm, comm, rank: int, gate, out,
     return failed
 
 
+# -- 20. static analysis ------------------------------------------------------
+
+
+def commgraph_one_card(torch, tfm, optim, attention, cfg, pristine, tokens,
+                       per_step, card: str, log_fn=log) -> dict:
+    """20a, in phase 9's world: the comm-lint over the shipped tree (no
+    live finding, every waiver with its why); verify_action over its whole
+    vocabulary (every (coll, arm) verified or refused); the one-card
+    flagship train step at full width extracted (no collective record; its
+    host transfers logged by site; K1-K4 launched as the unrecorded step
+    launches them, ``per_step`` of phase 7)."""
+    import os
+    from ompi_tpu_torch.analysis import commgraph as cg
+    from ompi_tpu_torch.analysis import lint, rules
+    failed = []
+
+    def check(name, ok, **info):
+        log_fn({"phase": "commgraph_check", "check": name, "ok": bool(ok),
+                **info})
+        if not ok:
+            failed.append(name)
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    findings = lint.lint_paths([os.path.join(root, "ompi_tpu_torch")])
+    live = [f.format() for f in findings if not f.waived]
+    waived = [f for f in findings if f.waived]
+    lint_s = time.perf_counter() - t0
+    check("lint_shipped_tree_clean", not live and all(f.waiver
+                                                      for f in waived),
+          live=live, waived=len(waived),
+          waived_by_rule={r: sum(f.rule == r for f in waived)
+                          for r in sorted({f.rule for f in waived})})
+    verified, refused = 0, 0
+    for coll in sorted(cg._ACTION_COLL_FACTORS):
+        for arm in rules.MODES:
+            try:
+                got = cg.verify_action(coll, arm)
+                verified += got["ok"] and got["predicted_wire_bytes"] > 0
+            except ValueError:
+                refused += 1
+    quant = sum(1 for c in cg._ACTION_COLL_FACTORS
+                for a in rules.MODES if "quant" in a
+                and c not in cg._QUANTIZABLE)
+    check("verify_action_vocabulary", verified + refused == len(
+        cg._ACTION_COLL_FACTORS) * len(rules.MODES) and refused == quant,
+          verified=verified, refused=refused)
+    # the flagship's one-card step: plain, then under the recording mode
+    init_opt, step = tfm.make_train_step(cfg, learning_rate=1e-3)
+    params = clone_tree(optim, pristine)
+    state = init_opt(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, state, tokens)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    zero_counts(attention)
+    t0 = time.perf_counter()
+    g = cg.extract(step, params, state, tokens, source="flagship-step")
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    counts = launch_counts(attention)
+    sites = {}
+    for h in g.host_transfers:
+        sites[h] = sites.get(h, 0) + 1
+    check("one_card_step_has_no_collective", g.records == [],
+          records=len(g.records), host_transfers_by_site=sites)
+    check("recording_leaves_k1_k4_launches", counts == tuple(per_step),
+          launches=list(counts), want=list(per_step))
+    del params, state
+    row = {"lint_s": lint_s, "lint_waived": len(waived),
+           "verify_action": {"verified": verified, "refused": refused},
+           "step_s": plain_s, "extract_s": extract_s,
+           "host_transfers_by_site": sites, "k1_k2_k3_k4": list(counts)}
+    log_fn({"phase": "commgraph_numbers", "what": "one_card", **row,
+            "card": card})
+    if failed:
+        raise AssertionError(f"20a: {failed}")
+    return row
+
+
+def commgraph_rank(torch, np, tfm, comm, rank: int, gate, out,
+                   card: str) -> list:
+    """20b, in the tpurun program after 19c, the planes off (``verify``
+    turns the traffic plane on around its runner): each verify ``ok`` with
+    static == runtime — the flagship's mesh step on {"dp": n} with
+    grad_sync "perleaf" (2·(n−1)·flat//n, every rank's signature list the
+    same) and "bucketed" (its allreduces issued from leaf hooks inside the
+    backward, on autograd's device threads), convert_params(to="decode") on {"tp": n} through its plans'
+    ``from_reshard_plan``, verify_decode_program on the fused engine at
+    tp n (14c's), ring attention at 10a's shape (K1 hops) and Ulysses at
+    16d's.  Planted: a ring charging one hop fewer, a non-bijective perm
+    record, and rank AUDIT_STRAGGLER issuing one extra allreduce, each
+    failing its check.  Returns the failed checks."""
+    import torch.distributed as dist
+    from ompi_tpu_torch import optim
+    from ompi_tpu_torch import traffic
+    from ompi_tpu_torch.analysis import commgraph as cg
+    from ompi_tpu_torch.parallel import DeviceComm, make_mesh
+    from ompi_tpu_torch.parallel import reshard as reshard_mod
+    from ompi_tpu_torch.parallel import ring, ulysses
+    from ompi_tpu_torch.serving.fused import ring_schedule
+    n = comm.size
+    failed = []
+    clock = PhaseClock(out)
+    cfg = tfm.flagship_config()
+
+    def mark(name, ok, **info):
+        if not gate(name, ok, phase="commgraph_check", **info):
+            failed.append(name)
+
+    def row(rep, coll):
+        return next((r for r in rep.rows if r["coll"] == coll),
+                    {"static": 0, "runtime": -1, "ok": False})
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    seconds = {}
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (BATCH, cfg.seq + 1))).cuda()
+    # the mesh step, grad_sync "perleaf", on {"dp": n}
+    dmesh = make_mesh({"dp": n})
+    pcfg = dataclasses.replace(cfg, grad_sync="perleaf")
+    init_opt, step = tfm.make_train_step(pcfg, dmesh, learning_rate=1e-3)
+    state = init_opt(params)
+    flat = sum(x.numel() * x.element_size()
+               for x in optim.tree_leaves(params))
+    rep, seconds["mesh_step"] = timed(lambda: cg.verify(
+        step, (params, state, tokens), dmesh,
+        coll_map={"grad_sync": "psum_ring"}, source="mesh-step",
+        comm=dist.group.WORLD))
+    r = row(rep, "grad_sync")
+    want = 2 * (n - 1) * flat // n
+    mark("mesh_step_perleaf_static_equals_runtime", rep.ok
+         and r["static"] == r["runtime"] == want, static=r["static"],
+         runtime=r["runtime"], want=want, records=rep.n_records,
+         issues=[i.kind for i in rep.issues],
+         host_transfers=rep.host_transfers)
+    mark("mesh_step_signatures_match_on_every_rank",
+         not any(i.kind == "mismatch" for i in rep.issues))
+    del state, step
+    # grad_sync "bucketed": the buckets' allreduces are issued from leaf
+    # hooks inside the backward, on autograd's device threads, so the
+    # static figure reaches the runtime one only if the recording mode
+    # follows the backward there
+    init_opt, step = tfm.make_train_step(
+        dataclasses.replace(cfg, grad_sync="bucketed"), dmesh,
+        learning_rate=1e-3)
+    state = init_opt(params)
+    rep, seconds["mesh_step_bucketed"] = timed(lambda: cg.verify(
+        step, (params, state, tokens), dmesh,
+        coll_map={"grad_sync": "psum_ring"}, source="mesh-step-bucketed",
+        comm=dist.group.WORLD))
+    r = row(rep, "grad_sync")
+    mark("mesh_step_bucketed_backward_collectives_recorded", rep.ok
+         and r["static"] == r["runtime"] == want, static=r["static"],
+         runtime=r["runtime"], want=want, records=rep.n_records,
+         issues=[i.kind for i in rep.issues])
+    del state, step
+    torch.cuda.empty_cache()
+    clock.lap("20b mesh step")
+    # convert_params(to="decode") on {"tp": n}: its plans, lifted
+    tmesh = make_mesh({"tp": n})
+    train = tfm.shard_params(params, tmesh, cfg)
+    del params
+    plans = []
+    real_plan = reshard_mod.Resharder.plan
+
+    def recording(self, *a, **kw):
+        plans.append(real_plan(self, *a, **kw))
+        return plans[-1]
+
+    with planted(reshard_mod.Resharder, "plan", recording):
+        tfm.convert_params(train, tmesh, cfg, to="decode")
+    torch.cuda.synchronize()
+    g = cg.CommGraph(records=[rec for p in plans
+                              for rec in cg.from_reshard_plan(p).records],
+                     source="convert_params(to='decode')")
+    rep, seconds["convert"] = timed(lambda: cg.verify(
+        lambda: None, (), tmesh, graph=g, coll_map={"reshard": "reshard"},
+        runner=lambda: tfm.convert_params(train, tmesh, cfg, to="decode")))
+    r = row(rep, "reshard")
+    mark("convert_params_plans_static_equals_runtime", rep.ok
+         and r["static"] == r["runtime"] > 0, static=r["static"],
+         runtime=r["runtime"], plan_runs=len(plans),
+         steps=[d for p in plans for d in p.describe()][:8])
+    clock.lap("20b convert")
+    # the fused engine at tp n (14c's config)
+    dc = DeviceComm(tmesh, "tp")
+    eng = serve_engine(tfm, dc, train,
+                       dataclasses.replace(cfg, decode_overlap="fused"),
+                       SERVE_SEQS,
+                       serve_pages(max(SERVE_PROMPT_LENS) + SERVE_NEW))
+    rep, seconds["decode"] = timed(eng.verify_decode_program)
+    r = row(rep, "decode_collmm")
+    rings = [w for _, _, w in ring_schedule(
+        cfg.n_layers, SERVE_SEQS, cfg.d_model, n, cfg.dtype.itemsize)]
+    mark("fused_decode_static_equals_runtime", rep.ok
+         and r["static"] == r["runtime"] == sum(rings) > 0,
+         static=r["static"], runtime=r["runtime"], schedule=sum(rings),
+         records=rep.n_records, host_transfers=rep.host_transfers)
+    del eng, train, dc
+    torch.cuda.empty_cache()
+    clock.lap("20b decode")
+    # ring attention at 10a's shape: K1 on every hop, forward
+    smesh = make_mesh({"sp": n})
+    shape = (BATCH, cfg.seq // n, cfg.n_heads, cfg.head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(20 + rank)
+    q, kk, v = (torch.randn(shape, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(3))
+
+    def ring_fn(a, b, c):
+        with torch.no_grad():
+            return ring.ring_attention(a, b, c, smesh, "sp", causal=True,
+                                       block_impl="pallas")
+
+    sp_group = smesh.get_group("sp")
+    g = cg.extract(ring_fn, q, kk, v, source="ring", mesh=smesh,
+                   comm=sp_group)
+    rep, seconds["ring"] = timed(lambda: cg.verify(
+        ring_fn, (q, kk, v), smesh, graph=g,
+        coll_map={"ring_attention": "ppermute"}))
+    r = row(rep, "ring_attention")
+    hop = kk.numel() * kk.element_size() + v.numel() * v.element_size()
+    whole = [(i, (i + 1) % n) for i in range(n)]
+    mark("ring_static_equals_runtime", rep.ok
+         and r["static"] == r["runtime"] == (n - 1) * hop
+         and len(g.records) == n - 1
+         and all(sorted(x.perm) == whole for x in g.records),
+         static=r["static"], runtime=r["runtime"], want=(n - 1) * hop)
+    real_ring = traffic.note_ring
+
+    def short(mesh_, axis, nbytes, coll, direction="fwd"):
+        if coll == "ring_attention":
+            nbytes -= hop
+        return real_ring(mesh_, axis, nbytes, coll, direction)
+
+    with planted(traffic, "note_ring", short):
+        bad = cg.verify(ring_fn, (q, kk, v), smesh, graph=g,
+                        coll_map={"ring_attention": "ppermute"})
+    mark("planted_ring_one_hop_short_fails_verify", not bad.ok,
+         static=row(bad, "ring_attention")["static"],
+         runtime=row(bad, "ring_attention")["runtime"])
+    broken = cg.CommGraph(records=[dataclasses.replace(
+        g.records[0], perm=((0, 1), (1, 1)) + tuple(g.records[0].perm[2:]))]
+        + g.records[1:])
+    mark("planted_non_bijective_perm_fails_check",
+         [i.kind for i in broken.check(smesh)] == ["bijection"])
+    # Ulysses at 16d's shape
+    rep, seconds["ulysses"] = timed(lambda: cg.verify(
+        lambda a, b, c: ulysses.ulysses_attention(a, b, c, smesh, "sp",
+                                                  causal=True),
+        (q, kk, v), smesh, coll_map={"ulysses": "all_to_all"},
+        source="ulysses", comm=sp_group))
+    r = row(rep, "ulysses")
+    want = 2 * q.numel() * q.element_size() + hop       # 2·q + k + v
+    mark("ulysses_static_equals_runtime", rep.ok
+         and r["static"] == r["runtime"] == want, static=r["static"],
+         runtime=r["runtime"], want=want, records=rep.n_records)
+    del q, kk, v
+    torch.cuda.empty_cache()
+    clock.lap("20b ring, ulysses")
+    # one rank issues one extra allreduce (on a group of its own, so the
+    # run completes): the between-ranks matching names it
+    solo = dist.new_group([AUDIT_STRAGGLER])
+
+    def divergent():
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        if rank == AUDIT_STRAGGLER:
+            dist.all_reduce(x, group=solo)
+
+    g = cg.extract(divergent, source="divergent", mesh=dmesh,
+                   comm=dist.group.WORLD)
+    named = [d for d in g.divergent_ranks]
+    mark("planted_extra_allreduce_is_a_mismatch_naming_the_rank",
+         len(named) == 1 and named[0].startswith(f"rank {AUDIT_STRAGGLER}:")
+         and any(i.kind == "mismatch" for i in g.check(dmesh)),
+         divergent=named)
+    clock.lap("20b planted divergence")
+    out({"phase": "commgraph_numbers", "what": "multi_card", "cards": n,
+         "verify_seconds": seconds, "card": card})
+    return failed
+
+
 RANK_SCRIPT = """import sys
 sys.path.insert(0, {root!r})
 import chip_smoke
@@ -7256,7 +7572,7 @@ sys.exit(chip_smoke.rank_main(sys.argv[1:]))
 
 def rank_main(argv) -> int:
     """Entry of phase 11's rank programs: ``device R_PER TIMED HOST`` or
-    ``ring LAPS``; of phase 16b's, ``hier``; of phases 18b-c and 19b-c,
+    ``ring LAPS``; of phase 16b's, ``hier``; of phases 18b-c, 19b-c and 20b,
     ``audit``."""
     import numpy as np
     if argv[0] == "ring":
@@ -7524,7 +7840,8 @@ def multi_card_main() -> int:
     lines = tpurun(world, ["audit"], extra=("--gpus-per-rank", "1"))
     log({"audit": last_json(lines, "audit_rank0")})
     log({"audit2": last_json(lines, "audit2_rank0")})
-    clock.lap("18b-c, 19b-c program")
+    log({"commgraph": last_json(lines, "commgraph_rank0")})
+    clock.lap("18b-c, 19b-c, 20b program")
     log(card)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
@@ -7821,9 +8138,17 @@ def main() -> int:
     # time beside its device time
     audit_row = audit_one_card(torch, np, tfm, optim, attention, cfg,
                                pristine, train_tokens, card)
-    del pristine, train_tokens
     torch.cuda.empty_cache()
     clock.lap("18a")
+
+    # 20a. static analysis in the same world: the comm-lint, verify_action,
+    # and the flagship's one-card step extracted
+    commgraph_row = commgraph_one_card(torch, tfm, optim, attention, cfg,
+                                       pristine, train_tokens, per_step,
+                                       card)
+    del pristine, train_tokens
+    torch.cuda.empty_cache()
+    clock.lap("20a")
 
     # 13. serving in the same world: the engine against greedy (f32) and
     # forward (bf16), its planted faults, the scheduler, the numbers
@@ -7897,6 +8222,7 @@ def main() -> int:
     log({"moe": moe_row})
     log({"audit": audit_row})
     log({"audit2": audit2_row})
+    log({"commgraph": commgraph_row})
     log({"kernels": [
         {"name": "flash_partials", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/flash_partials.cu",
@@ -7953,7 +8279,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multi-card", action="store_true",
                     help="run only phases 9, 10c, 11, 12d-f, 13e, 14c, "
-                         "15b-d, 16, 17c, 17d, 18b-c and 19b-c, across "
+                         "15b-d, 16, 17c, 17d, 18b-c, 19b-c and 20b, across "
                          "every visible card")
     ns = ap.parse_args()
     sys.exit(multi_card_main() if ns.multi_card else main())

@@ -475,6 +475,7 @@ class _Plan:
         if self.data is None:
             return
         for g in grads:
+            # comm-lint: disable=CL001 the native mesh step's gradient sum over dp x sp, the psums GSPMD inserts in the reference's jitted step, where neither the reference's extractor nor its traffic plane sees them; the audited grad-sync tiers are parallel/overlap's
             dist.all_reduce(g, group=self.data)
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 import selectors
 import socket
 import struct
+import time
 from collections import deque
 from typing import Any, Dict, Optional
 
@@ -33,6 +34,13 @@ from . import wire
 
 # stream framing: [u32 frame_len][u32 hdr_len][wire header][payload]
 _HDR = struct.Struct("!II")
+_READ_WRITE = selectors.EVENT_READ | selectors.EVENT_WRITE
+
+
+def _whole_frame(buf: bytearray) -> bool:
+    """True when ``buf`` starts with a complete frame."""
+    return (len(buf) >= _HDR.size
+            and len(buf) >= _HDR.size + _HDR.unpack_from(buf)[0])
 
 
 def _advertised_host() -> str:
@@ -179,7 +187,6 @@ class TcpTransport(T.Transport):
         (small windows, congested loopback) is never misdiagnosed as
         failed (only a connection making zero forward progress for the
         full window raises, and the pml then retires the path)."""
-        import time
         conn = self._tx.get(peer)
         stall_window = 30.0
         deadline = time.monotonic() + stall_window
@@ -324,6 +331,29 @@ class TcpTransport(T.Transport):
         """True when live connections exist — the runtime caps doorbell
         blocking then, since tcp peers cannot ring a local semaphore."""
         return bool(self._tx or self._rx)
+
+    def idle_wait(self, timeout: float) -> None:
+        """Block in the selector until a connection or the listener turns
+        readable (or ``timeout``) — the progress engine's idle hook, this
+        transport's doorbell: a waiting rank wakes when its frame lands
+        instead of polling between blind sleeps. A whole frame already in
+        an inbuf (absorbed by ``confirm``, not yet parsed) needs progress,
+        not sleep, so the hook only cedes the core then; a partial one
+        waits for the rest of its bytes like any other. Connections with
+        frames still queued to send also wake it when they turn
+        writable."""
+        conns = list(self._rx) + list(self._tx.values())
+        if any(_whole_frame(c.inbuf) for c in conns):
+            time.sleep(0)
+            return
+        pending = [c for c in self._tx.values() if c.outbuf]
+        for c in pending:
+            self._sel.modify(c.sock, _READ_WRITE, ("tx", c))
+        try:
+            self._sel.select(timeout=timeout)
+        finally:
+            for c in pending:
+                self._sel.modify(c.sock, selectors.EVENT_READ, ("tx", c))
 
     def finalize(self) -> None:
         for conn in list(self._tx.values()) + list(self._rx):

@@ -64,6 +64,7 @@ def _take_world_hosts() -> None:
     if key in _WORLD_HOSTS:
         return
     hosts = [None] * dist.get_world_size()
+    # comm-lint: disable=CL001 the host table: one all-gather of each rank's host name (a Python object, no device payload) that feeds the traffic plane's ICI/DCN split; mesh bookkeeping, not a collective of the program
     dist.all_gather_object(hosts, socket.gethostname())
     ids = {h: i for i, h in enumerate(dict.fromkeys(hosts))}
     _WORLD_HOSTS.clear()
@@ -194,11 +195,13 @@ def classify_axes(mesh: DeviceMesh, axis=None) -> Dict[str, str]:
         for a in ((axis,) if isinstance(axis, str) else tuple(axis)):
             group = mesh.get_group(a)
             hosts = [None] * dist.get_world_size(group)
+            # comm-lint: disable=CL001 the host table: one all-gather of each rank's host name (a Python object, no device payload) that feeds the traffic plane's ICI/DCN split; mesh bookkeeping, not a collective of the program
             dist.all_gather_object(hosts, socket.gethostname(), group=group)
             crosses = a in sim or len(set(hosts)) > 1
             out[a] = "dcn" if crosses else "ici"
         return out
     hosts = [None] * dist.get_world_size()
+    # comm-lint: disable=CL001 the host table: one all-gather of each rank's host name (a Python object, no device payload) that feeds the traffic plane's ICI/DCN split; mesh bookkeeping, not a collective of the program
     dist.all_gather_object(hosts, socket.gethostname())
     ids = {h: i for i, h in enumerate(dict.fromkeys(hosts))}
     ranks = mesh.mesh.numpy()

@@ -8,7 +8,8 @@ shard against the K/V shard of member ``src = (my - i) % n``, merges the
 partials by online softmax, and passes K/V one member along the ring
 (``ring_hop``, point-to-point over the axis's process group).  The
 reference rotates K/V after the last block too; that result is never read,
-so the port stops after n - 1 hops.
+so the port stops after n - 1 hops, and charges the traffic plane for the
+n - 1 it makes.
 
 The block compute is plain PyTorch by default (``block_impl="jnp"``, the
 reference's jnp block, which XLA fused): it is differentiable, autograd
@@ -117,11 +118,12 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
     n, my = axis_size(mesh, axis), axis_rank(mesh, axis)
     from .. import traffic
     if traffic.enabled and n > 1:
-        # the reference's per-rank wire: all n ring steps rotate (its
-        # schedule permutes after the last block too) its K/V shard of
-        # the global arrays = the whole K+V bytes.  The port stops after
-        # n - 1 hops but charges the reference's figure.
-        whole = n * (k.nbytes + v.nbytes)
+        # the per-rank wire is what moves: n - 1 hops of this member's
+        # K/V shard.  The reference charges n hops (the whole K+V bytes),
+        # as its schedule permutes after the last block too; the port
+        # stops after n - 1, so it charges (n - 1)/n of that figure, the
+        # bytes analysis.commgraph's ppermute records sum to.
+        whole = (n - 1) * (k.nbytes + v.nbytes)
         for name in (batch_axis, head_axis):
             if name is not None:
                 whole *= axis_size(mesh, name)

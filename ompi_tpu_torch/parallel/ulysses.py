@@ -48,6 +48,7 @@ def _seq_to_heads(x: torch.Tensor, group, n: int) -> torch.Tensor:
     b, s, h, d = x.shape
     send = x.reshape(b, s, n, h // n, d).permute(2, 0, 1, 3, 4).contiguous()
     recv = torch.empty_like(send)                    # (n, b, s/n, h/n, d)
+    # comm-lint: disable=CL001 the tiled alltoall IS the ulysses algorithm (head/seq transpose); wire bytes attributed eagerly via traffic.note_a2a in ulysses_attention
     dist.all_to_all_single(_wire(recv), _wire(send), group=group)
     return recv.permute(1, 0, 2, 3, 4).reshape(b, n * s, h // n, d)
 
@@ -58,6 +59,7 @@ def _heads_to_seq(x: torch.Tensor, group, n: int) -> torch.Tensor:
     b, s, h, d = x.shape
     send = x.reshape(b, n, s // n, h, d).transpose(0, 1).contiguous()
     recv = torch.empty_like(send)                    # (n, b, s/n, h/n, d)
+    # comm-lint: disable=CL001 inverse transpose of the waived seq_to_heads exchange
     dist.all_to_all_single(_wire(recv), _wire(send), group=group)
     return recv.permute(1, 2, 0, 3, 4).reshape(b, s // n, n * h, d)
 

@@ -74,6 +74,11 @@ class Context:
         if not mods:
             raise RuntimeError("no transport components available")
         self.bootstrap.fence()
+        # block idle waits in the first transport that can announce its own
+        # arrivals (≙ the reference's shm doorbell hook; tcp's selector here)
+        owner = next((t for t in mods if hasattr(t, "idle_wait")), None)
+        if owner is not None:
+            self.engine.idle_wait = owner.idle_wait
         self.layer = TransportLayer(mods)
         from .spc import Counters
         self.spc = Counters()

@@ -66,9 +66,9 @@ this process's world rank.  With tracing on, ``prefill``,
 ``decode_step`` and ``decode_window`` each record the reference's
 ``serve:*`` span (``prefill`` carries the request's ``rid``); the span
 ends after the result reached the host, so it covers the step's device
-work.  Replicas of the engine make a fleet (``serving/fleet``).  Left for
-a later slice: the static proof of the fused program's wire
-(``verify_decode_program``: ``analysis/commgraph``, P17).
+work.  Replicas of the engine make a fleet (``serving/fleet``).
+``verify_decode_program`` proves the fused program's static wire against
+one decode step's audit (``analysis/commgraph``).
 
 Prefill runs the prompt at its own length: the reference pads it to a
 power-of-two bucket only to bound its JIT compiles, and the padded
@@ -686,12 +686,37 @@ class ServingEngine:
         return nxt, logits
 
     def verify_decode_program(self):
-        """The reference proves the fused program's static wire against
-        the runtime audit byte for byte through ``analysis/commgraph``,
-        which comes with ROADMAP P17."""
+        """Prove the fused decode program's static wire against the
+        runtime audit byte for byte (``analysis/commgraph``): extract the
+        program's collectives (every ring hop one ppermute record, its
+        perm assembled over the tp group), run ONE real decode step with
+        mixed live and inactive rows, and compare the static ppermute
+        bytes with the step's ``decode_collmm`` charge.  Returns the
+        commgraph ``VerifyReport``; ``report.ok`` is the acceptance gate.
+        Collective over the engine's comm.  The extraction runs the
+        program once, so it writes position 0 of the live rows' pages, as
+        the decode step that follows does."""
         if not self.fused:
             raise ValueError("verify_decode_program needs "
                              "decode_overlap='fused'")
-        raise NotImplementedError(
-            "verify_decode_program: the static extraction "
-            "(analysis/commgraph) comes with ROADMAP slice P17")
+        from ..analysis import commgraph
+        b = self.max_seqs
+        zeros = np.zeros(b, np.int64)
+        live = np.arange(b, dtype=np.int64) % 2  # mixed live/inactive
+        positions = np.where(live > 0, 0, -1).astype(np.int64)
+        page_idx, offset = self.cache.write_indices(np.arange(b),
+                                                    positions)
+        args = (torch.zeros((1, b, self.cfg.d_model), dtype=self.cfg.dtype,
+                            device=self.device),
+                self._index(self.cache.block_tables),
+                self._index(positions), self._index(page_idx),
+                self._index(offset), self._fused_layers, self._final_norm,
+                self._embed_lg, self.cache.k, self.cache.v)
+
+        def runner():
+            self.decode_step(zeros, positions)
+
+        return commgraph.verify(
+            self._fused, args, self.dc.mesh,
+            coll_map={"decode_collmm": "ppermute"}, runner=runner,
+            source="serving.fused:decode", comm=self.dc.group)

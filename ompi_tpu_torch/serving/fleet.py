@@ -579,6 +579,7 @@ class ServingFleet:
             own = self.replicas[self.me]
             lane = (own.prefills, own.prefill_s, own.clock)
         shared: List[Any] = [None] * dist.get_world_size()
+        # comm-lint: disable=CL001 the fleet's agreement on its summary: one all-gather of each replica's host-side results after the run, where the reference reads them on its single controller; not decode traffic
         dist.all_gather_object(shared, (mine, lane))
         first = {r.idx: shared[r.ranks[0]] for r in self.replicas}
         results: Dict[Any, Dict[str, Any]] = {}

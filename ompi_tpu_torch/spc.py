@@ -9,13 +9,15 @@ The port's copy of ``ompi_tpu/spc.py``: ``Counters``, the counters the
 MPI surface and the device component feed, and the reads of the audit
 planes (``trace_dropped_events``, ``perf.PVARS``, ``traffic.PVARS``),
 the overlap scheduler's bucket pair, the MoE routing plane's three
-counters and the request plane's four (``serving.requests.PVARS``), all
-read through to their (process-wide) planes; the Prometheus text
-exposition (``export_prometheus``) with the traffic plane's per-edge and
-per-plane rows and the request plane's stage quantiles.  The reads of
-the later planes (health, numerics, reshard, elastic, policy, serving,
-history) come with their slices (ROADMAP P16b), as do the MPI_T pvar
-surface and the per-peer monitoring matrices.
+counters, the serving plane's and the fleet ledger's four each
+(``serving.PVARS``, ``serving.FLEET_PVARS``) and the request plane's four
+(``serving.requests.PVARS``), all read through to their (process-wide)
+planes; the Prometheus text exposition (``export_prometheus``) with the
+traffic plane's per-edge and per-plane rows and the request plane's
+stage quantiles.  The reads of the later planes (health, numerics,
+reshard, elastic, policy, history) come with their slices (ROADMAP
+P16b), as do the MPI_T pvar surface and the per-peer monitoring
+matrices.
 """
 
 from __future__ import annotations
@@ -85,6 +87,25 @@ COUNTERS = [
     ("moe_hot_expert_trips",
      "hot-expert sentry trips (one expert carrying disproportionate "
      "token load)"),
+    # serving plane (fed by ompi_tpu_torch/serving; process-wide)
+    ("serve_tokens",
+     "decode tokens emitted by the serving tier (prefill first "
+     "tokens included)"),
+    ("serve_active_seqs",
+     "sequences currently in flight in the continuous batch"),
+    ("serve_evictions",
+     "sequences evicted from the batch (EOS, max-new or drain)"),
+    ("serve_kv_pages_used",
+     "KV cache pages currently reserved by live sequences"),
+    # serving fleet (fed by ompi_tpu_torch/serving's fleet ledger)
+    ("fleet_replicas",
+     "serving replicas in the most recently built fleet"),
+    ("fleet_migrations",
+     "KV-page migrations executed prefill -> decode via cross_reshard"),
+    ("fleet_migrated_bytes",
+     "wire bytes moved by KV-page migrations"),
+    ("fleet_rebalances",
+     "route_weight adaptations applied to the fleet router"),
     # request plane (fed by ompi_tpu_torch/serving/requests; process-wide)
     ("req_active",
      "requests currently in flight through the request plane"),
@@ -121,6 +142,10 @@ def _read_through(name: str):
         from . import traffic
         if name in traffic.PVARS:
             return traffic.pvar_value(name)
+    if name.startswith(("serve_", "fleet_")):
+        from . import serving
+        if name in serving.PVARS + serving.FLEET_PVARS:
+            return serving.pvar_value(name)
     if name.startswith("req_"):
         from .serving import requests
         if name in requests.PVARS:
@@ -144,9 +169,10 @@ class Counters:
 
     def snapshot(self) -> Dict[str, float]:
         out = dict(self._v)
-        from . import perf, traffic
+        from . import perf, serving, traffic
         from .serving import requests
         for name in (_READ_THROUGH + perf.PVARS + traffic.PVARS
+                     + serving.PVARS + serving.FLEET_PVARS
                      + requests.PVARS):
             out[name] = self.get(name)
         return out

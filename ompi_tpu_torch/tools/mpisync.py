@@ -11,7 +11,7 @@ lies within ±best_rtt/2 of the estimate, so merge reports it as the
 per-rank alignment confidence.
 
 Library: ``offsets = clock_sync(comm)`` (every rank's offset vs rank 0,
-seconds; bcast to all) or ``offsets, best_rtt = clock_sync_ex(comm)``
+seconds; sent to all) or ``offsets, best_rtt = clock_sync_ex(comm)``
 for the confidence bound alongside. CLI: ``tpurun -np N -m
 ompi_tpu_torch.tools.mpisync`` prints the table on rank 0.  The ping-pong
 runs over the communicator's host point-to-point (numpy buffers), so it
@@ -69,7 +69,16 @@ def clock_sync_ex(comm, rounds: int = DEFAULT_ROUNDS
         for _ in range(rounds):
             comm.recv(ping, 0, SYNC_TAG)
             comm.send(np.array([time.monotonic()], np.float64), 0, SYNC_TAG)
-    table = np.asarray(comm.coll.bcast(comm, table, root=0))
+    # the table goes out point-to-point, not as a collective: rank 0 pings
+    # the peers in turn, so the first finishes rounds × (n − 2) round trips
+    # before the last, and a bcast would stamp that skew into the trace as
+    # a program collective's arrivals, which entry_skew would read as
+    # lateness (under host load the ping-pongs take tens of ms)
+    if comm.rank == 0:
+        for peer in range(1, comm.size):
+            comm.send(table, peer, SYNC_TAG)
+    else:
+        comm.recv(table, 0, SYNC_TAG)
     return table[0], table[1]
 
 

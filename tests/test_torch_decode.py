@@ -533,8 +533,13 @@ def test_fused_refusals(dc1, weights, pools):
         ContinuousBatchingScheduler(eng, [], spec_k=1)
     with pytest.raises(ValueError, match="spec_k"):
         ContinuousBatchingScheduler(eng, [], spec_k=-2)
-    errs = pools(2).run("_torch_serve_worker:fused_refusals", {"tp": 2},
-                        dict(FUSED_KW), tree)
-    for err in errs:
-        assert "max_seqs=3 divisible by the 2-way tp axis" in err["max_seqs"]
-        assert "P17" in err["verify"]
+    got = pools(2).run("_torch_serve_worker:fused_refusals", {"tp": 2},
+                       dict(FUSED_KW), tree)
+    for out in got:
+        assert "max_seqs=3 divisible by the 2-way tp axis" in out["max_seqs"]
+        # the fused program's static wire equals one decode step's audit
+        rep = out["verify"]
+        assert rep["ok"], rep
+        row = next(r for r in rep["rows"] if r["coll"] == "decode_collmm")
+        assert row["static"] == row["runtime"] > 0
+        assert rep["issues"] == [] and rep["host_transfers"] == []

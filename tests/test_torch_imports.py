@@ -58,7 +58,8 @@ def test_every_module_is_listed():
                  "trace", "trace.merge", "trace.analyze", "perf",
                  "perf.model", "perf.goodput", "perf.sentry", "traffic",
                  "traffic.matrix", "traffic.planes", "traffic.sentry",
-                 "serving.requests", "trace.critical"):
+                 "serving.requests", "trace.critical",
+                 "analysis.commgraph", "analysis.lint"):
         assert f"ompi_tpu_torch.{name}" in MODULES
 
 

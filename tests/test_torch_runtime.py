@@ -9,6 +9,10 @@ bytes).  The host surface imports no JAX on the port's side; the JAX
 package is only the reference here.
 """
 
+import selectors
+import socket
+import time
+
 import numpy as np
 import pytest
 
@@ -88,6 +92,69 @@ def test_send_recv_isend_irecv(size):
         return fn
 
     _assert_bitwise(*_both(size, make))
+
+
+def test_large_sendrecv_under_idle_wait():
+    """Both ranks exchange 4 MB at once: fragments cross while each rank's
+    waits block in its transport's idle hook."""
+    big = _rows(3, 2, (1 << 20,))
+
+    def make(pkg):
+        def fn(ctx):
+            c = ctx.comm_world
+            got = np.zeros(1 << 20, np.float32)
+            c.sendrecv(big[c.rank], 1 - c.rank, got, 1 - c.rank,
+                       sendtag=4, recvtag=4)
+            return got
+        return fn
+
+    ref, got = _both(2, make)
+    _assert_bitwise(ref, got)
+    _assert_bitwise(got, big[::-1])
+
+
+def test_tcp_idle_wait_blocks_until_whole_frame():
+    """The tcp idle hook cedes the core only for a whole frame on hand; a
+    partial one blocks until more bytes land, and a queued send wakes it
+    when its socket turns writable."""
+    from ompi_tpu_torch.p2p import tcp
+
+    t = tcp.TcpTransport()
+    srv = socket.create_server(("127.0.0.1", 0))
+    out_peer = socket.create_connection(srv.getsockname())
+    rx = tcp._Conn(srv.accept()[0])
+    in_peer = socket.create_connection(srv.getsockname())
+    tx = tcp._Conn(in_peer)
+    tx_far = srv.accept()[0]
+    t._rx.append(rx)
+    t._sel.register(rx.sock, selectors.EVENT_READ, ("rx", rx))
+    t._tx[1] = tx
+    t._sel.register(tx.sock, selectors.EVENT_READ, ("tx", tx))
+
+    def waited(timeout):
+        t0 = time.monotonic()
+        t.idle_wait(timeout)
+        return time.monotonic() - t0
+
+    try:
+        frame = tcp._HDR.pack(1000, 0) + bytes(1000)
+        rx.inbuf.extend(frame[:500])
+        assert waited(0.05) >= 0.04          # partial frame: blocks
+        rx.inbuf.extend(frame[500:])
+        assert waited(5.0) < 1.0             # whole frame: no sleep
+        rx.inbuf.clear()
+        out_peer.sendall(b"x")
+        assert waited(5.0) < 1.0             # readable socket wakes it
+        rx.sock.recv(16)
+        tx.outbuf.append(memoryview(b"queued"))
+        assert waited(5.0) < 1.0             # writable socket wakes it
+        assert t._sel.get_key(tx.sock).events == selectors.EVENT_READ
+        tx.outbuf.clear()
+        assert waited(0.05) >= 0.04          # nothing to do: blocks
+    finally:
+        t._sel.close()
+        for s in (srv, out_peer, rx.sock, in_peer, tx_far):
+            s.close()
 
 
 def test_any_source_and_probe():

@@ -331,8 +331,26 @@ def test_prometheus_rows_parse(world4):
         assert f"ompi_tpu_{name}{{" in text
 
 
+def _moved(m: dict, n: int) -> dict:
+    """A reference matrix's byte figures times (n − 1)/n (each divides
+    exactly here): ring attention's charge when the ring makes the n − 1
+    hops the port makes, where the reference charges n."""
+    def part(b):
+        assert b * (n - 1) % n == 0, b
+        return b * (n - 1) // n
+    return {**m, "edges": [{**e, "bytes": part(e["bytes"])}
+                           for e in m["edges"]],
+            "planes": {k: part(v) for k, v in m["planes"].items()},
+            "per_coll": {k: part(v) for k, v in m["per_coll"].items()},
+            "attributed_bytes": part(m["attributed_bytes"])}
+
+
 def test_wrapper_charges_equal_reference(world4):
+    """Every wrapper's charge equals the reference's, but ring
+    attention's: the port charges the n − 1 hops it makes, (n − 1)/n of
+    the reference's n-hop figure (ROADMAP, Departures)."""
     want = ref.ref_geometry(N)
+    want["ring_attention"] = _moved(want["ring_attention"], N)
     for got in world4:
         geo = got["geometry"]
         for key, w in want.items():
